@@ -1,0 +1,154 @@
+"""Filter backend vtable (L2) — the NN-framework plug-in interface.
+
+Reference analog: ``GstTensorFilterFramework`` V1
+(gst/nnstreamer/include/nnstreamer_plugin_api_filter.h:274 — ``open``,
+``close``, ``invoke``, ``getModelInfo{GET_IN_OUT_INFO,SET_INPUT_INFO}``;
+the ``eventHandler`` is not ported yet) and the shared-model table (:578-617). The reference has 23 such backends wrapping
+tflite/TF/torch/TensorRT/EdgeTPU/...; in this package PyTorch on CUDA *is*
+the execution engine (``torch_backend``), behind the same vtable semantics.
+"""
+from __future__ import annotations
+
+import enum
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from ..core import TensorsInfo
+from ..registry.subplugin import SubpluginKind, register
+
+
+class Accelerator(enum.Enum):
+    """Reference ``accl_hw`` (nnstreamer_plugin_api_filter.h:80-102), mapped
+    to the devices PyTorch targets here."""
+
+    AUTO = "auto"
+    CPU = "cpu"
+    GPU = "gpu"
+
+
+@dataclass
+class FilterProperties:
+    """Open-time properties handed to a backend (reference
+    ``GstTensorFilterProperties``)."""
+
+    model: str = ""
+    custom: str = ""                      # free-form "key:value,key2:v2" string
+    accelerator: Accelerator = Accelerator.AUTO
+
+    def custom_dict(self) -> Dict[str, str]:
+        out: Dict[str, str] = {}
+        for part in self.custom.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            k, _, v = part.partition(":")
+            out[k.strip()] = v.strip()
+        return out
+
+
+class FilterBackend:
+    """Abstract NN backend. One instance = one opened model.
+
+    Lifecycle: ``open()`` → [``get_model_info``/``set_input_info``] →
+    ``invoke()``×N → ``close()``. The filter element serializes invokes.
+    """
+
+    NAME = ""
+    ALIASES: Sequence[str] = ()
+
+    def __init__(self):
+        self.props: Optional[FilterProperties] = None
+
+    # -- vtable -------------------------------------------------------------
+    def open(self, props: FilterProperties) -> None:
+        self.props = props
+
+    def close(self) -> None:
+        self.props = None
+
+    def invoke(self, inputs: List[Any]) -> List[Any]:
+        """Run the model on one frame's tensors. Arrays may be numpy or
+        torch tensors; returning CUDA tensors keeps data on the device for
+        the next stage."""
+        raise NotImplementedError
+
+    def get_model_info(self) -> Tuple[Optional[TensorsInfo], Optional[TensorsInfo]]:
+        """(input_info, output_info); either may be None if the model cannot
+        declare it (then ``set_input_info`` is probed — reference
+        GET_IN_OUT_INFO vs SET_INPUT_INFO)."""
+        return None, None
+
+    def set_input_info(self, in_info: TensorsInfo) -> Optional[TensorsInfo]:
+        """Given a concrete input spec, return the output spec (dynamic-shape
+        models — reference SET_INPUT_INFO), or None when the backend cannot
+        tell without running the model (output caps are then flexible).
+        Negotiation never runs a model here: a full-width generate during
+        caps negotiation would cost as much as a request."""
+        return None
+
+
+def register_backend(cls):
+    """Class decorator: register a FilterBackend (reference
+    ``nnstreamer_filter_probe`` from the ELF constructor)."""
+    register(SubpluginKind.FILTER, cls.NAME, cls, aliases=cls.ALIASES)
+    return cls
+
+
+# ---------------------------------------------------------------------------
+# Shared-model table: N filter elements sharing one opened backend instance.
+# Reference: shared model representation API
+# (nnstreamer_plugin_api_filter.h:578-617, keyed by "shared-tensor-filter-key").
+# ---------------------------------------------------------------------------
+
+_shared: Dict[str, "_SharedEntry"] = {}
+_shared_lock = threading.Lock()
+
+
+@dataclass
+class _SharedEntry:
+    backend: FilterBackend
+    signature: tuple = ()
+    refcount: int = 0
+
+
+def acquire_backend(name: str, props: FilterProperties, share_key: str = "") -> FilterBackend:
+    """Instantiate-and-open a backend; with ``share_key``, reuse an existing
+    opened instance (refcounted). Reuse requires the same framework/model —
+    the reference's shared-model table likewise rejects incompatible reuse."""
+    from ..registry.subplugin import get
+
+    if not share_key:
+        backend: FilterBackend = get(SubpluginKind.FILTER, name)()
+        backend.open(props)
+        return backend
+    signature = (name, props.model, props.custom)
+    with _shared_lock:
+        entry = _shared.get(share_key)
+        if entry is None:
+            backend = get(SubpluginKind.FILTER, name)()
+            backend.open(props)
+            entry = _SharedEntry(backend, signature)
+            _shared[share_key] = entry
+        elif entry.signature != signature:
+            raise ValueError(
+                f"shared-tensor-filter-key '{share_key}' already bound to "
+                f"{entry.signature}, cannot rebind to {signature}"
+            )
+        entry.refcount += 1
+        return entry.backend
+
+
+def release_backend(backend: FilterBackend, share_key: str = "") -> None:
+    if not share_key:
+        backend.close()
+        return
+    with _shared_lock:
+        entry = _shared.get(share_key)
+        if entry is None or entry.backend is not backend:
+            backend.close()
+            return
+        entry.refcount -= 1
+        if entry.refcount <= 0:
+            del _shared[share_key]
+            backend.close()

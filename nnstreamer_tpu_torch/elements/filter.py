@@ -1,0 +1,419 @@
+"""tensor_filter: THE inference element (L3).
+
+Reference analog: ``gst/nnstreamer/tensor_filter/tensor_filter.c`` (1581 LoC)
++ property/lifecycle logic from ``tensor_filter_common.c`` (3118 LoC). Caps
+negotiation opens the backend and loads model info (§3.1 call stack); the
+steady-state chain (§3.2) runs: validate → input-combination → invoke (timed)
+→ output-combination → push. Notes:
+
+* outputs stay device-resident (CUDA tensors) between filter stages;
+* invoke statistics use the same 10-sample sliding window;
+* QoS throttling honors ``tensor_rate`` THROTTLE events exactly like the
+  reference (``gst_tensor_filter_check_throttling_delay``, tensor_filter.c:512);
+* ``framework=auto`` detects the backend from the model extension via the
+  config's framework_priority (tensor_filter_common.c:1218).
+
+Not in this package yet (nnstreamer_tpu has them): invoke-dynamic, suspend,
+hot model swap (is-updatable / reload), placement pins, registry:// model
+URIs, layout and tensor-name properties, segment fusion and the memory
+accounting hooks.
+"""
+from __future__ import annotations
+
+import threading
+from typing import List, Optional
+
+import torch
+
+from ..backends.base import (
+    Accelerator,
+    FilterBackend,
+    FilterProperties,
+    acquire_backend,
+    release_backend,
+)
+from ..core import (
+    Buffer,
+    Caps,
+    Event,
+    EventType,
+    MessageType,
+    TensorFormat,
+    TensorsInfo,
+    caps_from_tensors_info,
+    clock_now,
+    tensors_info_from_caps,
+)
+from ..registry.config import get_config
+from ..registry.elements import register_element
+from ..registry.subplugin import SubpluginKind, names as subplugin_names
+from ..runtime.element import ElementError, Prop, TransformElement, prop_bool
+from ..runtime.pad import Pad, PadDirection, PadTemplate
+from ..utils.stats import InvokeStats
+
+
+def _parse_combination(v) -> Optional[List[int]]:
+    """Parse "0,2,1" style tensor index lists (input-combination)."""
+    if v is None or v == "":
+        return None
+    return [int(p) for p in str(v).split(",")]
+
+
+def _parse_out_combination(v) -> Optional[List[tuple]]:
+    """Parse output-combination: "i0,o1" (i=input passthrough, o=model
+    output; bare ints mean outputs) — reference ``output-combination`` prop
+    (tensor_filter.c:857-876)."""
+    if v is None or v == "":
+        return None
+    out = []
+    for p in str(v).split(","):
+        p = p.strip()
+        if p.startswith("i"):
+            out.append(("i", int(p[1:])))
+        elif p.startswith("o"):
+            out.append(("o", int(p[1:])))
+        else:
+            out.append(("o", int(p)))
+    return out
+
+
+@register_element
+class TensorFilter(TransformElement):
+    ELEMENT_NAME = "tensor_filter"
+    SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, Caps.new("other/tensors")),)
+    SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new("other/tensors")),)
+    PROPERTIES = {
+        "framework": Prop("auto", str, "backend name or 'auto' (detect from model ext)"),
+        "model": Prop("", str, "module:attr of a callable or model entry"),
+        "custom": Prop("", str, "backend-specific option string 'k:v,k2:v2'"),
+        "accelerator": Prop("auto", str,
+                            "auto | cpu | gpu (auto and gpu run on cuda:0)"),
+        "input_combination": Prop(None, _parse_combination,
+                                  "indices of input tensors passed to the model"),
+        "output_combination": Prop(None, _parse_out_combination,
+                                   "i<N>=input passthrough, o<N>=model output; plain ints = outputs"),
+        "shared_tensor_filter_key": Prop("", str, "share one opened model across elements"),
+        "latency_report": Prop(False, prop_bool, "post latency messages on the bus"),
+        "throttle": Prop(True, prop_bool, "honor QoS throttle events from tensor_rate"),
+        "sync_invoke": Prop(False, prop_bool,
+                            "block until device results are ready (debug/bench)"),
+        "latency_sampling": Prop(10, int,
+                                 "block on every Nth invoke to sample true "
+                                 "device latency (0 = never); dispatch time "
+                                 "is recorded every invoke"),
+        "input_dims": Prop("", str,
+                           "force model input dims '3:224:224:1[,...]' for "
+                           "backends that can't self-describe (reference "
+                           "input prop)"),
+        "input_types": Prop("", str, "force model input dtypes 'uint8,...'"),
+        "output_dims": Prop("", str, "force model output dims (reference output)"),
+        "output_types": Prop("", str, "force model output dtypes"),
+        # reference tensor_filter.c:366-510: ``latency``/``throughput`` are
+        # SETTABLE mode flags (0 off, 1 on) that enable profiling; reading
+        # them back returns the measured value (get_property below)
+        "latency": Prop(0, int,
+                        "1 = profile device latency every invoke "
+                        "(reference latency prop); read back as ms"),
+        "throughput": Prop(0, int,
+                           "1 = enable throughput accounting (reference "
+                           "throughput prop); read back as fps"),
+    }
+    # the reference's original property spellings (tensor_filter.c
+    # "input"/"inputtype"/"output"/"outputtype") — drop-in launch lines
+    PROP_ALIASES = {
+        "input": "input_dims",
+        "inputtype": "input_types",
+        "output": "output_dims",
+        "outputtype": "output_types",
+    }
+    # config-file: the generic key=value property file lives in Element
+    # (reference gst_tensor_parse_config_file); _apply_config_file below
+    # additionally routes non-property lines into custom options.
+
+    # LATENCY-query tuning (reference tensor_filter.c:110-120): headroom
+    # padded onto the reported estimate to limit re-report churn while
+    # tracking a maximum; threshold of downward deviation that still
+    # forces a re-report
+    LATENCY_REPORT_HEADROOM = 0.05
+    LATENCY_REPORT_THRESHOLD = 0.25
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.backend: Optional[FilterBackend] = None
+        self.stats = InvokeStats()
+        self._latency_reported = 0.0  # last value handed to a LATENCY query
+        self._latency_posted = 0.0    # estimate last announced on the bus
+        self._in_info: Optional[TensorsInfo] = None
+        self._out_info: Optional[TensorsInfo] = None
+        self._throttle_delay_s = 0.0
+        self._last_accept_ts = 0.0  # last accepted frame (QoS throttle gate)
+        # THE invoke lock: backend open/close and invokes serialize on it
+        self._backend_lock = threading.Lock()
+
+    SUBPLUGIN_KIND = SubpluginKind.FILTER  # read-only sub-plugins prop
+
+    # read-only observability props (reference latency/throughput props)
+    def get_property(self, key: str):
+        key_n = key.replace("-", "_")
+        if key_n == "latency":
+            return self.stats.recent_device_latency_s * 1e3
+        if key_n == "throughput":
+            return self.stats.throughput_fps
+        if key_n in ("inputranks", "outputranks"):
+            # reference read-only rank lists (tensor_filter_common.c:928,949)
+            info = self._in_info if key_n == "inputranks" else self._out_info
+            if info is None or not info.specs:
+                return ""
+            return ",".join(str(len(s.shape)) for s in info.specs)
+        return super().get_property(key)
+
+    # -- lifecycle ----------------------------------------------------------
+    def _detect_framework(self, model: str) -> str:
+        # aliases ([filter-aliases] in the ini, reference nnstreamer.ini.in)
+        # apply to explicit framework names AND to auto-detect candidates
+        fw = self.props["framework"]
+        if fw != "auto":
+            return get_config().filter_alias(fw)
+        candidates = [get_config().filter_alias(c)
+                      for c in get_config().framework_priority(model)]
+        available = set(subplugin_names(SubpluginKind.FILTER))
+        for c in candidates:
+            if c in available:
+                return c
+        raise ElementError(
+            f"{self.describe()}: cannot auto-detect framework for model "
+            f"'{model}' (candidates {candidates}, available {sorted(available)})"
+        )
+
+    def _config_file_begin(self) -> None:
+        # a fresh top-level config-file apply replaces previously merged
+        # custom options (re-setting the property must not duplicate them)
+        self._config_custom = []
+
+    def _config_file_other_line(self, ln: str) -> None:
+        """Filter extension to the generic config-file: lines that are not
+        properties (``factor:5`` custom-option style) merge into the
+        ``custom`` string; property lines — including nested config-file=
+        — are handled by Element with its cycle guard."""
+        extra = getattr(self, "_config_custom", None)
+        if extra is None:
+            extra = self._config_custom = []
+        extra.append(ln)
+
+    def _custom_with_config_file(self) -> str:
+        custom = self.props["custom"]
+        extra = getattr(self, "_config_custom", [])
+        if not extra:
+            return custom
+        joined = ",".join(extra)
+        return f"{custom},{joined}" if custom else joined
+
+    def _open_backend(self) -> None:
+        if self.backend is not None:
+            return
+        model = self.props["model"]
+        fprops = FilterProperties(
+            model=model,
+            custom=self._custom_with_config_file(),
+            accelerator=Accelerator(self.props["accelerator"]),
+        )
+        self.backend = acquire_backend(
+            self._detect_framework(model), fprops,
+            self.props["shared_tensor_filter_key"]
+        )
+
+    def _release_backend(self) -> None:
+        if self.backend is not None:
+            release_backend(self.backend, self.props["shared_tensor_filter_key"])
+            self.backend = None
+
+    def stop(self) -> None:
+        with self._backend_lock:
+            self._release_backend()
+
+    # -- negotiation (§3.1) -------------------------------------------------
+    @staticmethod
+    def _forced_info(dims: str, types: str) -> Optional[TensorsInfo]:
+        """Build a TensorsInfo from 'd:d:d,d:d' dims + 'type1,type2' props
+        (reference input/inputtype/output/outputtype declarations)."""
+        if not dims:
+            return None
+        from ..core.tensors import TensorSpec
+
+        dim_parts = dims.split(",")
+        type_parts = types.split(",") if types else ["float32"] * len(dim_parts)
+        if len(type_parts) != len(dim_parts):
+            raise ElementError(
+                f"declared {len(dim_parts)} dims but {len(type_parts)} types "
+                f"({dims!r} vs {types!r})")
+        specs = [
+            TensorSpec.from_dim_string(d, t)
+            for d, t in zip(dim_parts, type_parts)
+        ]
+        return TensorsInfo.of(*specs)
+
+    def set_caps(self, pad: Pad, caps: Caps) -> None:
+        in_info = tensors_info_from_caps(caps)
+        with self._backend_lock:
+            self._open_backend()
+            model_in, model_out = self.backend.get_model_info()
+            # explicit declarations beat backend self-description (reference:
+            # input/inputtype/output/outputtype props for opaque models)
+            forced_in = self._forced_info(self.props["input_dims"],
+                                          self.props["input_types"])
+            forced_out = self._forced_info(self.props["output_dims"],
+                                           self.props["output_types"])
+            if forced_in is not None:
+                model_in = forced_in
+            if forced_out is not None:
+                model_out = forced_out
+            if in_info.format is TensorFormat.STATIC and in_info.specs:
+                sel = self.props["input_combination"]
+                model_view = self._select(in_info.specs, sel) if sel else in_info.specs
+                model_view_info = TensorsInfo.of(*model_view)
+                if model_in is not None and not model_in.is_equal(model_view_info):
+                    raise ElementError(
+                        f"{self.describe()}: stream {model_view_info.describe()} != "
+                        f"model input {model_in.describe()}"
+                    )
+                if model_out is None:
+                    model_out = self.backend.set_input_info(model_view_info)
+        self._in_info = in_info
+        self._out_info = self._compute_out_info(in_info, model_out)
+
+    def _compute_out_info(self, in_info: TensorsInfo,
+                          model_out: Optional[TensorsInfo]) -> Optional[TensorsInfo]:
+        out_comb = self.props["output_combination"]
+        if model_out is None:
+            return None  # flexible downstream
+        if out_comb is None:
+            return model_out
+        specs = []
+        for src, idx in out_comb:
+            specs.append(in_info.specs[idx] if src == "i" else model_out.specs[idx])
+        return TensorsInfo.of(*specs)
+
+    def transform_caps(self, src_pad: Pad) -> Caps:
+        if self._out_info is not None:
+            return caps_from_tensors_info(self._out_info)
+        return caps_from_tensors_info(TensorsInfo((), TensorFormat.FLEXIBLE))
+
+    # -- QoS (reference tensor_filter.c:512) --------------------------------
+    def handle_src_event(self, pad: Pad, event: Event) -> None:
+        if event.type is EventType.QOS and self.props["throttle"]:
+            self._throttle_delay_s = float(event.data.get("throttle_delay_s", 0.0))
+            return  # consumed, like the reference
+        super().handle_src_event(pad, event)
+
+    @staticmethod
+    def _select(items, indices):
+        return [items[i] for i in indices]
+
+    # -- hot loop (§3.2) ----------------------------------------------------
+    def _throttle_accept(self) -> bool:
+        """QoS acceptance gate: drop frames arriving faster than the QoS
+        delay. The window starts at frame ACCEPTANCE (reference
+        gst_tensor_filter_check_throttling_delay), not invoke completion."""
+        if self._throttle_delay_s > 0:
+            now = clock_now()
+            if now - self._last_accept_ts < self._throttle_delay_s:
+                return False
+            self._last_accept_ts = now
+        return True
+
+    def transform(self, buf: Buffer) -> Optional[Buffer]:
+        if self._in_info is None:
+            raise ElementError(f"{self.describe()}: buffer before caps/open")
+        # 0. throttling
+        if not self._throttle_accept():
+            return None  # frame dropped (reference: GST_BASE_TRANSFORM drop)
+        # 1. input combination
+        sel = self.props["input_combination"]
+        model_inputs = self._select(buf.tensors, sel) if sel else buf.tensors
+        # 2-3. invoke (timed). Dispatch time is recorded every frame; true
+        # device latency (the reference's synchronous invoke number,
+        # tensor_filter.c:366-510) is sampled every Nth frame by blocking,
+        # so latency_report stays honest without serializing the stream.
+        sampling = self.props["latency_sampling"]
+        if self.props["latency"]:  # reference latency=1: profile every invoke
+            sampling = 1
+        # skip the very first invoke (includes kernel builds and warm-up)
+        # so one giant outlier doesn't own the 10-sample window
+        sample_device = self.props["sync_invoke"] or (
+            sampling > 0
+            and self.stats.total_invokes > 0
+            and self.stats.total_invokes % sampling == 0
+        )
+        with self._backend_lock:
+            backend = self.backend
+            if backend is None:
+                raise ElementError(f"{self.describe()}: backend not open")
+            t0 = clock_now()
+            outputs = backend.invoke(model_inputs)
+            t1 = clock_now()
+        # dispatch channel gets ONLY the host-side call time, even on
+        # sampled frames — waiting time goes to the device channel
+        self.stats.record(t1 - t0)
+        if sample_device:
+            for dev in {o.device for o in outputs
+                        if isinstance(o, torch.Tensor) and o.is_cuda}:
+                torch.cuda.current_stream(dev).synchronize()
+            self.stats.record_device(clock_now() - t0)
+        # 5. output combination: i<N> passthrough of inputs, o<N>/int = outputs
+        out_comb = self.props["output_combination"]
+        if out_comb is not None:
+            outputs = [
+                buf.tensors[idx] if src == "i" else outputs[idx]
+                for src, idx in out_comb
+            ]
+        out = Buffer(list(outputs)).copy_metadata_from(buf)
+        if self.props["latency_report"]:
+            self.post_message(MessageType.ELEMENT, **self.stats.snapshot())
+            self._track_latency()
+        return out
+
+    # -- pipeline LATENCY query (reference tensor_filter.c:366-510,1386) ----
+    def _estimated_latency_s(self) -> float:
+        """Current invoke latency estimate: sampled device-complete time
+        when available, host dispatch time otherwise."""
+        est = self.stats.recent_device_latency_s
+        return est if est > 0 else self.stats.recent_latency_s
+
+    def _track_latency(self) -> None:
+        """Post a LATENCY bus message when the estimate outgrows the last
+        reported value or sinks >25% below it, prompting the app to re-run
+        Pipeline.query_latency() (reference track_latency). One message per
+        announcement: re-posts only once the estimate escapes what was
+        already announced, so an app that never queries isn't flooded."""
+        estimated = self._estimated_latency_s()
+        if estimated <= 0:
+            return
+        reported = self._latency_reported
+        deviation = abs(estimated - reported) / reported if reported > 0 else 0.0
+        if not (estimated > reported or deviation > self.LATENCY_REPORT_THRESHOLD):
+            return
+        posted = self._latency_posted
+        if posted > 0 and (
+                abs(estimated - posted) / posted <= self.LATENCY_REPORT_THRESHOLD
+                and estimated <= posted * (1 + self.LATENCY_REPORT_HEADROOM)):
+            return  # this estimate was already announced; await the query
+        self._latency_posted = estimated
+        self.post_message(MessageType.LATENCY,
+                          estimated_s=estimated, reported_s=reported)
+
+    def report_latency(self):
+        if not self.props["latency_report"]:
+            return None
+        estimated = self._estimated_latency_s()
+        if estimated <= 0:
+            return None
+        latency = estimated * (1 + self.LATENCY_REPORT_HEADROOM)
+        self._latency_reported = latency
+        self._latency_posted = 0.0  # the app reacted; re-arm announcements
+        return latency
+
+    # -- runtime model control ----------------------------------------------
+    @property
+    def backend_device(self):
+        """The device the opened backend runs on."""
+        return getattr(self.backend, "device", None)

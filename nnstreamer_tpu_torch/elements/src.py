@@ -1,0 +1,187 @@
+"""Source elements: a synthetic tensor test source and programmatic
+injection.
+
+Reference analogs: GStreamer ``appsrc`` (used throughout the reference's
+tests, SURVEY.md §4) plus a tensor-native test source. Frames are made on
+the host; ``tensor_src device=true``, ``videotestsrc`` and
+``tensor_src_callable`` are not in this package yet.
+"""
+from __future__ import annotations
+
+import queue as _queue
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import (
+    Buffer,
+    Caps,
+    TensorsInfo,
+    caps_from_tensors_info,
+    clock_now,
+    parse_caps_string,
+)
+from ..core.caps import any_media_caps
+from ..core.tensors import TensorSpec
+from ..registry.elements import register_element
+from ..runtime.element import Prop, SourceElement
+from ..runtime.pad import PadDirection, PadTemplate
+
+_ANY_MEDIA_CAPS = any_media_caps()
+
+
+def _parse_framerate(v):
+    if isinstance(v, (int, float)):
+        return float(v)
+    text = str(v)
+    if "/" in text:
+        num, den = text.split("/", 1)
+        return int(num) / max(int(den), 1)
+    return float(text)
+
+
+class _PacedSource(SourceElement):
+    """Common frame pacing + frame counting."""
+
+    PROPERTIES = {
+        "num_buffers": Prop(-1, int, "stop after N buffers (-1 = forever)"),
+        "framerate": Prop(0.0, _parse_framerate, "frames/sec (0 = as fast as possible)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._frame = 0
+        self._t0: Optional[float] = None
+
+    def reset_flow(self) -> None:
+        super().reset_flow()
+        self._frame = 0
+        self._t0 = None
+
+    def _pace(self) -> Optional[dict]:
+        """Returns timestamp kwargs for the next frame, or None when done."""
+        n = self.props["num_buffers"]
+        if n >= 0 and self._frame >= n:
+            return None
+        fps = self.props["framerate"]
+        if self._t0 is None:
+            self._t0 = clock_now()
+        if fps > 0:
+            target = self._t0 + self._frame / fps
+            delay = target - clock_now()
+            if delay > 0:
+                time.sleep(delay)
+            pts = self._frame / fps
+            dur = 1.0 / fps
+        else:
+            pts = clock_now() - self._t0
+            dur = None
+        kw = {"pts": pts, "duration": dur, "offset": self._frame}
+        self._frame += 1
+        return kw
+
+
+@register_element
+class TensorSrc(_PacedSource):
+    """Synthetic ``other/tensors`` source (test signal generator)."""
+
+    ELEMENT_NAME = "tensor_src"
+    SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new("other/tensors")),)
+    PROPERTIES = {
+        "dimensions": Prop("1", str, "reference dim string(s), '.'-separated"),
+        "types": Prop("float32", str, "dtype(s), '.'-separated"),
+        "pattern": Prop("counter", str, "zeros | ones | random | counter"),
+        "seed": Prop(0, int, "RNG seed for pattern=random"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        dims = self.props["dimensions"].split(".")
+        types = self.props["types"].split(".")
+        if len(types) == 1:
+            types = types * len(dims)
+        self._info = TensorsInfo.of(
+            *(TensorSpec.from_dim_string(d, t) for d, t in zip(dims, types))
+        )
+        self._rng = np.random.default_rng(self.props["seed"])
+
+    def get_src_caps(self) -> Caps:
+        return caps_from_tensors_info(self._info)
+
+    def create(self) -> Optional[Buffer]:
+        kw = self._pace()
+        if kw is None:
+            return None
+        pattern = self.props["pattern"]
+        arrays = []
+        for spec in self._info.specs:
+            dt = spec.dtype.np_dtype
+            if pattern == "zeros":
+                a = np.zeros(spec.shape, dt)
+            elif pattern == "ones":
+                a = np.ones(spec.shape, dt)
+            elif pattern == "random":
+                if spec.dtype.is_float:
+                    a = self._rng.random(spec.shape, np.float32).astype(dt)
+                else:
+                    a = self._rng.integers(0, 127, spec.shape).astype(dt)
+            else:  # counter: every element = frame index (mod dtype range)
+                a = np.full(spec.shape, self._frame - 1).astype(dt)
+            arrays.append(a)
+        return Buffer(arrays, **kw)
+
+
+@register_element
+class AppSrc(SourceElement):
+    """Programmatic injection source (GStreamer ``appsrc`` analog).
+
+    The app pushes buffers with ``push_buffer()`` and terminates with
+    ``end_of_stream()``. Caps come from the ``caps`` property (caps string)
+    or ``set_caps_obj``.
+    """
+
+    ELEMENT_NAME = "appsrc"
+    SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, _ANY_MEDIA_CAPS),)
+    PROPERTIES = {
+        "caps": Prop(None, lambda v: v, "caps string for the stream"),
+        "max_queued": Prop(64, int, "producer-side bound (backpressure)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._buf_q: _queue.Queue = _queue.Queue(maxsize=self.props["max_queued"])
+        self._caps_obj: Optional[Caps] = None
+        if self.props["caps"]:
+            self._caps_obj = parse_caps_string(self.props["caps"])
+
+    def set_caps_obj(self, caps: Caps) -> None:
+        self._caps_obj = caps
+
+    def push_buffer(self, buf: "Buffer | np.ndarray | torch.Tensor | list",
+                    timeout=None) -> None:
+        if isinstance(buf, (np.ndarray, torch.Tensor)):
+            buf = Buffer([buf])
+        elif isinstance(buf, (list, tuple)):
+            buf = Buffer(list(buf))
+        self._buf_q.put(("buf", buf), timeout=timeout)
+
+    def end_of_stream(self) -> None:
+        self._buf_q.put(("eos", None))
+
+    def get_src_caps(self) -> Caps:
+        if self._caps_obj is None:
+            raise ValueError(f"{self.describe()}: no caps set")
+        return self._caps_obj
+
+    def create(self) -> Optional[Buffer]:
+        while self.running:
+            try:
+                kind, payload = self._buf_q.get(timeout=0.1)
+            except _queue.Empty:
+                continue
+            if kind == "eos":
+                return None
+            return payload
+        return None

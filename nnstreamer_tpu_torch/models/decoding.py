@@ -1,0 +1,169 @@
+"""Autoregressive KV-cache decoding for the transformer LM.
+
+The port of nnstreamer_tpu's ``models/decoding.py`` for single-device
+serving: a prefill pass that fills a per-layer K/V cache, a single-token
+decode step that attends against the cache, and a generation loop (a Python
+loop where JAX has ``lax.scan``). The cache is allocated at ``max_seq`` (or
+the serving ``cache_len``) and, unlike JAX's immutable arrays, written in
+place — one position per layer per step, no second copy of the cache.
+
+Types: activations are float32 throughout; parameters and the cache may be
+bfloat16. ``k``/``v`` are cast to the cache's type before they are written;
+``q`` stays float32.
+
+With ``cfg.decode_attn == "kernel"`` the decode step's attention is the
+hand-written CUDA kernel (``ops/decode_attention``; on CPU tensors its plain
+version); ``"dense"`` is the masked dense path, the oracle. For dense
+configs cached decoding picks the same greedy tokens as re-running the full
+forward each step.
+
+Not in this package yet: ``prefill_continue`` (chunked multi-turn
+ingestion), the context-parallel cache and mesh sharding.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import replace
+from typing import List, Optional, Tuple
+
+import torch
+
+from ..ops.decode_attention import decode_attention
+from .transformer import TransformerConfig, _mm, _rmsnorm
+
+
+def init_cache(cfg: TransformerConfig, batch: int,
+               dtype: torch.dtype = torch.float32,
+               device: Optional[torch.device] = None) -> List[dict]:
+    """Zeroed K/V cache: list of {"k","v"} (B, H, max_seq, head_dim)."""
+    shape = (batch, cfg.heads, cfg.max_seq, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.layers)]
+
+
+def _split_heads(cfg: TransformerConfig, t: torch.Tensor) -> torch.Tensor:
+    B, S = t.shape[0], t.shape[1]
+    return t.reshape(B, S, cfg.heads, cfg.head_dim).transpose(1, 2)
+
+
+def _ffn(blk, h: torch.Tensor) -> torch.Tensor:
+    return _mm(torch.relu(_mm(h, blk["w1"])), blk["w2"])
+
+
+def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor,
+            cache: List[dict]) -> Tuple[torch.Tensor, List[dict], int]:
+    """Run the prompt (B, S) through the model, filling cache[:, :, :S].
+
+    Returns (logits of the last position (B, V), cache, next position S).
+    Attention inside the prompt is causal, the same math as ``forward``.
+    """
+    B, S = tokens.shape
+    x = (params["embed"][tokens.long()]
+         + params["pos"][:S][None, :, :]).float()
+    mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))
+    for li, blk in enumerate(params["blocks"]):
+        h = _rmsnorm(x, blk["ln1"])
+        q, k, v = (_split_heads(cfg, t)
+                   for t in _mm(h, blk["wqkv"]).split(cfg.dim, dim=-1))
+        cache[li]["k"][:, :, :S] = k
+        cache[li]["v"][:, :, :S] = v
+        att = (q @ k.transpose(-1, -2)) / math.sqrt(cfg.head_dim)
+        att = torch.softmax(att.masked_fill(~mask, -1e30), dim=-1)
+        o = (att @ v).transpose(1, 2).reshape(B, S, cfg.dim)
+        x = x + _mm(o, blk["wo"])
+        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+    x = _rmsnorm(x[:, S - 1], params["out_norm"])
+    return _mm(x, params["embed"].T), cache, S
+
+
+def decode_step(cfg: TransformerConfig, params, token: torch.Tensor,
+                pos: int, cache: List[dict]) -> Tuple[torch.Tensor, List[dict]]:
+    """One token (B,) at position ``pos`` → (logits (B, V), cache).
+
+    Writes the token's K/V at cache[:, :, pos] and attends against
+    cache[:, :, :pos+1]."""
+    B = token.shape[0]
+    x = (params["embed"][token.long()] + params["pos"][pos]).float()
+    x = x[:, None, :]                                         # (B, 1, D)
+    T = cfg.max_seq
+    kernel = cfg.decode_attn == "kernel"
+    if kernel:
+        block_k = math.gcd(T, 128)
+        # one device-side position for every layer of this step
+        pos_t = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
+                 if x.is_cuda else pos)
+    else:
+        visible = torch.arange(T, device=x.device) <= pos
+    for li, blk in enumerate(params["blocks"]):
+        h = _rmsnorm(x, blk["ln1"])
+        q, k, v = (_split_heads(cfg, t)
+                   for t in _mm(h, blk["wqkv"]).split(cfg.dim, dim=-1))
+        ck, cv = cache[li]["k"], cache[li]["v"]
+        ck[:, :, pos] = k[:, :, 0]
+        cv[:, :, pos] = v[:, :, 0]
+        if kernel:
+            o = decode_attention(q.contiguous(), ck, cv, pos_t, block_k)
+        else:
+            att = (q @ ck.float().transpose(-1, -2)) / math.sqrt(cfg.head_dim)
+            att = torch.softmax(att.masked_fill(~visible, -1e30), dim=-1)
+            o = att @ cv.float()
+        o = o.transpose(1, 2).reshape(B, 1, cfg.dim)
+        x = x + _mm(o, blk["wo"])
+        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+    x = _rmsnorm(x[:, 0], params["out_norm"])
+    return _mm(x, params["embed"].T), cache
+
+
+def make_generate(cfg: TransformerConfig, temperature: float = 0.0,
+                  cache_len: int = 0):
+    """Build ``generate(params, prompt (B, S), steps, generator=None) ->
+    (B, S+steps) int32``: prefill picks the first token, then ``steps-1``
+    decode steps follow. ``temperature`` 0 = greedy (argmax, first maximum
+    on ties); > 0 = sampling from softmax(logits / temperature) with the
+    ``torch.Generator`` given (default: seeded with 0 on the prompt's
+    device).
+
+    ``cache_len`` right-sizes the serving cache: every decode step reads
+    the cache prefix, and a cache allocated at max_seq costs memory the
+    request never uses. Pass the serving length (≤ cfg.max_seq); position
+    embeddings still come from the full table. 0 = cfg.max_seq.
+
+    The cache takes the parameters' dtype: bfloat16 parameters store a
+    bfloat16 cache, halving the attention's reads.
+    """
+    if cache_len:
+        if cache_len > cfg.max_seq:
+            raise ValueError(
+                f"cache_len {cache_len} exceeds the model's max_seq "
+                f"{cfg.max_seq} (position table size)")
+        cfg = replace(cfg, max_seq=cache_len)
+
+    def pick(logits: torch.Tensor, gen: Optional[torch.Generator]):
+        if temperature > 0.0:
+            probs = torch.softmax(logits.float() / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=gen)[:, 0].int()
+        return torch.argmax(logits, dim=-1).int()
+
+    def generate(params, prompt: torch.Tensor, steps: int,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, S = prompt.shape
+        if steps < 1:
+            raise ValueError(f"steps={steps} must be >= 1")
+        if S + steps > cfg.max_seq:
+            raise ValueError(
+                f"prompt ({S}) + steps ({steps}) exceeds max_seq {cfg.max_seq}")
+        if temperature > 0.0 and generator is None:
+            generator = torch.Generator(device=prompt.device).manual_seed(0)
+        cache = init_cache(cfg, B, dtype=params["embed"].dtype,
+                           device=prompt.device)
+        logits, cache, pos = prefill(cfg, params, prompt, cache)
+        token = pick(logits, generator)
+        out = [token]
+        for i in range(steps - 1):
+            logits, cache = decode_step(cfg, params, token, pos + i, cache)
+            token = pick(logits, generator)
+            out.append(token)
+        return torch.cat([prompt.int(), torch.stack(out, dim=1)], dim=1)
+
+    return generate

@@ -1,0 +1,73 @@
+"""The port stands alone: it imports with JAX blocked, loads nothing of
+nnstreamer_tpu, and no file of it (nor chip_smoke.py) imports JAX, its
+companions or nnstreamer_tpu."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "nnstreamer_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "nnstreamer_tpu")
+SLICE_MODULES = [
+    "nnstreamer_tpu_torch",
+    "nnstreamer_tpu_torch.core",
+    "nnstreamer_tpu_torch.runtime.parse",
+    "nnstreamer_tpu_torch.registry.elements",
+    "nnstreamer_tpu_torch.registry.subplugin",
+    "nnstreamer_tpu_torch.registry.config",
+    "nnstreamer_tpu_torch.backends.torch_backend",
+    "nnstreamer_tpu_torch.elements.filter",
+    "nnstreamer_tpu_torch.elements.src",
+    "nnstreamer_tpu_torch.elements.sink",
+    "nnstreamer_tpu_torch.models.lm_serving",
+    "nnstreamer_tpu_torch.models.convert",
+    "nnstreamer_tpu_torch.ops.decode_attention",
+    "nnstreamer_tpu_torch.utils.threads",
+]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_imports_with_jax_blocked():
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None      # any import of them raises ImportError
+import importlib
+for mod in {SLICE_MODULES!r}:
+    importlib.import_module(mod)
+from nnstreamer_tpu_torch.registry.elements import element_factories
+from nnstreamer_tpu_torch.registry.subplugin import SubpluginKind, get
+assert {{"appsrc", "tensor_filter", "tensor_sink", "tensor_src"}} <= set(element_factories())
+assert get(SubpluginKind.FILTER, "torch") is get(SubpluginKind.FILTER, "pytorch")
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
