@@ -11,17 +11,29 @@ exits non-zero, printing no result, when any of these is missing or any
 phase fails:
 
 1. device — print the card's name and power limit (nvidia-smi);
-2. build — build every CUDA kernel from csrc/ and time the build;
+2. build — build every CUDA kernel from csrc/ (one nvcc each, in
+   parallel) and time the build;
 3. kernels — hold each kernel against its plain PyTorch version at the
    ``base`` LM's shapes, time kernel, plain version and the PyTorch
    library call that computes the same function, beside the bound;
 4. slice end to end — serve 3 requests through
    ``appsrc ! tensor_filter framework=torch model=...lm_serving:base !
    tensor_sink`` (float32, then ``custom=serve_dtype:bfloat16``), check the
-   outputs and that every decode step went through the kernel;
-5. teacher-forced parity — decode_step through the kernel and through the
-   dense path on the same tokens; the logits agree at every step. Then the
-   ``tiny`` entry's greedy tokens on the card equal the CPU path's.
+   outputs and that every prefill and decode step went through the kernels;
+5. streaming — the same 3 requests through ``appsrc ! tensor_generate
+   model=...lm_serving:base steps=64 ! tensor_sink`` (float32): one (8, 1)
+   int32 buffer per token, the tokens equal to the filter's, every prefill
+   and decode step through the kernels; generated tokens/s and the time to
+   the first token;
+6. teacher-forced parity — prefill and decode_step through the kernels
+   and through the dense path on the same tokens; the logits agree after
+   the prefill and at every step. Then the
+   ``tiny`` entry's greedy tokens on the card equal the CPU path's;
+7. conversation — two turns at ``base`` through ``tensor_generate
+   conversation=true``, equal to the session API's; turn 2's first-step
+   logits (chunked prefill on the kept cache) equal a from-scratch prefill
+   over history plus prompt; the same two turns at ``tiny`` give the CPU
+   path's tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -41,14 +53,19 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and float32
-# (non-tensor-core) flop/s; the kernel computes in float32
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, float32
+# (non-tensor-core) flop/s and dense bfloat16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # kernel vs plain version: both accumulate in float32 (a bfloat16 cache is
 # widened exactly), so they differ only in summation order
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
+# a bfloat16 flash output is the kernel's float32 result rounded once, so it
+# is held against the plain version's float32 result on the same inputs
+# with half a bf16 step (at most 2^-8 relative) added to rtol
+BF16_HALF_STEP = 2.0 ** -8
 # teacher-forced logits, kernel vs dense path, 12 layers deep: f32 differs by
 # summation order only; with a bf16 cache one K/V value rounded the other
 # way shifts a logit by about a bf16 ulp of its inputs
@@ -57,6 +74,13 @@ PARITY_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BASE_SHAPE = dict(B=8, H=16, T=2048, D=64, block_k=128)
 CHECK_POS = (0, 127, 128, 1023, 2047)
 PROMPT, REQUESTS, STEPS = 512, 3, 64
+# the prefill's attention on the main path: (B, H, S, D), causal
+FLASH_SHAPE = (8, 16, PROMPT, 64)
+# conversation phase: tokens per turn; turn 2's prompt length (turn 1's
+# is PROMPT)
+TURN_STEPS, TURN2_PROMPT = 16, 64
+# chunked-prefill logits vs a from-scratch prefill, 12 layers, float32
+CONV_ATOL = 1e-4
 # the decode steps of the main path attend at positions PROMPT..PROMPT+62;
 # the kernel line is timed at the middle one
 MAIN_POS = PROMPT + (STEPS - 1) // 2
@@ -99,6 +123,19 @@ def decode_bound_ms(B, H, D, pos, elt) -> tuple:
     flops = 4 * B * H * n * D + B * H * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound_ms(B, H, S, D, elt) -> tuple:
+    """Least time for one causal flash attention: q, k, v read and the
+    output written once; 4D flops (q.k and p.v) and one exp per visible
+    (q, k) pair, at the card's rate for the input type."""
+    pairs = S * (S + 1) // 2
+    nbytes = 4 * B * H * S * D * elt
+    flops = B * H * pairs * (4 * D + 1)
+    rate = F32_FLOP_PER_S if elt == 4 else BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -184,11 +221,107 @@ def phase_kernels(report: dict, dev: torch.device) -> dict:
     return timings
 
 
+def phase_flash(report: dict, dev: torch.device) -> dict:
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    B, H, S, D = FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    checks, timings = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        elt = torch.tensor([], dtype=dtype).element_size()
+        # distinct q/k/v sets, so one pass over them overflows the 50 MB L2
+        sets = [tuple(torch.randn(FLASH_SHAPE, device=dev, generator=gen)
+                      .to(dtype) for _ in range(3))
+                for _ in range(2 if dtype is torch.float32 else 3)]
+        rtol = KERNEL_RTOL + (BF16_HALF_STEP if dtype is torch.bfloat16
+                              else 0.0)
+        errs = {}
+        for causal in (True, False):
+            q, k, v = sets[0]
+            got = flash_attention(q, k, v, causal)
+            want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                         causal)
+            torch.cuda.synchronize()
+            errs[causal] = (got.float() - want).abs().max().item()
+            torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                       atol=KERNEL_ATOL)
+            checks.append({"dtype": str(dtype), "causal": causal,
+                           "shape": FLASH_SHAPE,
+                           "max_abs_err": errs[causal], "rtol": rtol})
+        bound, bound_by = flash_bound_ms(B, H, S, D, elt)
+        timings[str(dtype)] = {
+            "max_abs_err": errs[True],
+            "ms": time_ms(flash_attention, sets, inner=10),
+            "plain_ms": time_ms(flash_attention_plain, sets, inner=10),
+            "library_ms": time_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), sets, inner=10),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        print(f"flash_attention {dtype}: " + json.dumps(timings[str(dtype)]))
+        del sets
+    # a prompt length that is not a multiple of the kernel's 64-row tile
+    q, k, v = (torch.randn(8, 16, 200, 64, device=dev, generator=gen)
+               for _ in range(3))
+    try:
+        flash_attention(q, k, v, block_q=128, block_k=128)
+    except ValueError as e:
+        print(f"flash_attention S=200, blocks 128: ValueError ({e})")
+    else:
+        fail("flash_attention took S=200 with blocks of 128")
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal, 200, 200)
+        want = flash_attention_plain(q, k, v, causal, 200, 200)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+        checks.append({"dtype": "torch.float32", "causal": causal,
+                       "shape": (8, 16, 200, 64),
+                       "max_abs_err": (got - want).abs().max().item(),
+                       "rtol": KERNEL_RTOL})
+    report["flash_checks"] = checks
+    report["flash_timings"] = timings
+    print(f"flash vs plain: max |err| "
+          f"{max(c['max_abs_err'] for c in checks):.3e} over {len(checks)} "
+          f"cases (f32 rtol {KERNEL_RTOL}, bf16 rtol "
+          f"{KERNEL_RTOL + BF16_HALF_STEP}, atol {KERNEL_ATOL})")
+    return timings
+
+
+def reset_launches() -> None:
+    from nnstreamer_tpu_torch.ops.decode_attention import decode_attention
+    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+
+
+def read_launches() -> dict:
+    from nnstreamer_tpu_torch.ops.decode_attention import decode_attention
+    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+
+    return {"decode_attention": decode_attention.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def check_launches(name: str, launches: dict, layers: int) -> None:
+    want = {"decode_attention": REQUESTS * (STEPS - 1) * layers,
+            "flash_attention": REQUESTS * layers}
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want} "
+             f"({REQUESTS} requests x {layers} layers, x {STEPS - 1} decode "
+             f"steps for decode_attention)")
+
+
 def serve(custom: str, prompts) -> dict:
     """Drive the launch line on ``prompts``; return outputs, launches and
     times."""
     from nnstreamer_tpu_torch.core import MessageType
-    from nnstreamer_tpu_torch.ops.decode_attention import decode_attention
     from nnstreamer_tpu_torch.runtime.parse import parse_launch
 
     B, P = prompts[0].shape
@@ -208,7 +341,7 @@ def serve(custom: str, prompts) -> dict:
         outs.append(t)
 
     pipe.get("out").connect(on_data)
-    decode_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     pipe.play()
     try:
@@ -219,21 +352,21 @@ def serve(custom: str, prompts) -> dict:
         msg = pipe.wait(timeout=600)
     finally:
         pipe.stop()
-    launches = decode_attention.launches
+    launches = read_launches()
     if msg.type is not MessageType.EOS:
         fail(f"pipeline ({custom or 'float32'}): {msg}")
     return {"outs": outs, "launches": launches, "t0": t0, "t_out": t_out}
 
 
-def phase_slice(report: dict) -> int:
+def phase_slice(report: dict) -> tuple:
+    """Returns the prompts and the float32 run's outputs (host)."""
     from nnstreamer_tpu_torch.models.lm_serving import base
 
     vocab = base.cfg.vocab
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, vocab, (8, PROMPT)).astype(np.int32)
                for _ in range(REQUESTS)]
-    want_launches = REQUESTS * (STEPS - 1) * base.cfg.layers
-    main_launches = None
+    main = None
     report["slice"] = {}
     for custom in ("", "serve_dtype:bfloat16"):
         r = serve(custom, prompts)
@@ -250,10 +383,7 @@ def phase_slice(report: dict) -> int:
                 fail(f"{name}: prompt not echoed unchanged")
             if host.min() < 0 or host.max() >= vocab:
                 fail(f"{name}: tokens outside [0, {vocab})")
-        if r["launches"] != want_launches:
-            fail(f"{name}: decode kernel launched {r['launches']} times, "
-                 f"expected {want_launches} ({REQUESTS} requests x "
-                 f"{STEPS - 1} steps x {base.cfg.layers} layers)")
+        check_launches(name, r["launches"], base.cfg.layers)
         gen_tokens = 8 * STEPS
         t_out = r["t_out"]
         steady = (REQUESTS - 1) * gen_tokens / (t_out[-1] - t_out[0])
@@ -269,9 +399,120 @@ def phase_slice(report: dict) -> int:
               f"{PROMPT + STEPS}) int32; kernel launches {r['launches']}; "
               f"{steady:.1f} generated tokens/s (requests 2-3); first "
               f"request {first_s:.3f} s incl. model build")
-        if main_launches is None:
-            main_launches = r["launches"]
-    return main_launches
+        if main is None:
+            main = [o.cpu().numpy() for o in r["outs"]]
+    return prompts, main
+
+
+def generate_pipeline(model: str, props: str, batch: int, plen: int):
+    """``appsrc ! tensor_generate ! tensor_sink``; returns the pipeline and
+    the list its sink appends (buffer, host time) to."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,"
+        f"dimensions={plen}:{batch},types=int32 "
+        f"! tensor_generate model={model} {props} "
+        "! tensor_sink name=out max-stored=1")
+    got = []
+    pipe.get("out").connect(lambda b: got.append((b, time.perf_counter())))
+    return pipe, got
+
+
+def push_turns(pipe, got, prompts, steps) -> list:
+    """Push each prompt once the previous one's last token arrived; return
+    the push times. Fails on a bus error or a turn that does not end."""
+    from nnstreamer_tpu_torch.core import MessageType
+
+    t_push = []
+    pipe.play()
+    try:
+        for i, p in enumerate(prompts):
+            t_push.append(time.perf_counter())
+            pipe.get("in").push_buffer(p)
+            deadline = time.monotonic() + 600
+            while len(got) < (i + 1) * steps:
+                msg = pipe.bus.pop(timeout=0.01)
+                if msg is not None and msg.type is MessageType.ERROR:
+                    fail(f"tensor_generate: {msg}")
+                if time.monotonic() > deadline:
+                    fail(f"tensor_generate: turn {i} gave {len(got)} of "
+                         f"{(i + 1) * steps} buffers in 600 s")
+        pipe.get("in").end_of_stream()
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"tensor_generate: {msg}")
+    return t_push
+
+
+def turn_tokens(got, steps, vocab) -> list:
+    """Check the per-token buffers; return each turn's (B, steps) tokens."""
+    turns = []
+    for t in range(len(got) // steps):
+        bufs = [b for b, _ in got[t * steps:(t + 1) * steps]]
+        toks = [b.tensors[0] for b in bufs]
+        shapes = {(type(x).__name__, str(x.dtype), tuple(x.shape))
+                  for x in toks}
+        if len(shapes) != 1 or toks[0].dtype != np.int32 \
+                or toks[0].shape[1] != 1:
+            fail(f"tensor_generate buffers: {sorted(shapes)}, expected one "
+                 "host (B, 1) int32")
+        if [b.meta.get("gen_step") for b in bufs] != list(range(steps)) or \
+                [b.meta.get("gen_last") for b in bufs] != \
+                [False] * (steps - 1) + [True]:
+            fail(f"tensor_generate turn {t}: gen_step/gen_last framing wrong")
+        tok = np.concatenate(toks, axis=1)
+        if tok.min() < 0 or tok.max() >= vocab:
+            fail(f"tensor_generate: tokens outside [0, {vocab})")
+        turns.append(tok)
+    return turns
+
+
+def phase_generate(report: dict, prompts, filter_outs) -> dict:
+    from nnstreamer_tpu_torch.models.lm_serving import base
+
+    pipe, got = generate_pipeline(
+        "nnstreamer_tpu_torch.models.lm_serving:base", f"steps={STEPS}",
+        8, PROMPT)
+    reset_launches()
+    t_push = push_turns(pipe, got, prompts, STEPS)
+    launches = read_launches()
+    if len(got) != REQUESTS * STEPS:
+        fail(f"tensor_generate: {len(got)} buffers, expected "
+             f"{REQUESTS * STEPS}")
+    turns = turn_tokens(got, STEPS, base.cfg.vocab)
+    for i, (tok, whole) in enumerate(zip(turns, filter_outs)):
+        if tok.shape != (8, STEPS) or not np.array_equal(tok,
+                                                         whole[:, PROMPT:]):
+            fail(f"tensor_generate request {i}: tokens differ from the "
+                 "tensor_filter path's generated suffix")
+    check_launches("tensor_generate", launches, base.cfg.layers)
+    times = [t for _, t in got]
+    per = []
+    for i in range(REQUESTS):
+        first, last = times[i * STEPS], times[(i + 1) * STEPS - 1]
+        per.append({"ttft_s": first - t_push[i],
+                    "request_s": last - t_push[i],
+                    "tokens_per_s": 8 * STEPS / (last - t_push[i])})
+    steady = per[1:]
+    r = {
+        "launches": launches,
+        "tokens_per_s_steady": 8 * STEPS * len(steady)
+        / sum(p["request_s"] for p in steady),
+        "ttft_s_steady": statistics.median(p["ttft_s"] for p in steady),
+        "ttft_s_first_incl_model_build": per[0]["ttft_s"],
+        "per_request": per,
+    }
+    report["generate"] = r
+    print(f"generate float32: {REQUESTS} x (8, {PROMPT}) -> {STEPS} buffers "
+          f"of (8, 1) int32 each, tokens equal to the filter's; kernel "
+          f"launches {launches}; {r['tokens_per_s_steady']:.1f} generated "
+          f"tokens/s and time to first token {r['ttft_s_steady'] * 1e3:.2f} "
+          f"ms (requests 2-3); first request's first token "
+          f"{r['ttft_s_first_incl_model_build']:.3f} s incl. model build")
+    return r
 
 
 def phase_parity(report: dict, dev: torch.device) -> None:
@@ -283,7 +524,8 @@ def phase_parity(report: dict, dev: torch.device) -> None:
     from nnstreamer_tpu_torch.models.lm_serving import base
 
     cfg_k = base.cfg
-    cfg_d = replace(cfg_k, decode_attn="dense")
+    # the reference is dense end to end: prefill and decode
+    cfg_d = replace(cfg_k, decode_attn="dense", prefill_attn="dense")
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(
         rng.integers(0, cfg_k.vocab, (8, PROMPT)).astype(np.int32)).to(dev)
@@ -295,10 +537,16 @@ def phase_parity(report: dict, dev: torch.device) -> None:
                         else "bfloat16")
         params = entry.build_params(dev)
         with torch.inference_mode():
-            caches = {}
+            caches, first = {}, {}
             for cfg in (cfg_k, cfg_d):
-                _, caches[cfg.decode_attn], pos = prefill(
+                key = cfg.decode_attn
+                first[key], caches[key], pos = prefill(
                     cfg, params, prompt, init_cache(cfg, 8, dtype, dev))
+            # the prompt prefill, flash kernel vs dense attention
+            pre = (first["kernel"] - first["dense"]).abs().max().item()
+            if not pre <= PARITY_ATOL[dtype]:
+                fail(f"parity {dtype} prefill: max |logit diff| {pre} "
+                     f"> {PARITY_ATOL[dtype]}")
             worst = 0.0
             for i in range(forced.shape[1]):
                 lk, caches["kernel"] = decode_step(
@@ -310,11 +558,12 @@ def phase_parity(report: dict, dev: torch.device) -> None:
                 if not err <= PARITY_ATOL[dtype]:
                     fail(f"parity {dtype} step {i}: max |logit diff| {err} "
                          f"> {PARITY_ATOL[dtype]}")
-        report["parity"][str(dtype)] = worst
-        print(f"teacher-forced parity {dtype}: {forced.shape[1]} steps at "
-              f"base width, max |logit diff| {worst:.3e} "
+        report["parity"][str(dtype)] = {"prefill": pre, "decode": worst}
+        print(f"teacher-forced parity {dtype} at base width, kernels vs "
+              f"dense: prefill of {PROMPT} max |logit diff| {pre:.3e}, "
+              f"{forced.shape[1]} decode steps {worst:.3e} "
               f"(atol {PARITY_ATOL[dtype]})")
-        del params, caches
+        del params, caches, first
 
     # small input against the CPU path, which tests/test_torch_*.py hold
     # token-exact against nnstreamer_tpu: the tiny entry's greedy tokens on
@@ -339,6 +588,81 @@ def phase_parity(report: dict, dev: torch.device) -> None:
     print("tiny entry: greedy tokens on the card equal the CPU's")
 
 
+def phase_conversation(report: dict, dev: torch.device) -> None:
+    from nnstreamer_tpu_torch.models.decoding import (
+        init_cache,
+        prefill,
+        prefill_continue,
+    )
+    from nnstreamer_tpu_torch.models.lm_serving import base, tiny
+
+    rng = np.random.default_rng(3)
+    p1 = rng.integers(0, base.cfg.vocab, (8, PROMPT)).astype(np.int32)
+    p2 = rng.integers(0, base.cfg.vocab, (8, TURN2_PROMPT)).astype(np.int32)
+
+    # the element: two prompt buffers, the cache kept between them
+    pipe, got = generate_pipeline(
+        "nnstreamer_tpu_torch.models.lm_serving:base",
+        f"steps={TURN_STEPS} conversation=true", 8, PROMPT)
+    push_turns(pipe, got, [p1, p2], TURN_STEPS)
+    el_turns = turn_tokens(got, TURN_STEPS, base.cfg.vocab)
+
+    # the session API on the same weights, holding turn 2's logits
+    cfg = base._cfg_serve
+    session = base.make_session(dev)
+    g1 = torch.stack(list(session.generate(p1, TURN_STEPS)), 1).cpu().numpy()
+    pending, pos, cache = session.state
+    params = base.build_params(dev)
+    with torch.inference_mode():
+        kept = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+        feed = torch.cat([pending[:, None],
+                          torch.from_numpy(p2).to(dev)], dim=1)
+        l_cont, _, _ = prefill_continue(cfg, params, feed, kept, pos)
+        history = torch.from_numpy(np.concatenate([p1, g1, p2], axis=1))
+        l_fresh, _, _ = prefill(cfg, params, history.to(dev),
+                                init_cache(cfg, 8, torch.float32, dev))
+    err = (l_cont - l_fresh).abs().max().item()
+    if not err <= CONV_ATOL:
+        fail(f"conversation: turn 2's first-step logits differ from a "
+             f"from-scratch prefill by {err} > {CONV_ATOL}")
+    g2 = torch.stack(list(session.generate(p2, TURN_STEPS)), 1).cpu()
+    if not torch.equal(g2[:, 0], torch.argmax(l_cont, -1).int().cpu()):
+        fail("conversation: turn 2's first token is not its logits' argmax")
+    for t, (a, b) in enumerate(zip(el_turns, (g1, g2.numpy()))):
+        if not np.array_equal(a, b):
+            fail(f"conversation: the element's turn {t + 1} differs from "
+                 "the session's")
+    report["conversation"] = {"base_logit_max_abs_diff": err,
+                              "history_len": history.shape[1]}
+    print(f"conversation base: 2 turns through tensor_generate "
+          f"conversation=true equal the session API's; "
+          f"turn 2's first-step logits (chunked prefill "
+          f"of {feed.shape[1]} at pos {pos}) vs a from-scratch prefill of "
+          f"{history.shape[1]}: max |diff| {err:.3e} (atol {CONV_ATOL})")
+    del session, params, cache, kept, pending
+
+    # the same two turns at tiny on the card and on the CPU, same weights
+    cpu_params = tiny.build_params(torch.device("cpu"))
+    tree = {k: (v.numpy() if k != "blocks" else
+                [{n: t.numpy() for n, t in b.items()} for b in v])
+            for k, v in cpu_params.items()}
+    entry = replace(tiny, params=tree)
+    q1 = rng.integers(0, tiny.cfg.vocab, (4, 6)).astype(np.int32)
+    q2 = rng.integers(0, tiny.cfg.vocab, (4, 3)).astype(np.int32)
+    toks = {}
+    for where in (dev, torch.device("cpu")):
+        sess = entry.make_session(where)
+        toks[where.type] = [
+            torch.stack(list(sess.generate(q, 6)), 1).cpu().numpy()
+            for q in (q1, q2)]
+    for t, (a, b) in enumerate(zip(toks["cuda"], toks["cpu"])):
+        if not np.array_equal(a, b):
+            fail(f"tiny conversation turn {t + 1}: card tokens {a} differ "
+                 f"from the CPU's {b}")
+    report["conversation"]["tiny_tokens_equal_cpu"] = True
+    print("conversation tiny: two turns on the card equal the CPU's")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -357,24 +681,31 @@ def main() -> None:
     dev = torch.device("cuda:0")
     report["device"] = phase_device()
     phase_build(report)
-    timings = phase_kernels(report, dev)
-    launches = phase_slice(report)
+    decode_t = phase_kernels(report, dev)
+    flash_t = phase_flash(report, dev)
+    prompts, filter_outs = phase_slice(report)
+    launches = phase_generate(report, prompts, filter_outs)["launches"]
     phase_parity(report, dev)
+    phase_conversation(report, dev)
 
-    main_t = timings[str(torch.float32)]
-    kernels = [{
-        "name": "decode_attention",
-        "route": "cuda",
-        "source": "nnstreamer_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "nnstreamer_tpu/ops/pallas_decode.py:83",
-        "launches": launches,
-        "max_abs_err": main_t["max_abs_err"],
-        "ms": main_t["ms"],
-        "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"],
-        "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"],
-    }]
+    def line(name, source, replaces, timings):
+        t = timings[str(torch.float32)]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    # launches: the tensor_generate path's run (the filter path's, equal,
+    # is checked in phase 4); times: the float32 main path's shapes
+    kernels = [
+        line("decode_attention",
+             "nnstreamer_tpu_torch/csrc/decode_attention.cu",
+             "nnstreamer_tpu/ops/pallas_decode.py:83", decode_t),
+        line("flash_attention",
+             "nnstreamer_tpu_torch/csrc/flash_attention.cu",
+             "nnstreamer_tpu/ops/pallas_attention.py:89", flash_t),
+    ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

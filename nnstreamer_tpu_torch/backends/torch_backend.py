@@ -22,7 +22,6 @@ callable without one gets flexible output caps.
 """
 from __future__ import annotations
 
-import dataclasses
 import importlib
 import os
 from typing import Any, Callable, List, Optional
@@ -31,57 +30,40 @@ import numpy as np
 import torch
 
 from ..core import TensorsInfo
-from ..utils.hw_accel import resolve_device
+from ..models.lm_serving import with_serve_knobs
+from ..utils.hw_accel import device_for_accelerator
 from ..utils.log import logger
 from .base import Accelerator, FilterBackend, FilterProperties, register_backend
 
 
 def _apply_serve_knobs(entry, custom: dict, model: str):
     """``custom=serve_dtype:bfloat16,cache_len:640`` on a module:attr
-    entry: rebuild the (dataclass) entry with the serving-efficiency
-    fields (models/lm_serving.py — bf16 weights+KV cache, right-sized
+    entry (models/lm_serving.py — bf16 weights+KV cache, right-sized
     cache)."""
-    sd = custom.get("serve_dtype")
-    cl = custom.get("cache_len")
-    if not sd and not cl:
-        return entry
-    kw = {}
-    if sd:
-        kw["serve_dtype"] = sd
-    if cl:
-        try:
-            kw["cache_len"] = int(cl)
-        except ValueError:
-            raise ValueError(f"custom=cache_len:{cl!r} is not an integer")
-        if kw["cache_len"] < 0:
-            raise ValueError(f"custom=cache_len:{cl} must be >= 0")
-    fields = ({f.name for f in dataclasses.fields(entry)}
-              if dataclasses.is_dataclass(entry)
-              and not isinstance(entry, type) else set())
-    if not fields >= kw.keys():
-        raise ValueError(
-            f"custom serve_dtype/cache_len need a dataclass model entry "
-            f"with those fields; {model} is {type(entry).__name__}")
-    return dataclasses.replace(entry, **kw)
+    cl = custom.get("cache_len") or "0"
+    try:
+        cache_len = int(cl)
+    except ValueError:
+        raise ValueError(f"custom=cache_len:{cl!r} is not an integer")
+    return with_serve_knobs(entry, custom.get("serve_dtype"), cache_len,
+                            model)
 
 
 def _select_device(props: FilterProperties) -> torch.device:
     idx = props.custom_dict().get("device")
-    if props.accelerator is Accelerator.CPU:
-        if idx is not None:
-            raise ValueError(
-                f"custom=device:{idx} names a CUDA device and conflicts "
-                "with accelerator=cpu")
-        return resolve_device("cpu")
     if idx is None:
-        return resolve_device(None)
+        return device_for_accelerator(props.accelerator.value)
+    if props.accelerator is Accelerator.CPU:
+        raise ValueError(
+            f"custom=device:{idx} names a CUDA device and conflicts "
+            "with accelerator=cpu")
     try:
         i = int(idx)
     except ValueError:
         raise ValueError(f"custom=device:{idx!r} is not a device index")
     if i < 0:
         raise ValueError(f"custom=device:{i} must be >= 0")
-    return resolve_device(f"cuda:{i}")
+    return device_for_accelerator(f"cuda:{i}")
 
 
 @register_backend

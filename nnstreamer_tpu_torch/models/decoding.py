@@ -12,13 +12,18 @@ bfloat16. ``k``/``v`` are cast to the cache's type before they are written;
 ``q`` stays float32.
 
 With ``cfg.decode_attn == "kernel"`` the decode step's attention is the
-hand-written CUDA kernel (``ops/decode_attention``; on CPU tensors its plain
-version); ``"dense"`` is the masked dense path, the oracle. For dense
+hand-written CUDA kernel (``ops/decode_attention``), and with
+``cfg.prefill_attn == "kernel"`` the prompt's causal self-attention is the
+flash kernel (``ops/flash_attention``); on CPU tensors each takes its plain
+version. ``"dense"`` is the masked dense path, the oracle. For dense
 configs cached decoding picks the same greedy tokens as re-running the full
 forward each step.
 
-Not in this package yet: ``prefill_continue`` (chunked multi-turn
-ingestion), the context-parallel cache and mesh sharding.
+``prefill_continue`` ingests a chunk at a later position (multi-turn
+serving) and stays dense: it attends a rectangular, offset window of the
+cache, which the flash kernel does not compute.
+
+Not in this package yet: the context-parallel cache and mesh sharding.
 """
 from __future__ import annotations
 
@@ -29,8 +34,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..ops.decode_attention import decode_attention
+from ..ops.flash_attention import flash_attention
 from .transformer import TransformerConfig, _mm, _rmsnorm
-
 
 def init_cache(cfg: TransformerConfig, batch: int,
                dtype: torch.dtype = torch.float32,
@@ -61,20 +66,72 @@ def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor,
     B, S = tokens.shape
     x = (params["embed"][tokens.long()]
          + params["pos"][:S][None, :, :]).float()
-    mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))
+    kernel = cfg.prefill_attn == "kernel"
+    if not kernel:
+        mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))
     for li, blk in enumerate(params["blocks"]):
         h = _rmsnorm(x, blk["ln1"])
         q, k, v = (_split_heads(cfg, t)
                    for t in _mm(h, blk["wqkv"]).split(cfg.dim, dim=-1))
         cache[li]["k"][:, :, :S] = k
         cache[li]["v"][:, :, :S] = v
-        att = (q @ k.transpose(-1, -2)) / math.sqrt(cfg.head_dim)
-        att = torch.softmax(att.masked_fill(~mask, -1e30), dim=-1)
-        o = (att @ v).transpose(1, 2).reshape(B, S, cfg.dim)
+        if kernel:
+            # one block of S satisfies the wrapper's contract for any S;
+            # the kernel tiles (and masks a ragged S) on its own
+            o = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), True, S, S)
+        else:
+            att = (q @ k.transpose(-1, -2)) / math.sqrt(cfg.head_dim)
+            att = torch.softmax(att.masked_fill(~mask, -1e30), dim=-1)
+            o = att @ v
+        o = o.transpose(1, 2).reshape(B, S, cfg.dim)
         x = x + _mm(o, blk["wo"])
         x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
     x = _rmsnorm(x[:, S - 1], params["out_norm"])
     return _mm(x, params["embed"].T), cache, S
+
+
+def prefill_continue(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                     cache: List[dict], start: int
+                     ) -> Tuple[torch.Tensor, List[dict], int]:
+    """Chunked prefill: ingest ``tokens`` (B, P) at positions
+    ``start..start+P-1``, attending causally over the cache prefix plus
+    the chunk itself — the multi-turn ingestion primitive (one pass per
+    conversation turn where a decode_step loop would take P). Writes the
+    chunk's K/V into the cache in place. Returns (logits of the last
+    position (B, V), cache, start + P).
+
+    After this call the cache holds the states a from-scratch
+    :func:`prefill` over history + chunk would produce."""
+    B, P = tokens.shape
+    T = cache[0]["k"].shape[2]
+    if start < 0 or start + P > T:
+        raise ValueError(
+            f"chunk at {start}..{start + P - 1} does not fit the cache of "
+            f"{T} positions")
+    x = (params["embed"][tokens.long()]
+         + params["pos"][start:start + P][None, :, :]).float()
+    # only the prefix 0..start+P-1 is visible to the chunk
+    end = start + P
+    q_pos = start + torch.arange(P, device=x.device)
+    visible = (torch.arange(end, device=x.device)[None, :]
+               <= q_pos[:, None])                            # (P, end)
+    for li, blk in enumerate(params["blocks"]):
+        h = _rmsnorm(x, blk["ln1"])
+        q, k, v = (_split_heads(cfg, t)
+                   for t in _mm(h, blk["wqkv"]).split(cfg.dim, dim=-1))
+        ck, cv = cache[li]["k"], cache[li]["v"]
+        ck[:, :, start:end] = k
+        cv[:, :, start:end] = v
+        att = ((q @ ck[:, :, :end].float().transpose(-1, -2))
+               / math.sqrt(cfg.head_dim))
+        att = torch.softmax(att.masked_fill(~visible, -1e30), dim=-1)
+        o = (att @ cv[:, :, :end].float()).transpose(1, 2).reshape(
+            B, P, cfg.dim)
+        x = x + _mm(o, blk["wo"])
+        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+    x = _rmsnorm(x[:, -1], params["out_norm"])
+    return _mm(x, params["embed"].T), cache, end
 
 
 def decode_step(cfg: TransformerConfig, params, token: torch.Tensor,
@@ -115,6 +172,17 @@ def decode_step(cfg: TransformerConfig, params, token: torch.Tensor,
     return _mm(x, params["embed"].T), cache
 
 
+def pick_token(logits: torch.Tensor, temperature: float,
+               gen: Optional[torch.Generator]) -> torch.Tensor:
+    """(B, V) logits → (B,) int32: temperature 0 = greedy (argmax, first
+    maximum on ties); > 0 = a draw from softmax(logits / temperature) with
+    the ``torch.Generator`` given."""
+    if temperature > 0.0:
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].int()
+    return torch.argmax(logits, dim=-1).int()
+
+
 def make_generate(cfg: TransformerConfig, temperature: float = 0.0,
                   cache_len: int = 0):
     """Build ``generate(params, prompt (B, S), steps, generator=None) ->
@@ -139,12 +207,6 @@ def make_generate(cfg: TransformerConfig, temperature: float = 0.0,
                 f"{cfg.max_seq} (position table size)")
         cfg = replace(cfg, max_seq=cache_len)
 
-    def pick(logits: torch.Tensor, gen: Optional[torch.Generator]):
-        if temperature > 0.0:
-            probs = torch.softmax(logits.float() / temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=gen)[:, 0].int()
-        return torch.argmax(logits, dim=-1).int()
-
     def generate(params, prompt: torch.Tensor, steps: int,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S = prompt.shape
@@ -158,11 +220,11 @@ def make_generate(cfg: TransformerConfig, temperature: float = 0.0,
         cache = init_cache(cfg, B, dtype=params["embed"].dtype,
                            device=prompt.device)
         logits, cache, pos = prefill(cfg, params, prompt, cache)
-        token = pick(logits, generator)
+        token = pick_token(logits, temperature, generator)
         out = [token]
         for i in range(steps - 1):
             logits, cache = decode_step(cfg, params, token, pos + i, cache)
-            token = pick(logits, generator)
+            token = pick_token(logits, temperature, generator)
             out.append(token)
         return torch.cat([prompt.int(), torch.stack(out, dim=1)], dim=1)
 

@@ -18,25 +18,38 @@ The filter contract: input ``(B, P) int32`` prompt tokens → output
 ``(B, P + steps) int32`` (prompt echoed, ``steps`` greedy continuations).
 ``steps`` comes from the entry (env ``NNS_LM_STEPS`` overrides).
 
+Streaming (the ``tensor_generate`` element, elements/generate.py):
+``make_streaming(device)`` returns ``stream(tokens, steps)``, which prefills
+once and yields each token as it is picked; ``make_session(device)`` keeps
+the KV cache across calls for multi-turn conversations.
+
 Weights are random, from ``seed``, unless the entry carries ``params``:
 nnstreamer_tpu's parameter pytree as numpy arrays, converted by
 ``models/convert.py`` — the same weights then serve through both packages.
 
-Not in this package yet: ``make_sharded`` (mesh), ``make_streaming``,
-``make_session`` and ``make_continuous``.
+Not in this package yet: ``make_sharded`` (mesh) and ``make_continuous``.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
 from ..core import DataType, TensorSpec, TensorsInfo
 from ..utils.hw_accel import resolve_device
 from .convert import params_from_jax
-from .decoding import make_generate
+from .decoding import (
+    decode_step,
+    init_cache,
+    make_generate,
+    pick_token,
+    prefill,
+    prefill_continue,
+)
 from .transformer import TransformerConfig, init_params
 
 
@@ -56,6 +69,34 @@ def _serve_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
         raise ValueError(f"serve_dtype {name!r} is not a torch float dtype")
     return dt
+
+
+def with_serve_knobs(entry, serve_dtype: Optional[str] = None,
+                     cache_len: int = 0, model: str = ""):
+    """``entry`` rebuilt with the serving knobs: ``serve_dtype`` (weights
+    and KV cache in that dtype) and ``cache_len`` (the KV cache's length;
+    0 = the model's max_seq). Unset knobs leave ``entry`` as it is. The
+    entry must be a dataclass instance with those fields; ``model`` names
+    it in errors. Shared by ``tensor_filter`` (``custom=``) and
+    ``tensor_generate`` (properties)."""
+    if cache_len < 0:
+        raise ValueError(
+            f"cache_len must be >= 0 (0 = model max_seq), got {cache_len}")
+    kw: Dict[str, Any] = {}
+    if serve_dtype:
+        kw["serve_dtype"] = serve_dtype
+    if cache_len:
+        kw["cache_len"] = cache_len
+    if not kw:
+        return entry
+    fields = ({f.name for f in dataclasses.fields(entry)}
+              if dataclasses.is_dataclass(entry)
+              and not isinstance(entry, type) else set())
+    if not fields >= kw.keys():
+        raise ValueError(
+            f"serve_dtype/cache_len need a dataclass model entry with "
+            f"those fields; {model} is {type(entry).__name__}")
+    return replace(entry, **kw)
 
 
 @dataclass(frozen=True)
@@ -120,19 +161,139 @@ class _LMServingEntry:
         serve.output_info = output_info
         return serve
 
+    def make_streaming(self, device=None, temperature: float = 0.0):
+        """Per-token generation for the ``tensor_generate`` element:
+        returns ``stream(tokens (B, P), steps, rng=None)``, which yields
+        (B,) int32 on ``device`` (default the card) — prefill once, then
+        one ``decode_step`` per yielded token. A host loop is the point:
+        each token leaves the model as it is picked, so downstream
+        elements render or forward it at once. ``temperature`` 0 = greedy;
+        > 0 = sampling from a ``torch.Generator`` seeded with ``rng`` (an
+        int, default 0); a continuation turn folds the session position
+        into the seed, so it never repeats turn 1's draws."""
+        device = resolve_device(device)
+        cfg = self._cfg_serve
+        params = self.build_params(device)
+        cache_dtype = params["embed"].dtype
+
+        @torch.inference_mode()
+        def first(tokens, gen):
+            cache = init_cache(cfg, tokens.shape[0], cache_dtype, device)
+            logits, cache, pos = prefill(cfg, params, tokens, cache)
+            return pick_token(logits, temperature, gen), pos, cache
+
+        @torch.inference_mode()
+        def step(token, pos, cache, gen):
+            logits, cache = decode_step(cfg, params, token, pos, cache)
+            return pick_token(logits, temperature, gen), pos + 1, cache
+
+        @torch.inference_mode()
+        def ingest(feed, cache, start, gen):
+            logits, cache, pos = prefill_continue(cfg, params, feed, cache,
+                                                  start)
+            return pick_token(logits, temperature, gen), pos, cache
+
+        def stream(tokens, steps: int, _session: "Optional[_StreamSession]"
+                   = None, rng=None) -> Iterator[torch.Tensor]:
+            """Yield ``steps`` tokens for ``tokens`` (B, P). With
+            ``_session`` the KV cache continues from the previous turn:
+            the new prompt is ingested in one chunked prefill, then
+            generation resumes — no re-prefill of the history."""
+            if steps < 1:
+                raise ValueError(f"steps={steps} must be >= 1")
+            if not isinstance(tokens, torch.Tensor):
+                tokens = torch.from_numpy(np.array(tokens, np.int32))
+            tokens = tokens.to(device, torch.int32)
+            if tokens.dim() != 2:
+                raise ValueError(f"tokens must be (B, P), got "
+                                 f"{tuple(tokens.shape)}")
+            state = _session.state if _session is not None else None
+            gen = None
+            if temperature > 0.0:
+                if not isinstance(rng, (int, np.integer, type(None))):
+                    raise TypeError(f"rng must be an int seed, got "
+                                    f"{type(rng).__name__}")
+                seed = int(rng or 0)
+                if state is not None:
+                    # a continuation turn must never repeat turn 1's draws
+                    seed = seed * 0x9E3779B97F4A7C15 + state[1] + 1
+                gen = torch.Generator(device=device).manual_seed(
+                    seed % 2**64)
+            if state is None:
+                if tokens.shape[1] + steps > cfg.max_seq:
+                    raise ValueError(
+                        f"prompt ({tokens.shape[1]}) + steps ({steps}) "
+                        f"exceeds max_seq {cfg.max_seq}")
+                token, pos, cache = first(tokens, gen)
+            else:
+                pending, pos, cache = state
+                if tokens.shape[0] != pending.shape[0]:
+                    raise ValueError(
+                        f"conversation batch changed: session has "
+                        f"batch {pending.shape[0]}, new prompt has "
+                        f"{tokens.shape[0]} (reset() to start over)")
+                if pos + tokens.shape[1] + steps > cfg.max_seq:
+                    raise ValueError(
+                        f"conversation at pos {pos} + prompt "
+                        f"({tokens.shape[1]}) + steps ({steps}) exceeds "
+                        f"max_seq {cfg.max_seq}")
+                # the previous turn's final sample is still pending (its
+                # K/V was never written: generation stopped at its
+                # prediction), so it leads the chunk; the chunk's last
+                # prediction opens generation
+                feed = torch.cat([pending[:, None], tokens], dim=1)
+                token, pos, cache = ingest(feed, cache, pos, gen)
+            # the state is kept after every step, so an abandoned
+            # generator leaves a session that continues where it stopped
+            if _session is not None:
+                _session.state = (token, pos, cache)
+            yield token
+            for _ in range(steps - 1):
+                token, pos, cache = step(token, pos, cache, gen)
+                if _session is not None:
+                    _session.state = (token, pos, cache)
+                yield token
+
+        return stream
+
+    def make_session(self, device=None, temperature: float = 0.0):
+        """Stateful multi-turn serving: ``session.generate(tokens, steps)``
+        yields like the stream form, but the KV cache persists across
+        calls (turn 2's prompt is ingested at the current position, not
+        re-prefilled). ``session.reset()`` starts a new conversation."""
+        return _StreamSession(self.make_streaming(device, temperature))
+
+
+class _StreamSession:
+    def __init__(self, stream):
+        self._stream = stream
+        self.state = None  # (last token, pos, cache) after each step
+
+    def generate(self, tokens, steps: int, rng=None):
+        return self._stream(tokens, steps, _session=self, rng=rng)
+
+    def reset(self) -> None:
+        self.state = None
+
+    @property
+    def position(self) -> int:
+        """Sequence position after the last step (0 = fresh session)."""
+        return self.state[1] if self.state is not None else 0
+
 
 # test-size entry
 tiny = _LMServingEntry(
     TransformerConfig(vocab=64, dim=32, heads=4, layers=2, max_seq=64,
-                      decode_attn="kernel"))
+                      decode_attn="kernel", prefill_attn="kernel"))
 
 # draft-size companion to ``tiny`` (same vocab, half the width, one layer)
 tiny_draft = _LMServingEntry(
     TransformerConfig(vocab=64, dim=16, heads=2, layers=1, max_seq=64,
-                      decode_attn="kernel"))
+                      decode_attn="kernel", prefill_attn="kernel"))
 
 # full-width serving entry (~186M parameters)
 base = _LMServingEntry(
     TransformerConfig(vocab=32000, dim=1024, heads=16, layers=12,
-                      max_seq=2048, decode_attn="kernel"),
+                      max_seq=2048, decode_attn="kernel",
+                      prefill_attn="kernel"),
     default_steps=64)

@@ -20,11 +20,12 @@ import torch
 
 from ..utils.hw_accel import resolve_device
 
-# decode_attn values: "dense" (masked dense attention, the equivalence
-# oracle) and "kernel" (the hand-written CUDA kernel, ops/decode_attention);
-# nnstreamer_tpu's names map onto them
-_DECODE_ATTN = {"dense": "dense", "kernel": "kernel",
-                "xla": "dense", "pallas": "kernel"}
+# decode_attn / prefill_attn values: "dense" (masked dense attention, the
+# equivalence oracle) and "kernel" (the hand-written CUDA kernels,
+# ops/decode_attention and ops/flash_attention); nnstreamer_tpu's names map
+# onto them
+_ATTN = {"dense": "dense", "kernel": "kernel",
+         "xla": "dense", "pallas": "kernel"}
 
 
 @dataclass(frozen=True)
@@ -35,16 +36,20 @@ class TransformerConfig:
     layers: int = 2
     mlp_mult: int = 4
     max_seq: int = 128
-    # cached-decode attention: "dense" or "kernel" ("xla" / "pallas", the
-    # JAX package's names, are accepted and normalized)
+    # cached-decode and prompt-prefill attention: "dense" or "kernel"
+    # ("xla" / "pallas", the JAX package's names, are accepted and
+    # normalized)
     decode_attn: str = "dense"
+    prefill_attn: str = "dense"
 
     def __post_init__(self):
-        if self.decode_attn not in _DECODE_ATTN:
-            raise ValueError(
-                f"unknown decode_attn {self.decode_attn!r} (expected one of "
-                f"{sorted(_DECODE_ATTN)})")
-        object.__setattr__(self, "decode_attn", _DECODE_ATTN[self.decode_attn])
+        for name in ("decode_attn", "prefill_attn"):
+            value = getattr(self, name)
+            if value not in _ATTN:
+                raise ValueError(
+                    f"unknown {name} {value!r} (expected one of "
+                    f"{sorted(_ATTN)})")
+            object.__setattr__(self, name, _ATTN[value])
         if self.dim % self.heads:
             raise ValueError(f"dim {self.dim} not divisible by heads {self.heads}")
 
@@ -100,7 +105,8 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor
             ) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S, V): the uncached full-sequence
-    pass, the oracle that cached decoding is held against."""
+    pass, the oracle that cached decoding is held against. Its attention
+    is always dense, whatever ``prefill_attn`` says."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()] + params["pos"][:S][None, :, :]
     mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))

@@ -29,6 +29,7 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.src",
     "nnstreamer_tpu_torch.elements.sink",
     "nnstreamer_tpu_torch.elements.filter",
+    "nnstreamer_tpu_torch.elements.generate",
 )
 
 _loaded = False

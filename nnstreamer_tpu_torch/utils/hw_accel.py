@@ -1,8 +1,10 @@
 """Device choice for the port's entry points.
 
 Every entry point runs on the card (``cuda:0``) unless the caller asks
-for the CPU. There is no quiet fallback: asking for the card on a
-machine without one is an error that says how to ask for the CPU.
+for the CPU; pipeline elements name the device with one ``accelerator``
+grammar (:func:`device_for_accelerator`). There is no quiet fallback:
+asking for the card on a machine without one is an error that says how
+to ask for the CPU.
 """
 from __future__ import annotations
 
@@ -30,3 +32,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev} (expected cpu or cuda)")
     return dev
+
+
+def device_for_accelerator(accelerator: str) -> torch.device:
+    """A pipeline element's ``accelerator`` word → its device: ``auto``,
+    ``gpu`` and ``cuda`` → ``cuda:0``; ``cuda:N``; ``cpu``. Raises
+    ValueError for any other word (and RuntimeError, from
+    :func:`resolve_device`, for a card that is not present)."""
+    acc = accelerator.strip().lower()
+    if acc in ("", "auto", "gpu", "cuda"):
+        return resolve_device(None)
+    if acc == "cpu" or (acc.startswith("cuda:") and acc[5:].isdigit()):
+        return resolve_device(acc)
+    raise ValueError(f"accelerator {accelerator!r} is not one of auto, "
+                     "gpu, cuda, cuda:N, cpu")

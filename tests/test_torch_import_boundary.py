@@ -22,9 +22,13 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.elements.filter",
     "nnstreamer_tpu_torch.elements.src",
     "nnstreamer_tpu_torch.elements.sink",
+    "nnstreamer_tpu_torch.elements.generate",
     "nnstreamer_tpu_torch.models.lm_serving",
+    "nnstreamer_tpu_torch.models.decoding",
+    "nnstreamer_tpu_torch.models.transformer",
     "nnstreamer_tpu_torch.models.convert",
     "nnstreamer_tpu_torch.ops.decode_attention",
+    "nnstreamer_tpu_torch.ops.flash_attention",
     "nnstreamer_tpu_torch.utils.threads",
 ]
 
@@ -43,7 +47,8 @@ for mod in {SLICE_MODULES!r}:
     importlib.import_module(mod)
 from nnstreamer_tpu_torch.registry.elements import element_factories
 from nnstreamer_tpu_torch.registry.subplugin import SubpluginKind, get
-assert {{"appsrc", "tensor_filter", "tensor_sink", "tensor_src"}} <= set(element_factories())
+assert {{"appsrc", "tensor_filter", "tensor_generate", "tensor_sink",
+         "tensor_src"}} <= set(element_factories())
 assert get(SubpluginKind.FILTER, "torch") is get(SubpluginKind.FILTER, "pytorch")
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
