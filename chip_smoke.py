@@ -54,10 +54,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, float32
-# (non-tensor-core) flop/s and dense bfloat16 tensor-core flop/s
+# (non-tensor-core) flop/s, dense bfloat16 and TF32 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+# the flash kernel runs an f32 product as three TF32 products (3xTF32)
+F32_FLASH_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # kernel vs plain version: both accumulate in float32 (a bfloat16 cache is
 # widened exactly), so they differ only in summation order
@@ -72,6 +75,7 @@ BF16_HALF_STEP = 2.0 ** -8
 PARITY_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 BASE_SHAPE = dict(B=8, H=16, T=2048, D=64, block_k=128)
+# plus each side of the decode kernel's split boundaries (split_boundaries)
 CHECK_POS = (0, 127, 128, 1023, 2047)
 PROMPT, REQUESTS, STEPS = 512, 3, 64
 # the prefill's attention on the main path: (B, H, S, D), causal
@@ -126,14 +130,35 @@ def decode_bound_ms(B, H, D, pos, elt) -> tuple:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def split_boundaries(rows: int, t_len: int, dev: torch.device) -> tuple:
+    """Positions on each side of the decode kernel's split boundaries: pos
+    + 1 = n_split * 16 * j fills every split exactly (j = 1 and the main
+    path's prompt end), one less leaves the last split one short, one
+    more grows the share."""
+    from nnstreamer_tpu_torch.ops.decode_attention import (
+        SHARE_ALIGN,
+        decode_splits,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = decode_splits(rows, t_len, sms)
+    out = []
+    for full in (n * SHARE_ALIGN, PROMPT):
+        full = full // (n * SHARE_ALIGN) * n * SHARE_ALIGN
+        out += [p for p in (full - 2, full - 1, full) if 0 <= p < t_len]
+    return tuple(sorted(set(out)))
+
+
 def flash_bound_ms(B, H, S, D, elt) -> tuple:
     """Least time for one causal flash attention: q, k, v read and the
     output written once; 4D flops (q.k and p.v) and one exp per visible
-    (q, k) pair, at the card's rate for the input type."""
+    (q, k) pair, at the card's rate for the kernel's products: bf16 on the
+    tensor cores, f32 as three TF32 products each (a third of the TF32
+    rate)."""
     pairs = S * (S + 1) // 2
     nbytes = 4 * B * H * S * D * elt
     flops = B * H * pairs * (4 * D + 1)
-    rate = F32_FLOP_PER_S if elt == 4 else BF16_FLOP_PER_S
+    rate = F32_FLASH_FLOP_PER_S if elt == 4 else BF16_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -187,7 +212,7 @@ def phase_kernels(report: dict, dev: torch.device) -> dict:
                    torch.randn(B, H, T, D, device=dev, generator=gen).to(dtype))
                   for _ in range(n_copies)]
         k, v = caches[0]
-        for pos in CHECK_POS:
+        for pos in sorted(set(CHECK_POS) | set(split_boundaries(B * H, T, dev))):
             got = decode_attention(q, k, v, pos, bk)
             want = decode_attention_plain(q, k, v, pos, bk)
             torch.cuda.synchronize()
@@ -198,20 +223,25 @@ def phase_kernels(report: dict, dev: torch.device) -> dict:
         pos = MAIN_POS
         pos_t = torch.full((1,), pos, dtype=torch.int32, device=dev)
         args = [(q, ck, cv, pos_t, bk) for ck, cv in caches]
+        # SDPA takes one dtype for q, k and v: with a bf16 cache it gets a
+        # bf16 q (and returns bf16), while the kernel takes the f32 q
         q_lib = q.to(dtype)
         lib_args = [(q_lib, ck[:, :, :pos + 1], cv[:, :, :pos + 1])
                     for ck, cv in caches]
         err = (decode_attention(q, k, v, pos_t, bk)
                - decode_attention_plain(q, k, v, pos_t, bk)).abs().max().item()
         bound, bound_by = decode_bound_ms(B, H, D, pos, elt)
+        ms = time_ms(decode_attention, args)
         timings[str(dtype)] = {
-            "pos": pos, "max_abs_err": err,
-            "ms": time_ms(decode_attention, args),
+            "pos": pos, "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(decode_attention_plain, args),
             "library_ms": time_ms(F.scaled_dot_product_attention, lib_args),
             "bound_ms": bound, "bound_by": bound_by,
+            "share_of_bound": bound / ms,
         }
-        print(f"decode_attention {dtype}: " + json.dumps(timings[str(dtype)]))
+        print(f"decode_attention {dtype}: {ms:.5f} ms, "
+              f"{100 * bound / ms:.1f}% of its bound: "
+              + json.dumps(timings[str(dtype)]))
         del caches, args, lib_args
     report["kernel_sweep"] = sweep
     report["kernel_timings"] = timings
@@ -254,16 +284,19 @@ def phase_flash(report: dict, dev: torch.device) -> dict:
                            "shape": FLASH_SHAPE,
                            "max_abs_err": errs[causal], "rtol": rtol})
         bound, bound_by = flash_bound_ms(B, H, S, D, elt)
+        ms = time_ms(flash_attention, sets, inner=10)
         timings[str(dtype)] = {
-            "max_abs_err": errs[True],
-            "ms": time_ms(flash_attention, sets, inner=10),
+            "max_abs_err": errs[True], "ms": ms,
             "plain_ms": time_ms(flash_attention_plain, sets, inner=10),
             "library_ms": time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), sets, inner=10),
             "bound_ms": bound, "bound_by": bound_by,
+            "share_of_bound": bound / ms,
         }
-        print(f"flash_attention {dtype}: " + json.dumps(timings[str(dtype)]))
+        print(f"flash_attention {dtype}: {ms:.5f} ms, "
+              f"{100 * bound / ms:.1f}% of its bound: "
+              + json.dumps(timings[str(dtype)]))
         del sets
     # a prompt length that is not a multiple of the kernel's 64-row tile
     q, k, v = (torch.randn(8, 16, 200, 64, device=dev, generator=gen)

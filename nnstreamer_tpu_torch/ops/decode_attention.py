@@ -4,30 +4,37 @@ its plain PyTorch version.
 The KV-cache decode step is the LM serving hot op: one query token attends
 against the whole cache prefix — memory-bound, no reuse. The kernel
 (``csrc/decode_attention.cu``) replaces nnstreamer_tpu's Pallas kernel
-(``ops/pallas_decode.py::cached_decode_attention``): it streams K/V tiles of
-``block_k`` keys once with the online-softmax recurrence and reads only the
-tiles that hold positions ``<= pos``. Its header gives the bound on the card
-and its design.
+(``ops/pallas_decode.py::cached_decode_attention``). It splits the visible
+prefix ``[0, pos]`` of each (b, h) over ``n_split`` blocks
+(``decode_splits``), streams each block's K and V rows through a
+shared-memory ring with asynchronous copies, and combines the blocks'
+partial softmax results in the last block of each (b, h). Its header gives
+the bound on the card and the design.
 
 ``decode_attention`` is the wrapper. On CPU tensors it runs
 ``decode_attention_plain``, the same function in PyTorch ops (masked
 scores, softmax, weighted sum, in f32) — the version the tests hold against
 the Pallas kernel. On CUDA tensors it launches the kernel or raises; it
 never gives way to the plain version there. ``decode_attention.launches``
-counts kernel launches.
+counts calls that launched the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Union
+from typing import Dict, Tuple, Union
 
 import torch
 
 from .build import load_kernel
 
-MAX_HEAD_DIM = 256   # the kernel's 256 threads cover the head dimension
-MAX_BLOCK_K = 8192   # a tile's scores live in (static-size) shared memory
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the head dims the kernel is built for
+# n_split: about this many blocks per SM over all (b, h) rows, each share at
+# least SHARE_ALIGN keys and at most MAX_SHARE (its scores sit in shared
+# memory). The kernel rounds a share up to a multiple of SHARE_ALIGN.
+BLOCKS_PER_SM = 6
+SHARE_ALIGN = 16
+MAX_SHARE = 16384
 
 Pos = Union[int, torch.Tensor]
 
@@ -82,13 +89,48 @@ def _pos_tensor(pos: Pos, device: torch.device) -> torch.Tensor:
     return torch.full((1,), int(pos), dtype=torch.int32, device=device)
 
 
+def decode_splits(rows: int, t_len: int, sms: int) -> int:
+    """Blocks per (b, h) row: fixed by the shapes and the card, never by
+    ``pos``, so a captured launch replays unchanged."""
+    n = min(max(1, sms * BLOCKS_PER_SM // rows), -(-t_len // SHARE_ALIGN))
+    return max(n, -(-t_len // MAX_SHARE))
+
+
+def split_share(pos: int, n_split: int) -> int:
+    """Keys per block at ``pos``, as the kernel computes it: the boundaries
+    between splits fall at multiples of this."""
+    per = -(-(pos + 1) // n_split)
+    return -(-per // SHARE_ALIGN) * SHARE_ALIGN
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): one int32 counter per row, zero between calls (the
+# last block of each row resets its own), so calls on one stream share them
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _row_counters(device: torch.device, stream: int,
+                  rows: int) -> torch.Tensor:
+    key = (device.index, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < rows:
+        c = _counters[key] = torch.zeros(rows, dtype=torch.int32,
+                                         device=device)
+    return c
+
+
 @functools.cache
 def _kernel():
     """The kernel's C entry point with its argument types (built on first
     use)."""
     fn = load_kernel("decode_attention").nns_decode_attention
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                   ctypes.c_float, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -100,7 +142,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, H, 1, D) float32; k/v: (B, H, T, D) float32 or bfloat16 caches;
     ``pos``: positions ``<= pos`` are attended (cache[pos] holds the current
     token's K/V, already written) — an int, or one int32 on q's device.
-    Returns (B, H, 1, D) float32. ``block_k`` must divide T.
+    Returns (B, H, 1, D) float32. ``block_k`` must divide T: the JAX
+    kernel's contract, kept here; the CUDA kernel sizes its own shares. On
+    the card q, k, v must be contiguous, k and v 16-byte aligned, and D in
+    ``HEAD_DIMS``.
     """
     block_k = _check(q, k, v, block_k)
     devices = {q.device, k.device, v.device}
@@ -112,20 +157,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"the CPU, got {sorted(map(str, devices))}")
     B, H, _, D = q.shape
     T = k.shape[2]
-    if D > MAX_HEAD_DIM or block_k > MAX_BLOCK_K:
-        raise ValueError(
-            f"head dim {D} > {MAX_HEAD_DIM} or block_k {block_k} > "
-            f"{MAX_BLOCK_K} is not supported by the kernel")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of the kernel's "
+                         f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention needs contiguous q, k and v")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention needs 16-byte aligned k and v")
     pos_t = _pos_tensor(pos, q.device)
+    rows = B * H
+    n_split = decode_splits(rows, T, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    part = torch.empty(rows * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _row_counters(q.device, stream, rows)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
-                 out.data_ptr(), B * H, T, D, block_k,
-                 int(k.dtype is torch.bfloat16), 1.0 / (D ** 0.5), stream)
+                 out.data_ptr(), part.data_ptr(), counters.data_ptr(), rows,
+                 T, D, n_split, int(k.dtype is torch.bfloat16),
+                 1.0 / (D ** 0.5), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

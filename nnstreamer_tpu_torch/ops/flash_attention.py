@@ -6,8 +6,10 @@ path attends a whole sequence to itself. The kernel
 (``csrc/flash_attention.cu``) replaces nnstreamer_tpu's Pallas kernel
 (``ops/pallas_attention.py::flash_attention``): it walks K/V tiles with the
 online-softmax recurrence in f32, stops at the diagonal under the causal
-mask, and never writes the S x S scores to device memory. Its header gives
-the bound on the card and its design.
+mask, and never writes the S x S scores to device memory. Its products run
+on the tensor cores (``mma.sync``): bf16 products for bf16 inputs, and
+three TF32 products per f32 product (3xTF32) for f32 inputs, which keeps
+f32 accuracy. Its header gives the bound on the card and its design.
 
 ``flash_attention`` is the wrapper and keeps the JAX contract: ``block_q``
 and ``block_k`` are each clipped to S and must divide it, else
@@ -81,8 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_k: int = 128) -> torch.Tensor:
     """Exact attention. q/k/v: (B, H, S, D) → (B, H, S, D) in q's dtype.
 
-    On the card q, k, v must be contiguous, all float32 or all bfloat16,
-    with D in ``HEAD_DIMS``. ``causal`` masks k_pos > q_pos.
+    On the card q, k, v must be contiguous and 16-byte aligned, all
+    float32 or all bfloat16, with D in ``HEAD_DIMS``. ``causal`` masks
+    k_pos > q_pos.
     """
     _check(q, k, v, block_q, block_k)
     devices = {q.device, k.device, v.device}
@@ -100,6 +103,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention needs 16-byte aligned q, k and v")
     out = torch.empty_like(q)
     fn = _kernel()
     with torch.cuda.device(q.device):

@@ -14,6 +14,7 @@ import torch
 
 from nnstreamer_tpu_torch.ops import build
 from nnstreamer_tpu_torch.ops.flash_attention import (
+    HEAD_DIMS,
     flash_attention,
     flash_attention_plain,
 )
@@ -65,6 +66,20 @@ def test_kernel_ragged_tiles_and_head_dims(cuda_card, shape, block, causal):
     q, k, v = (torch.randn(shape, device=cuda_card, generator=g)
                for _ in range(3))
     _check(q, k, v, causal, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 40, 64, 65, 200, 512])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_kernel_every_length_and_head_dim(cuda_card, dtype, causal, S, D):
+    """Ragged lengths (a last tile of 1, 40, 8 rows) and whole tiles, one
+    block of S (the prefill's call), at every head dim the kernel takes."""
+    g = torch.Generator(device=cuda_card).manual_seed(S * 1000 + D)
+    q, k, v = (torch.randn(2, 3, S, D, device=cuda_card, generator=g)
+               .to(dtype) for _ in range(3))
+    _check(q, k, v, causal, S)
 
 
 @pytest.mark.cuda
