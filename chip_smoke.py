@@ -33,7 +33,26 @@ phase fails:
    conversation=true``, equal to the session API's; turn 2's first-step
    logits (chunked prefill on the kept cache) equal a from-scratch prefill
    over history plus prompt; the same two turns at ``tiny`` give the CPU
-   path's tokens.
+   path's tokens;
+8. MobileNet-v2 (224×224×3 uint8, width 1.0, 1001 classes) — the
+   ``filter_model_u8`` forward at batch 64 in bfloat16 (the card's
+   ``auto`` dtype) and float32, timed by CUDA events, with the host's time
+   to issue one forward and the forward's device time by aten op
+   (torch.profiler); card float32 logits (cuDNN's TF32 flag on) vs the
+   CPU's, and bfloat16 vs float32; then three launch lines at batch 64
+   (3 warm-up batches, 30 measured), frames/s counted at the sink: the
+   host line ``tensor_src ! tensor_aggregator ! queue ! tensor_filter !
+   queue ! tensor_sink``, the labeling line (``! tensor_decoder
+   mode=image_labeling frames-in=64``) and the device-resident line
+   (``tensor_src device=true``). Every frame gets one label, the argmax of
+   the logits the filter computed for it, through the decoder's reduce on
+   the card; the host frames equal those regenerated from the seed; the
+   filter and its outputs are on cuda:0. Each line's host time per batch
+   in the filter and the decoder, and the card's busy share over a
+   profiled window of each line. Then the p50 latency of one frame
+   through ``appsrc ! tensor_filter ! tensor_decoder ! tensor_sink``, and
+   the host's per-frame cost of ``tensor_src`` and ``tensor_aggregator``.
+   This path runs no hand-written kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -89,13 +108,29 @@ CONV_ATOL = 1e-4
 # the kernel line is timed at the middle one
 MAIN_POS = PROMPT + (STEPS - 1) // 2
 
+# MobileNet-v2 phase: batch, warm-up and measured batches (bench.py:30-32),
+# frames for the batch-1 latency, frames for the parity checks
+MB_MODEL = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model_u8"
+MB_BATCH, MB_WARM, MB_MEASURED = 64, 3, 30
+MB_P50_WARM, MB_P50_FRAMES = 10, 50
+# batches in the profiled window of each line (after MB_WARM warm-up ones)
+MB_PROFILED = 8
+MB_PARITY_FRAMES = 8
+# card f32 vs CPU f32 (summation order only, no TF32): max |logit err|,
+# and the centred logits' error as a share of their std (random weights
+# make the logits almost input-independent, so the max alone would pass a
+# model that ignored its input); bf16 vs f32, about twice nnstreamer_tpu's
+# own bf16-vs-f32 gap of 2.28e-4 on its CPU
+MB_LOGIT_ATOL, MB_CENTRED_SHARE, MB_BF16_ATOL = 1e-5, 0.01, 5e-4
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
-def time_ms(fn, args_list, reps: int = 9, inner: int = 20) -> float:
+def time_ms(fn, args_list, reps: int = 9, inner: int = 20,
+            sleep_cycles: int = 20_000_000) -> float:
     """Median per-call device time in ms over ``reps`` runs of ``inner``
     calls, cycling through ``args_list`` (distinct buffers, so the 50 MB L2
     holds none of them from the previous call, as in the decode loop where
@@ -109,7 +144,7 @@ def time_ms(fn, args_list, reps: int = 9, inner: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)   # ~10 ms of clock cycles
+        torch.cuda._sleep(sleep_cycles)   # 20M cycles: ~10 ms
         start.record()
         for i in range(inner):
             fn(*args_list[i % len(args_list)])
@@ -696,6 +731,447 @@ def phase_conversation(report: dict, dev: torch.device) -> None:
     print("conversation tiny: two turns on the card equal the CPU's")
 
 
+def mb_host_frames(n: int) -> np.ndarray:
+    """The frames ``tensor_src pattern=random dimensions=3:224:224:1
+    types=uint8`` makes from seed 0, as one (n, 224, 224, 3) array."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([rng.integers(0, 127, (1, 224, 224, 3))
+                           .astype(np.uint8) for _ in range(n)])
+
+
+def mb_centred_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    def centred(a):
+        return a - a.mean(0, keepdim=True)
+    return ((centred(got) - centred(want)).abs().max().item(),
+            centred(want).std().item())
+
+
+def mb_forward_breakdown(fn, batches, n: int = 3) -> dict:
+    """Device time of one forward by the aten op that launched it (ms, the
+    kernels' own time), from a torch.profiler trace of ``n`` forwards;
+    "total" sums them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.key.startswith("aten::"):
+            out[e.key] = us / 1e3 / n
+    out = dict(sorted(out.items(), key=lambda kv: -kv[1]))
+    if out:
+        out["total"] = sum(out.values())
+    return out
+
+
+def phase_mobilenet_model(report: dict, dev: torch.device) -> None:
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as mb
+    from nnstreamer_tpu_torch.models._blocks import make_u8_entry
+
+    f32_entry = make_u8_entry(replace(mb.filter_model, compute_dtype="float32"))
+    f32_card = f32_entry.make(dev)
+    bf16_card = mb.filter_model_u8.make(dev)
+    if bf16_card.dtype is not torch.bfloat16 or f32_card.dtype is not torch.float32:
+        fail(f"mobilenet: compute dtypes {bf16_card.dtype} (auto on the "
+             f"card) and {f32_card.dtype} (float32)")
+    x = torch.from_numpy(mb_host_frames(MB_PARITY_FRAMES))
+    cpu = f32_entry.make("cpu")(x)
+    xd = x.to(dev)
+    # main() turns TF32 off for the whole process; the float32 build must
+    # compute in float32 whatever the flag says, so it is on here
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        f32 = f32_card(xd)
+        if not torch.backends.cudnn.allow_tf32:
+            fail("mobilenet: the float32 forward left cuDNN's TF32 flag off")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    bf16 = bf16_card(xd)
+    if not (f32.is_cuda and f32.dtype is torch.float32
+            and tuple(f32.shape) == (MB_PARITY_FRAMES, 1001)
+            and bool(torch.isfinite(f32).all()) and bool(torch.isfinite(bf16).all())):
+        fail(f"mobilenet: logits {f32.dtype} {tuple(f32.shape)} on {f32.device}")
+    f32, bf16 = f32.cpu(), bf16.cpu()
+    err = (f32 - cpu).abs().max().item()
+    cerr, cstd = mb_centred_err(f32, cpu)
+    bf_err = (bf16 - f32).abs().max().item()
+    r = {"card_f32_vs_cpu_max_abs_err": err,
+         "card_f32_vs_cpu_centred_err": cerr, "cpu_centred_std": cstd,
+         "max_abs_logit": cpu.abs().max().item(),
+         "labels_equal_cpu": bool(torch.equal(f32.argmax(-1), cpu.argmax(-1))),
+         "bf16_vs_f32_max_abs_err": bf_err,
+         "bf16_labels_equal_f32": bool(torch.equal(bf16.argmax(-1),
+                                                   f32.argmax(-1)))}
+    print(f"mobilenet parity on {MB_PARITY_FRAMES} frames: card f32 (cuDNN "
+          f"TF32 flag on) vs CPU "
+          f"max |err| {err:.3e} (atol {MB_LOGIT_ATOL}), centred {cerr:.3e} "
+          f"vs centred std {cstd:.3e} (share {MB_CENTRED_SHARE}); bf16 vs f32 "
+          f"{bf_err:.3e} (atol {MB_BF16_ATOL})")
+    if not (err <= MB_LOGIT_ATOL and cerr <= MB_CENTRED_SHARE * cstd
+            and r["labels_equal_cpu"]):
+        fail(f"mobilenet: card f32 logits differ from the CPU's: {r}")
+    if not bf_err <= MB_BF16_ATOL:
+        fail(f"mobilenet: bf16 logits differ from f32 by {bf_err}")
+    # forward time at batch 64 over distinct inputs (4 × 9.6 MB of frames)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batches = [(torch.randint(0, 127, (MB_BATCH, 224, 224, 3), generator=gen,
+                              device=dev, dtype=torch.uint8),)
+               for _ in range(4)]
+    for name, fn in (("bfloat16", bf16_card), ("float32", f32_card)):
+        r[f"forward_ms_{name}"] = time_ms(fn, batches, reps=7, inner=5,
+                                          sleep_cycles=200_000_000)
+    # the host's time to issue one forward (the call returns once every
+    # launch is queued; the card runs behind it), at batch 64 and 1
+    for b in (MB_BATCH, 1):
+        issue = []
+        for i in range(10):
+            x1 = batches[i % len(batches)][0][:b]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bf16_card(x1)
+            issue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        r[f"issue_ms_bfloat16_batch{b}"] = 1e3 * statistics.median(issue[2:])
+    r["forward_breakdown_ms_bfloat16"] = mb_forward_breakdown(bf16_card, batches)
+    print(f"mobilenet filter_model_u8 forward at batch {MB_BATCH}: bf16 "
+          f"{r['forward_ms_bfloat16']:.4f} ms, f32 {r['forward_ms_float32']:.4f}"
+          f" ms ({MB_BATCH * 1e3 / r['forward_ms_bfloat16']:.1f} / "
+          f"{MB_BATCH * 1e3 / r['forward_ms_float32']:.1f} frames/s); host "
+          f"time to issue one bf16 forward "
+          f"{r[f'issue_ms_bfloat16_batch{MB_BATCH}']:.3f} ms at batch "
+          f"{MB_BATCH}, {r['issue_ms_bfloat16_batch1']:.3f} ms at batch 1")
+    top = [kv for kv in r["forward_breakdown_ms_bfloat16"].items()
+           if kv[0] != "total"][:8]
+    print("mobilenet bf16 forward, device ms by aten op (profiler): "
+          + ("not measured (no device time in the trace)" if not top else
+             ", ".join(f"{k} {v:.4f}" for k, v in top) + " of "
+             f"{r['forward_breakdown_ms_bfloat16']['total']:.4f} in all"))
+    report["mobilenet"] = {"model": r}
+
+
+MB_HEAD = ("tensor_src num-buffers={n} dimensions=3:224:224:1 types=uint8 "
+           "pattern=random ! tensor_aggregator frames-out={b} frames-dim=0 "
+           "concat=true ! queue max-size-buffers=4 ")
+MB_FILTER = (f"! tensor_filter framework=torch model={MB_MODEL} "
+             "sync-invoke=false name=f ")
+MB_LABEL = "! tensor_decoder mode=image_labeling frames-in={b} name=d "
+
+
+def mb_lines() -> dict:
+    n, b = (MB_WARM + MB_MEASURED) * MB_BATCH, MB_BATCH
+    head = MB_HEAD.format(n=n, b=b) + MB_FILTER
+    label = MB_LABEL.format(b=b)
+    return {
+        "host": head + "! queue max-size-buffers=4 ! tensor_sink name=out "
+                       "max-stored=1",
+        "labeling": head + label + "! tensor_sink name=out max-stored=1",
+        "device": (f"tensor_src device=true pattern=random num-buffers="
+                   f"{MB_WARM + MB_MEASURED} dimensions=3:224:224:{b} "
+                   f"types=uint8 {MB_FILTER}! queue max-size-buffers=4 "
+                   f"{label}! tensor_sink name=out max-stored=1"),
+    }
+
+
+def mb_run_line(name: str, line: str) -> dict:
+    """Drive one line; the filter is tapped for its input batches and the
+    argmax of its logits (launches made for the checks do not count)."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(line)
+    filt = pipe.get("f")
+    inputs, argmax, devices, filter_s, decoder_s = [], [], set(), [], []
+    transform = filt.transform
+
+    def tapped(buf):
+        t0 = time.perf_counter()
+        out = transform(buf)
+        filter_s.append(time.perf_counter() - t0)
+        inputs.append(buf.tensors[0])
+        argmax.append(out.tensors[0].argmax(-1))
+        devices.add((str(filt.backend_device), str(out.tensors[0].device)))
+        return out
+
+    filt.transform = tapped
+    host_decodes = []
+    if name != "host":
+        dec = pipe.get("d")
+        chain = dec.chain
+        # the host decode pulls a batch's full logits; the reduce path
+        # pulls one int32 label per frame, and must be the one taken
+        host_decode = dec.decoder.decode
+
+        def counted_decode(buf, info):
+            host_decodes.append(1)
+            return host_decode(buf, info)
+
+        dec.decoder.decode = counted_decode
+
+        def timed_chain(pad, buf):
+            t0 = time.perf_counter()
+            chain(pad, buf)
+            decoder_s.append(time.perf_counter() - t0)
+
+        dec.chain = timed_chain
+    times, labels = [], []
+    labeling = name != "host"
+
+    def on_data(buf):
+        if labeling:
+            labels.append(buf.meta["labels"])
+        else:
+            t = buf.tensors[0]
+            if not (t.is_cuda and tuple(t.shape) == (MB_BATCH, 1001)):
+                fail(f"mobilenet {name}: sink got {t.dtype} "
+                     f"{tuple(t.shape)} on {t.device}")
+            torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    pipe.get("out").connect(on_data)
+    reset_launches()
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=300)
+        stats = filt.stats.snapshot()
+    finally:
+        pipe.stop()
+    launches = read_launches()
+    if msg.type is not MessageType.EOS:
+        fail(f"mobilenet {name} line: {msg}")
+    n_batches = MB_WARM + MB_MEASURED
+    if devices != {("cuda:0", "cuda:0")}:
+        fail(f"mobilenet {name}: filter (backend device, output device) "
+             f"{sorted(devices)}, expected cuda:0 for both")
+    if len(inputs) != n_batches:
+        fail(f"mobilenet {name}: {len(inputs)} filter invocations for "
+             f"{n_batches} batches")
+    want = torch.cat(argmax).cpu().tolist()
+    per_batch = MB_BATCH if labeling else 1
+    if len(times) != n_batches * per_batch:
+        fail(f"mobilenet {name}: {len(times)} buffers at the sink, expected "
+             f"{n_batches * per_batch}")
+    if labeling:
+        if host_decodes:
+            fail(f"mobilenet {name}: the decoder decoded {len(host_decodes)} "
+                 "frames on the host instead of reducing the batch on the card")
+        if any(len(ls) != 1 for ls in labels):
+            fail(f"mobilenet {name}: a label buffer holds "
+                 f"{max(len(ls) for ls in labels)} labels, expected one")
+        if [int(ls[0]) for ls in labels] != want:
+            fail(f"mobilenet {name}: labels differ from the argmax of the "
+                 "filter's logits")
+    if name == "device":
+        first = inputs[0]
+        if not (first.is_cuda and first.dtype is torch.uint8
+                and int(first.min()) >= 0 and int(first.max()) < 127):
+            fail(f"mobilenet device: tensor_src frames {first.dtype} on "
+                 f"{first.device}")
+    else:
+        frames = mb_host_frames(n_batches * MB_BATCH)
+        got = np.concatenate([np.asarray(t) for t in inputs])
+        if not np.array_equal(got, frames):
+            fail(f"mobilenet {name}: the filter's input differs from the "
+                 "frames regenerated from the seed")
+    ends = times[per_batch - 1::per_batch]
+    fps = MB_MEASURED * MB_BATCH / (ends[-1] - ends[MB_WARM - 1])
+    steady = slice(MB_WARM, None)
+    return {"frames_per_s": fps, "batches": n_batches,
+            "batch_ms_median": 1e3 * statistics.median(
+                b - a for a, b in zip(ends[MB_WARM - 1:], ends[MB_WARM:])),
+            # host time of the filter's transform per batch (H2D copy and
+            # the forward's launches; the device runs behind it), and of
+            # the decoder's chain (its one pull waits for the forward)
+            "filter_host_ms_median": 1e3 * statistics.median(filter_s[steady]),
+            "decoder_ms_median": (1e3 * statistics.median(decoder_s[steady])
+                                  if decoder_s else None),
+            "launches": launches, "filter_stats": stats,
+            "labels": len(labels), "distinct_labels": len(set(want))}
+
+
+def mb_device_busy(name: str, line: str) -> dict:
+    """The card's busy share over a steady window of a line: a torch.profiler
+    trace (CUDA activity only, so the host is not slowed by op records)
+    started on this thread once MB_WARM batches reached the sink, and
+    stopped MB_PROFILED batches after the start returned (the source runs
+    unbounded and the pipeline is stopped after the window). Busy = the
+    union of the kernels' and copies' intervals, over the host time from
+    the start's return to the stop. None where the trace holds no device
+    activity."""
+    import re
+    import threading
+
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    line = re.sub(r"num-buffers=\d+ ", "num-buffers=-1 ", line)
+    per_batch = 1 if name == "host" else MB_BATCH
+    seen = [0]
+    cond = threading.Condition()
+
+    def on_data(buf):
+        with cond:
+            seen[0] += 1
+            cond.notify_all()
+
+    def wait_for_batches(k: float) -> float:
+        with cond:
+            if not cond.wait_for(lambda: seen[0] >= k * per_batch, timeout=300):
+                fail(f"mobilenet {name} profiled run: {seen[0]} buffers at "
+                     f"the sink, waiting for {k} batches")
+            return seen[0] / per_batch
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    pipe = parse_launch(line)
+    pipe.get("out").connect(on_data)
+    pipe.play()
+    try:
+        wait_for_batches(MB_WARM)
+        prof.start()
+        t0, k0 = time.perf_counter(), wait_for_batches(0)
+        wait_for_batches(k0 + MB_PROFILED)
+        torch.cuda.synchronize()
+        t1, k1 = time.perf_counter(), wait_for_batches(0)
+        prof.stop()
+    finally:
+        pipe.stop()
+    while (msg := pipe.bus.pop(timeout=0)) is not None:
+        if msg.type is MessageType.ERROR:
+            fail(f"mobilenet {name} profiled run: {msg}")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    wall_us = 1e6 * (t1 - t0)
+    return {"busy_share": busy / wall_us if spans else None,
+            "device_events_per_batch": len(spans) / (k1 - k0),
+            "window_ms": wall_us / 1e3, "batches": k1 - k0}
+
+
+def mb_latency() -> dict:
+    """Push one frame, wait for its label; p50 over MB_P50_FRAMES frames
+    after MB_P50_WARM warm-up frames."""
+    import threading
+
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,"
+        "dimensions=3:224:224:1,types=uint8 ! tensor_filter framework=torch "
+        f"model={MB_MODEL} name=f ! tensor_decoder mode=image_labeling "
+        "! tensor_sink name=out max-stored=1")
+    arrived = threading.Event()
+    got = []
+
+    def on_label(buf):
+        got.append(buf.meta["labels"])
+        arrived.set()
+
+    pipe.get("out").connect(on_label)
+    frames = mb_host_frames(MB_P50_WARM + MB_P50_FRAMES)
+    lat = []
+    pipe.play()
+    try:
+        for i in range(len(frames)):
+            arrived.clear()
+            t0 = time.perf_counter()
+            pipe.get("in").push_buffer(frames[i:i + 1])
+            if not arrived.wait(timeout=120):
+                fail(f"mobilenet latency: frame {i} gave no label in 120 s")
+            lat.append(time.perf_counter() - t0)
+        pipe.get("in").end_of_stream()
+        msg = pipe.wait(timeout=60)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS or len(got) != len(frames) \
+            or any(len(ls) != 1 for ls in got):
+        fail(f"mobilenet latency line: {msg}, {len(got)} label buffers")
+    steady = lat[MB_P50_WARM:]
+    return {"p50_ms": 1e3 * statistics.median(steady),
+            "p90_ms": 1e3 * float(np.percentile(steady, 90)),
+            "first_ms_incl_model_build": 1e3 * lat[0],
+            "frames": len(steady)}
+
+
+def mb_host_costs() -> dict:
+    """The host's per-frame cost of the bench line's head: tensor_src
+    making a random (1, 224, 224, 3) uint8 frame, and tensor_aggregator
+    taking it into a 64-frame batch (its concat included)."""
+    from nnstreamer_tpu_torch.core import Event, parse_caps_string
+    from nnstreamer_tpu_torch.registry.elements import make_element
+
+    src = make_element("tensor_src", dimensions="3:224:224:1", types="uint8",
+                       pattern="random")
+    n = 4 * MB_BATCH
+    t0 = time.perf_counter()
+    for _ in range(n):       # each frame dropped, as the aggregator's concat does
+        src.create()
+    src_ms = 1e3 * (time.perf_counter() - t0) / n
+    bufs = [src.create() for _ in range(n)]
+    agg = make_element("tensor_aggregator", frames_out=MB_BATCH)
+    make_element("appsrc").link(agg)
+    agg.handle_sink_event(agg.sinkpad, Event.caps(parse_caps_string(
+        "other/tensors,format=static,dimensions=3:224:224:1,types=uint8")))
+    t0 = time.perf_counter()
+    for b in bufs:
+        agg.chain(agg.sinkpad, b)
+    agg_ms = 1e3 * (time.perf_counter() - t0) / n
+    return {"tensor_src_ms_per_frame": src_ms,
+            "aggregator_ms_per_frame": agg_ms}
+
+
+def phase_mobilenet_lines(report: dict) -> None:
+    r = report["mobilenet"]
+    r["host_costs"] = mb_host_costs()
+    print(f"mobilenet host head per frame: tensor_src "
+          f"{r['host_costs']['tensor_src_ms_per_frame']:.4f} ms, aggregator "
+          f"{r['host_costs']['aggregator_ms_per_frame']:.4f} ms")
+    r["lines"] = {}
+    for name, line in mb_lines().items():
+        res = mb_run_line(name, line)
+        r["lines"][name] = res
+        checked = ("host frames equal the seed's" if name == "host" else
+                   f"{res['labels']} label buffers, one per frame, equal to "
+                   "the filter's argmax")
+        dec_ms = res["decoder_ms_median"]
+        print(f"mobilenet {name} line: {res['frames_per_s']:.1f} frames/s "
+              f"({MB_MEASURED} batches of {MB_BATCH} after {MB_WARM} "
+              f"warm-up; median batch {res['batch_ms_median']:.3f} ms; host "
+              f"per batch: filter {res['filter_host_ms_median']:.3f} ms"
+              + (f", decoder {dec_ms:.3f} ms" if dec_ms is not None else "")
+              + f"); {checked}")
+    for name, line in mb_lines().items():
+        busy = mb_device_busy(name, line)
+        r["lines"][name]["device"] = busy
+        share = busy["busy_share"]
+        print(f"mobilenet {name} line, profiled window of "
+              f"{busy['batches']:.2f} batches ({busy['window_ms']:.3f} ms): "
+              "card busy "
+              + ("not measured (no device activity in the trace)"
+                 if share is None else f"{100 * share:.1f}%")
+              + f", {busy['device_events_per_batch']:.1f} device events "
+              "per batch")
+    r["latency_batch1"] = mb_latency()
+    print(f"mobilenet batch-1 push-to-label latency: p50 "
+          f"{r['latency_batch1']['p50_ms']:.3f} ms, p90 "
+          f"{r['latency_batch1']['p90_ms']:.3f} ms over "
+          f"{MB_P50_FRAMES} frames")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -720,6 +1196,8 @@ def main() -> None:
     launches = phase_generate(report, prompts, filter_outs)["launches"]
     phase_parity(report, dev)
     phase_conversation(report, dev)
+    phase_mobilenet_model(report, dev)
+    phase_mobilenet_lines(report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

@@ -3,8 +3,8 @@ injection.
 
 Reference analogs: GStreamer ``appsrc`` (used throughout the reference's
 tests, SURVEY.md §4) plus a tensor-native test source. Frames are made on
-the host; ``tensor_src device=true``, ``videotestsrc`` and
-``tensor_src_callable`` are not in this package yet.
+the host, or on the card with ``tensor_src device=true``; ``videotestsrc``
+and ``tensor_src_callable`` are not in this package yet.
 """
 from __future__ import annotations
 
@@ -26,8 +26,9 @@ from ..core import (
 from ..core.caps import any_media_caps
 from ..core.tensors import TensorSpec
 from ..registry.elements import register_element
-from ..runtime.element import Prop, SourceElement
+from ..runtime.element import Prop, SourceElement, prop_bool
 from ..runtime.pad import PadDirection, PadTemplate
+from ..utils.hw_accel import device_for_accelerator
 
 _ANY_MEDIA_CAPS = any_media_caps()
 
@@ -94,6 +95,14 @@ class TensorSrc(_PacedSource):
         "types": Prop("float32", str, "dtype(s), '.'-separated"),
         "pattern": Prop("counter", str, "zeros | ones | random | counter"),
         "seed": Prop(0, int, "RNG seed for pattern=random"),
+        "device": Prop(False, prop_bool,
+                       "generate frames ON the card (a torch.Generator per "
+                       "frame, seeded from seed and the frame index): the "
+                       "stream is device-resident from birth and no stage "
+                       "pays a host→device copy"),
+        "accelerator": Prop("auto", str,
+                            "device of device=true frames: auto | gpu | "
+                            "cuda[:N] | cpu (auto and gpu = cuda:0)"),
     }
 
     def __init__(self, name=None, **props):
@@ -106,14 +115,53 @@ class TensorSrc(_PacedSource):
             *(TensorSpec.from_dim_string(d, t) for d, t in zip(dims, types))
         )
         self._rng = np.random.default_rng(self.props["seed"])
+        self._dev: Optional[torch.device] = None  # device=true, on first frame
 
     def get_src_caps(self) -> Caps:
         return caps_from_tensors_info(self._info)
+
+    def _device_create(self, idx: int) -> list:
+        """Every tensor of frame ``idx`` made on the device. Values differ
+        from the host path's (and from nnstreamer_tpu's jax.random); the
+        patterns, dtypes and ranges are the same: random floats in [0, 1),
+        random integers in [0, 127)."""
+        if self._dev is None:  # a missing card fails here, on the bus
+            self._dev = device_for_accelerator(self.props["accelerator"])
+        pattern = self.props["pattern"]
+        dev = self._dev
+        gen = None
+        if pattern == "random":
+            # mixed so that the low 32 bits (all the CPU's mt19937 uses)
+            # differ with the seed and with the frame index
+            gen = torch.Generator(device=dev)
+            gen.manual_seed((self.props["seed"] * 0x9E3779B97F4A7C15 + idx)
+                            % 2 ** 64)
+        out = []
+        for spec in self._info.specs:
+            dt = spec.dtype.torch_dtype
+            if pattern == "zeros":
+                a = torch.zeros(spec.shape, dtype=dt, device=dev)
+            elif pattern == "ones":
+                a = torch.ones(spec.shape, dtype=dt, device=dev)
+            elif pattern == "random":
+                if spec.dtype.is_float:
+                    a = torch.rand(spec.shape, generator=gen, device=dev,
+                                   dtype=torch.float32).to(dt)
+                else:
+                    a = torch.randint(0, 127, spec.shape, generator=gen,
+                                      device=dev, dtype=dt)
+            else:  # counter
+                a = torch.full(spec.shape, idx, dtype=torch.int64,
+                               device=dev).to(dt)
+            out.append(a)
+        return out
 
     def create(self) -> Optional[Buffer]:
         kw = self._pace()
         if kw is None:
             return None
+        if self.props["device"]:
+            return Buffer(self._device_create(self._frame - 1), **kw)
         pattern = self.props["pattern"]
         arrays = []
         for spec in self._info.specs:

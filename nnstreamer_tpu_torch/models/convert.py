@@ -1,9 +1,14 @@
-"""Weight converter: nnstreamer_tpu's parameter pytree → the port's.
+"""Weight converters: nnstreamer_tpu's parameter pytrees → the port's.
 
-``params_from_jax`` takes the JAX package's transformer parameters as numpy
-arrays (``np.asarray`` of each leaf; bfloat16 leaves are accepted by their
-dtype name) and returns the port's parameter dict on ``device``. The two
-layouts are the same (models/transformer.py), so no leaf is transposed.
+Both take the JAX package's parameters as numpy arrays (``np.asarray`` of
+each leaf; bfloat16 leaves are accepted by their dtype name) and return
+tensors on ``device``:
+
+* ``params_from_jax`` — the transformer's parameter dict. The two layouts
+  are the same (models/transformer.py), so no leaf is transposed.
+* ``mobilenet_params_from_flax`` — the MobileNet-v2 flax tree as a state
+  dict of models/mobilenet_v2.py's ``MobileNetV2``, with the kernels
+  transposed to torch's layouts.
 """
 from __future__ import annotations
 
@@ -49,3 +54,75 @@ def params_from_jax(tree: Dict[str, Any],
             "pos": _tensor(tree["pos"], device, dtype),
             "out_norm": _tensor(tree["out_norm"], device, dtype),
             "blocks": blocks}
+
+
+def convbnrelu_params_from_flax(node: Dict[str, Any],
+                                device: Optional[Union[str, torch.device]] = None,
+                                dtype: Optional[torch.dtype] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """One flax ``ConvBnRelu`` as the state dict of models/_blocks.py's
+    ``ConvBnRelu``. A conv kernel (kh, kw, in, out) and a depthwise kernel
+    (kh, kw, 1, C) both become (out, in, kh, kw)."""
+    device = resolve_device(device)
+    kernel = (node["depthwise_kernel"] if "depthwise_kernel" in node
+              else node["Conv_0"]["kernel"])
+    return {"weight": _tensor(np.transpose(np.asarray(kernel), (3, 2, 0, 1)),
+                              device, dtype),
+            "bn_scale": _tensor(node["bn_scale"], device, dtype),
+            "bn_bias": _tensor(node["bn_bias"], device, dtype)}
+
+
+def inverted_residual_params_from_flax(node: Dict[str, Any],
+                                       device: Optional[Union[str, torch.device]] = None,
+                                       dtype: Optional[torch.dtype] = None
+                                       ) -> Dict[str, torch.Tensor]:
+    """One flax ``InvertedResidual`` — ConvBnRelu_0..2 (expand, depthwise,
+    project), or ConvBnRelu_0..1 without an expansion — as the state dict
+    of models/_blocks.py's ``InvertedResidual``."""
+    parts = (("expand", "dw", "project") if "ConvBnRelu_2" in node
+             else ("dw", "project"))
+    out = {}
+    for k, part in enumerate(parts):
+        for name, t in convbnrelu_params_from_flax(
+                node[f"ConvBnRelu_{k}"], device, dtype).items():
+            out[f"{part}.{name}"] = t
+    return out
+
+
+def _count_leaves(node) -> int:
+    if isinstance(node, dict):
+        return sum(_count_leaves(v) for v in node.values())
+    return 1
+
+
+def mobilenet_params_from_flax(tree: Dict[str, Any],
+                               device: Optional[Union[str, torch.device]] = None,
+                               dtype: Optional[torch.dtype] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """``tree``: nnstreamer_tpu's ``build_mobilenet_v2`` parameters,
+    ``{"params": {ConvBnRelu_0 (stem), InvertedResidual_0..16,
+    ConvBnRelu_1 (head), Dense_0}}`` (the outer "params" level optional).
+    An InvertedResidual holds ConvBnRelu_0..2 (expand, depthwise,
+    project), or ConvBnRelu_0..1 when it has no expansion. Dense (in, out)
+    becomes torch's (out, in). ``dtype`` casts every leaf; None keeps
+    theirs. Raises KeyError when a leaf is missing or left over."""
+    device = resolve_device(device)
+    p = tree["params"] if "params" in tree else tree
+    out: Dict[str, torch.Tensor] = {}
+    for part, node in (("stem", p["ConvBnRelu_0"]), ("head", p["ConvBnRelu_1"])):
+        for name, t in convbnrelu_params_from_flax(node, device, dtype).items():
+            out[f"{part}.{name}"] = t
+    i = 0
+    while f"InvertedResidual_{i}" in p:
+        for name, t in inverted_residual_params_from_flax(
+                p[f"InvertedResidual_{i}"], device, dtype).items():
+            out[f"blocks.{i}.{name}"] = t
+        i += 1
+    dense = p["Dense_0"]
+    out["fc.weight"] = _tensor(np.asarray(dense["kernel"]).T, device, dtype)
+    out["fc.bias"] = _tensor(dense["bias"], device, dtype)
+    total = _count_leaves(p)
+    if len(out) != total:
+        raise KeyError(f"the flax tree has {total} leaves; the MobileNet-v2 "
+                       f"layout uses {len(out)}")
+    return out

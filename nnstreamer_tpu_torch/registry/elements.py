@@ -26,9 +26,12 @@ def register_element(cls: Type[Element]) -> Type[Element]:
 
 
 _STANDARD_MODULES = (
+    "nnstreamer_tpu_torch.runtime.queue_factory",
     "nnstreamer_tpu_torch.elements.src",
     "nnstreamer_tpu_torch.elements.sink",
     "nnstreamer_tpu_torch.elements.filter",
+    "nnstreamer_tpu_torch.elements.decoder",
+    "nnstreamer_tpu_torch.elements.aggregator",
     "nnstreamer_tpu_torch.elements.generate",
 )
 

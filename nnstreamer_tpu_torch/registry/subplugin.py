@@ -2,7 +2,7 @@
 
 Reference analog: ``gst/nnstreamer/nnstreamer_subplugin.c`` — per-type hash
 tables (FILTER/DECODER/CONVERTER/TRAINER, :139-293; the port has FILTER
-only so far) populated by ``.so``
+and DECODER so far) populated by ``.so``
 constructors after lazy ``g_module_open``. Python redesign: per-type dicts
 populated by ``@register(kind, name)`` decorators at import time; lazy loading
 resolves a not-yet-registered name by importing (a) the built-in module for
@@ -21,6 +21,7 @@ from ..utils.log import logger
 
 class SubpluginKind(enum.Enum):
     FILTER = "filter"        # NN framework backends
+    DECODER = "decoder"      # tensor_decoder modes
 
 
 _REGISTRY: Dict[SubpluginKind, Dict[str, Any]] = {k: {} for k in SubpluginKind}
@@ -32,6 +33,7 @@ _lock = threading.RLock()
 # table names only its own modules.
 _BUILTIN_MODULES: Dict[SubpluginKind, tuple] = {
     SubpluginKind.FILTER: ("nnstreamer_tpu_torch.backends.torch_backend",),
+    SubpluginKind.DECODER: ("nnstreamer_tpu_torch.decoders",),
 }
 _scanned: Dict[SubpluginKind, bool] = {k: False for k in SubpluginKind}
 

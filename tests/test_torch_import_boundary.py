@@ -23,6 +23,16 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.elements.src",
     "nnstreamer_tpu_torch.elements.sink",
     "nnstreamer_tpu_torch.elements.generate",
+    "nnstreamer_tpu_torch.elements.decoder",
+    "nnstreamer_tpu_torch.elements.aggregator",
+    "nnstreamer_tpu_torch.runtime.queue",
+    "nnstreamer_tpu_torch.runtime.queue_factory",
+    "nnstreamer_tpu_torch.decoders",
+    "nnstreamer_tpu_torch.decoders.base",
+    "nnstreamer_tpu_torch.decoders.simple",
+    "nnstreamer_tpu_torch.models.mobilenet_v2",
+    "nnstreamer_tpu_torch.models._blocks",
+    "nnstreamer_tpu_torch.models.tflite_import",
     "nnstreamer_tpu_torch.models.lm_serving",
     "nnstreamer_tpu_torch.models.decoding",
     "nnstreamer_tpu_torch.models.transformer",
@@ -48,8 +58,10 @@ for mod in {SLICE_MODULES!r}:
 from nnstreamer_tpu_torch.registry.elements import element_factories
 from nnstreamer_tpu_torch.registry.subplugin import SubpluginKind, get
 assert {{"appsrc", "tensor_filter", "tensor_generate", "tensor_sink",
-         "tensor_src"}} <= set(element_factories())
+         "tensor_src", "queue", "tensor_aggregator",
+         "tensor_decoder"}} <= set(element_factories())
 assert get(SubpluginKind.FILTER, "torch") is get(SubpluginKind.FILTER, "pytorch")
+assert get(SubpluginKind.DECODER, "image_labeling").MODE == "image_labeling"
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded
