@@ -52,7 +52,26 @@ phase fails:
    profiled window of each line. Then the p50 latency of one frame
    through ``appsrc ! tensor_filter ! tensor_decoder ! tensor_sink``, and
    the host's per-frame cost of ``tensor_src`` and ``tensor_aggregator``.
-   This path runs no hand-written kernel.
+   This path runs no hand-written kernel;
+9. the raw-media line — ``videotestsrc pattern=gradient ! videoconvert !
+   videoscale ! video/x-raw,width=224,height=224,format=RGB !
+   tensor_converter frames-per-tensor=64 ! tensor_transform
+   mode=arithmetic option=typecast:float32,add:-127.5,div:127.5 ! queue !
+   tensor_filter model=...mobilenet_v2:filter_model ! tensor_decoder
+   mode=image_labeling frames-in=64 ! tensor_sink`` (bf16, the card's
+   ``auto``), 3 warm-up and 30 measured batches of 64, frames/s counted at
+   the sink. The source's frames equal the gradient rebuilt on the host;
+   the transform's output on the card equals the port's CPU transform of
+   the same frames bit for bit; the transform's and the filter's outputs
+   are on cuda:0; one label per frame, the argmax of the filter's logits;
+   the logits agree with the ``filter_model_u8`` forward on the same
+   frames. A second line sends the transformed batch through
+   ``tensor_decoder mode=protobuf ! tensor_converter``: the wire bytes are
+   those of the batch's CPU copy, and the converter gives that copy back.
+   The host's ms per frame of ``videotestsrc``, the converter's ms per
+   batch, the transform's host ms (its H2D copy and launches) and device
+   ms (CUDA events) per batch, and the card's busy share over a profiled
+   window. This path runs no hand-written kernel either.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -1172,6 +1191,270 @@ def phase_mobilenet_lines(report: dict) -> None:
           f"{MB_P50_FRAMES} frames")
 
 
+# raw-media phase: the tentpole's line at full width (224×224×3 frames in
+# batches of MB_BATCH) into the float entry, bf16 on the card
+VL_SIZE = 224
+VL_MODEL = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model"
+VL_NORM = "typecast:float32,add:-127.5,div:127.5"
+# the line's logits (float32 (x - 127.5) / 127.5, rounded to bf16 at the
+# model's input) vs the filter_model_u8 forward (bf16 x * (1/127.5) - 1):
+# the inputs differ by at most one bf16 step, so the logits by about the
+# bf16-vs-f32 gap of phase 8 (1.45e-4); held to phase 8's bf16 limit
+VL_U8_ATOL = MB_BF16_ATOL
+
+
+def vl_line(n_batches: int, labels: Path) -> str:
+    b = MB_BATCH
+    return (f"videotestsrc num-buffers={n_batches * b} pattern=gradient ! "
+            "videoconvert ! videoscale ! "
+            f"video/x-raw,width={VL_SIZE},height={VL_SIZE},format=RGB ! "
+            f"tensor_converter frames-per-tensor={b} ! tensor_transform "
+            f"mode=arithmetic option={VL_NORM} name=tr ! "
+            "queue max-size-buffers=4 ! tensor_filter framework=torch "
+            f"model={VL_MODEL} name=f ! tensor_decoder mode=image_labeling "
+            f"option1={labels} frames-in={b} name=d ! "
+            "tensor_sink name=out max-stored=1")
+
+
+def vl_frames(first: int, n: int) -> np.ndarray:
+    """Gradient frames first..first+n-1 as videotestsrc builds them: a
+    0..255 ramp along x in every channel, channel 0 shifted by the frame
+    index (mod 256)."""
+    xx = np.linspace(0, 255, VL_SIZE, dtype=np.uint8)
+    out = np.empty((n, VL_SIZE, VL_SIZE, 3), np.uint8)
+    out[:] = xx[None, None, :, None]
+    idx = np.arange(first, first + n)[:, None, None]
+    out[..., 0] = (xx.astype(np.int32)[None, None, :] + idx) % 256
+    return out
+
+
+def vl_same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def vl_run_line(labels: Path) -> dict:
+    """Drive the line; the transform is tapped for its input and output
+    batches, its host time and its device time (CUDA events on its
+    thread's stream), the filter for its logits."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import filter_model_u8
+    from nnstreamer_tpu_torch.ops.transform_ops import parse_transform_options
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    n_batches = MB_WARM + MB_MEASURED
+    pipe = parse_launch(vl_line(n_batches, labels))
+    tr, filt = pipe.get("tr"), pipe.get("f")
+    tr_in, tr_out, tr_host, tr_events, logits, devices = [], [], [], [], [], set()
+    transform, filter_transform = tr.transform, filt.transform
+
+    def tapped_transform(buf):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = transform(buf)
+        tr_host.append(time.perf_counter() - t0)
+        end.record()
+        tr_events.append((start, end))
+        tr_in.append(buf.tensors[0])
+        tr_out.append(out.tensors[0])
+        return out
+
+    def tapped_filter(buf):
+        out = filter_transform(buf)
+        logits.append(out.tensors[0])
+        devices.add((str(buf.tensors[0].device), str(filt.backend_device),
+                     str(out.tensors[0].device)))
+        return out
+
+    tr.transform, filt.transform = tapped_transform, tapped_filter
+    times, labels_got = [], []
+
+    def on_label(buf):
+        labels_got.append(buf.meta["label_indices"])
+        times.append(time.perf_counter())
+
+    pipe.get("out").connect(on_label)
+    reset_launches()
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=300)
+    finally:
+        pipe.stop()
+    launches = read_launches()
+    if msg.type is not MessageType.EOS:
+        fail(f"video line: {msg}")
+    if len(tr_out) != n_batches or len(logits) != n_batches:
+        fail(f"video line: {len(tr_out)} transformed batches, {len(logits)} "
+             f"filter invocations for {n_batches} batches")
+    if devices != {("cuda:0", "cuda:0", "cuda:0")}:
+        fail(f"video line: (transform output, filter backend, filter output) "
+             f"devices {sorted(devices)}, expected cuda:0 for all")
+    # the source's frames, as the converter stacked them
+    for i, x in enumerate(tr_in):
+        if not (isinstance(x, np.ndarray)
+                and np.array_equal(x, vl_frames(i * MB_BATCH, MB_BATCH))):
+            fail(f"video line: batch {i} of the converter differs from the "
+                 "gradient frames rebuilt on the host")
+    # the card's transform vs the port's CPU transform of the same frames
+    fn = parse_transform_options("arithmetic", VL_NORM)
+    for i, (x, y) in enumerate(zip(tr_in, tr_out)):
+        if not (y.dtype is torch.float32
+                and tuple(y.shape) == (MB_BATCH, VL_SIZE, VL_SIZE, 3)
+                and vl_same_bits(y.cpu(), fn(torch.from_numpy(x)))):
+            fail(f"video line: batch {i}: the card's transform "
+                 f"({y.dtype} {tuple(y.shape)}) differs from the CPU's")
+    # one label per frame, the argmax of the filter's logits for it
+    want = torch.cat([t.argmax(-1) for t in logits]).cpu().tolist()
+    if len(labels_got) != n_batches * MB_BATCH or any(
+            len(ls) != 1 for ls in labels_got):
+        fail(f"video line: {len(labels_got)} label buffers for "
+             f"{n_batches * MB_BATCH} frames")
+    if [ls[0] for ls in labels_got] != want:
+        fail("video line: labels differ from the argmax of the filter's logits")
+    # the logits vs the filter_model_u8 forward on the same uint8 frames
+    u8 = filter_model_u8.make()
+    u8_err, u8_labels = 0.0, 0
+    for i in (0, n_batches - 1):
+        ref = u8(torch.from_numpy(tr_in[i]).to(logits[i].device))
+        if not (bool(torch.isfinite(logits[i]).all())
+                and tuple(logits[i].shape) == (MB_BATCH, 1001)):
+            fail(f"video line: logits {tuple(logits[i].shape)} not finite")
+        u8_err = max(u8_err, (logits[i] - ref).abs().max().item())
+        u8_labels += int((logits[i].argmax(-1) == ref.argmax(-1)).sum())
+    if not u8_err <= VL_U8_ATOL:
+        fail(f"video line: logits differ from filter_model_u8's by {u8_err} "
+             f"(atol {VL_U8_ATOL})")
+    torch.cuda.synchronize()
+    steady = slice(MB_WARM, None)
+    dev_ms = [a.elapsed_time(b) for a, b in tr_events]
+    ends = times[MB_BATCH - 1::MB_BATCH]
+    return {
+        "frames_per_s": MB_MEASURED * MB_BATCH / (ends[-1] - ends[MB_WARM - 1]),
+        "batch_ms_median": 1e3 * statistics.median(
+            b - a for a, b in zip(ends[MB_WARM - 1:], ends[MB_WARM:])),
+        "transform_host_ms_median": 1e3 * statistics.median(tr_host[steady]),
+        "transform_device_ms_median": statistics.median(dev_ms[steady]),
+        "transform_bit_equal_cpu": True,
+        "logits_vs_u8_max_abs_err": u8_err,
+        "labels_equal_u8_of_2_batches": u8_labels,
+        "labels": len(labels_got), "distinct_labels": len(set(want)),
+        "launches": launches}
+
+
+def vl_round_trip(labels: Path) -> dict:
+    """The transformed batch through ``tensor_decoder mode=protobuf !
+    tensor_converter`` and back, beside the batch itself."""
+    from nnstreamer_tpu_torch.core import MessageType, TensorFormat
+    from nnstreamer_tpu_torch.core.wire_protobuf import encode_tensors
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    head = vl_line(2, labels).split(" ! queue max-size-buffers=4")[0]
+    pipe = parse_launch(
+        head + " ! tee name=t t. ! queue ! tensor_decoder mode=protobuf "
+        "name=d ! tensor_converter ! tensor_sink name=back max-stored=0 "
+        "t. ! queue ! tensor_sink name=orig max-stored=0")
+    dec = pipe.get("d")
+    decode, blobs, encode_s = dec.decoder.decode, [], []
+
+    def tapped_decode(buf, info):
+        t0 = time.perf_counter()
+        out = decode(buf, info)
+        encode_s.append(time.perf_counter() - t0)
+        blobs.append(out.tensors[0])
+        return out
+
+    dec.decoder.decode = tapped_decode
+    back, orig = [], []
+    pipe.get("back").connect(back.append)
+    pipe.get("orig").connect(orig.append)
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=300)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS or not (len(back) == len(orig) == 2):
+        fail(f"protobuf round trip: {msg}, {len(orig)} batches, "
+             f"{len(back)} back")
+    for o, b, blob in zip(orig, back, blobs):
+        t = o.tensors[0]
+        host = t.cpu().numpy()
+        if not t.is_cuda:
+            fail(f"protobuf round trip: the batch is on {t.device}")
+        if bytes(blob) != encode_tensors([host], [""], TensorFormat.STATIC):
+            fail("protobuf round trip: the wire bytes of a CUDA batch differ "
+                 "from those of its CPU copy")
+        got = np.asarray(b.tensors[0])
+        if not (got.dtype == host.dtype and got.shape == host.shape
+                and got.tobytes() == host.tobytes()):
+            fail("protobuf round trip: the converter's tensor differs from "
+                 "the batch's CPU copy")
+    return {"batches": len(orig), "wire_bytes_per_batch": len(blobs[0]),
+            "encode_ms_median": 1e3 * statistics.median(encode_s)}
+
+
+def vl_host_costs() -> dict:
+    """The host's cost of the line's head: one 224×224×3 gradient frame
+    made by videotestsrc, and tensor_converter stacking MB_BATCH of them
+    into a batch."""
+    from nnstreamer_tpu_torch.core import parse_caps_string
+    from nnstreamer_tpu_torch.registry.elements import make_element
+
+    src = make_element("videotestsrc", width=VL_SIZE, height=VL_SIZE,
+                       pattern="gradient")
+    n = 4 * MB_BATCH
+    t0 = time.perf_counter()
+    bufs = [src.create() for _ in range(n)]
+    src_ms = 1e3 * (time.perf_counter() - t0) / n
+    conv = make_element("tensor_converter", frames_per_tensor=MB_BATCH)
+    conv.set_caps(conv.sinkpad, parse_caps_string(
+        f"video/x-raw,format=RGB,width={VL_SIZE},height={VL_SIZE}"))
+    t0 = time.perf_counter()
+    out = [b for b in map(conv.transform, bufs) if b is not None]
+    conv_ms = 1e3 * (time.perf_counter() - t0) / len(out)
+    return {"videotestsrc_ms_per_frame": src_ms,
+            "converter_ms_per_batch": conv_ms}
+
+
+def phase_video_line(report: dict) -> None:
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    labels = out_dir / "labels_1001.txt"
+    labels.write_text("".join(f"class{i}\n" for i in range(1001)))
+    r = {"host_costs": vl_host_costs()}
+    print(f"video line host head: videotestsrc "
+          f"{r['host_costs']['videotestsrc_ms_per_frame']:.4f} ms a frame, "
+          f"tensor_converter {r['host_costs']['converter_ms_per_batch']:.3f}"
+          f" ms a batch of {MB_BATCH}")
+    r["line"] = res = vl_run_line(labels)
+    print(f"video line: {res['frames_per_s']:.1f} frames/s ({MB_MEASURED} "
+          f"batches of {MB_BATCH} after {MB_WARM} warm-up; median batch "
+          f"{res['batch_ms_median']:.3f} ms); tensor_transform per batch: "
+          f"host {res['transform_host_ms_median']:.3f} ms (H2D copy and "
+          f"launches), device {res['transform_device_ms_median']:.3f} ms; "
+          "card transform bit-equal to the CPU's; "
+          f"{res['labels']} label buffers, one per frame, equal to the "
+          f"filter's argmax; logits vs filter_model_u8 max |err| "
+          f"{res['logits_vs_u8_max_abs_err']:.3e} (atol {VL_U8_ATOL}), "
+          f"{res['labels_equal_u8_of_2_batches']} of {2 * MB_BATCH} labels "
+          "equal")
+    r["protobuf_round_trip"] = rt = vl_round_trip(labels)
+    print(f"video line protobuf round trip: {rt['batches']} CUDA batches, "
+          f"{rt['wire_bytes_per_batch']} wire bytes each equal to their CPU "
+          f"copy's, back through tensor_converter unchanged; encode "
+          f"{rt['encode_ms_median']:.3f} ms a batch")
+    r["device"] = busy = mb_device_busy("video", vl_line(MB_WARM + MB_MEASURED,
+                                                         labels))
+    share = busy["busy_share"]
+    print(f"video line, profiled window of {busy['batches']:.2f} batches "
+          f"({busy['window_ms']:.3f} ms): card busy "
+          + ("not measured (no device activity in the trace)"
+             if share is None else f"{100 * share:.1f}%")
+          + f", {busy['device_events_per_batch']:.1f} device events per batch")
+    report["video_line"] = r
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -1198,6 +1481,7 @@ def main() -> None:
     phase_conversation(report, dev)
     phase_mobilenet_model(report, dev)
     phase_mobilenet_lines(report)
+    phase_video_line(report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

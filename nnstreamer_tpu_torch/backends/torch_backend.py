@@ -5,7 +5,15 @@ the card is the pipeline's execution engine. Inputs move to the backend's
 device once per frame, the model runs eagerly, and outputs stay on the
 device so the next stage reads them there.
 
-Model sources accepted by the ``model`` property (this slice):
+Model sources accepted by the ``model`` property:
+  * ``builtin://<name>[?k=v...]`` — deterministic fake models mirroring the
+    reference's test fixtures (tests/nnstreamer_example/custom_example_*)
+    and nnstreamer_tpu's ``jax_backend.py`` builtins: passthrough, scaler
+    (factor=), add (value=), average, argmax, matmul (n=), mlp (n=,
+    layers=) and sleeper (ms=, factor=). They compute in nnstreamer_tpu's
+    dtypes (64-bit types as 32-bit ones, see ops/transform_ops.py);
+    matmul and mlp draw their weights from seeded CPU ``torch.Generator``s,
+    from JAX's distribution (standard normal), the same on every device;
   * ``<module>:<attr>`` — an import path to a callable, or to an entry
     object with ``make(device)`` (e.g. ``models/lm_serving.py``), which
     builds the callable on the backend's device.
@@ -24,13 +32,17 @@ from __future__ import annotations
 
 import importlib
 import os
-from typing import Any, Callable, List, Optional
+import time
+import urllib.parse
+from typing import Any, Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
-from ..core import TensorsInfo
+from ..core import DataType, TensorsInfo
+from ..core.buffer import as_torch
+from ..core.tensors import TensorSpec
 from ..models.lm_serving import with_serve_knobs
+from ..ops.transform_ops import canonicalize, computable
 from ..utils.hw_accel import device_for_accelerator
 from ..utils.log import logger
 from .base import Accelerator, FilterBackend, FilterProperties, register_backend
@@ -47,6 +59,170 @@ def _apply_serve_knobs(entry, custom: dict, model: str):
         raise ValueError(f"custom=cache_len:{cl!r} is not an integer")
     return with_serve_knobs(entry, custom.get("serve_dtype"), cache_len,
                             model)
+
+
+def _as_float(x: torch.Tensor) -> torch.Tensor:
+    """An integer tensor as float32 (a Python float promotes it so in
+    JAX); float tensors keep their dtype."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _normal(shape, seed: int, device) -> torch.Tensor:
+    """Standard normal float32 weights from a CPU generator seeded with
+    ``seed``: the same values on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=torch.float32).to(device)
+
+
+class _Weights:
+    """Weights of a builtin made on first use per (device, shape), or
+    given (nnstreamer_tpu's values, through models/convert.py). Meta
+    tensors get meta weights: shape inference draws nothing."""
+
+    def __init__(self, given: Optional[Dict[str, Any]] = None):
+        self._given = given or {}
+        self._made: Dict[tuple, torch.Tensor] = {}
+
+    def get(self, name: str, shape, seed: int, device) -> torch.Tensor:
+        if device.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+        key = (name, tuple(shape), str(device))
+        if key not in self._made:
+            w = self._given.get(name)
+            if w is None:
+                w = _normal(shape, seed, device)
+            elif tuple(w.shape) != tuple(shape):
+                raise ValueError(f"builtin weight {name}: given "
+                                 f"{tuple(w.shape)}, the input needs "
+                                 f"{tuple(shape)}")
+            self._made[key] = w.to(device)
+        return self._made[key]
+
+
+def _builtin_models() -> Dict[str, Callable]:
+    """name → maker(params, weights) → ``fn(*tensors) -> tuple``."""
+
+    def passthrough(params, weights):
+        return lambda *xs: xs
+
+    def scaler(params, weights):
+        f = float(params.get("factor", 2.0))
+        return lambda *xs: tuple(_as_float(x) * f for x in xs)
+
+    def add(params, weights):
+        v = float(params.get("value", 1.0))
+        return lambda *xs: tuple(_as_float(x) + v for x in xs)
+
+    def average(params, weights):
+        # reference custom_example_average: mean over all non-batch axes
+        def one(x):
+            x = _as_float(x)
+            if x.ndim <= 1:  # no non-batch axis: nothing to average
+                return x
+            return x.mean(dim=tuple(range(1, x.ndim)), keepdim=True)
+
+        return lambda *xs: tuple(one(x) for x in xs)
+
+    def argmax(params, weights):
+        def one(x):
+            return torch.argmax(computable(x), dim=-1).to(torch.int32)
+
+        return lambda *xs: tuple(one(x) for x in xs)
+
+    def matmul(params, weights):
+        n = int(params.get("n", 64))
+
+        def fn(x):
+            w = weights.get("w", (n, n), 0, x.device)
+            dt = torch.promote_types(x.dtype, w.dtype)
+            return (x.to(dt) @ w.to(dt),)
+
+        return fn
+
+    def mlp(params, weights):
+        # nnstreamer_tpu's compile-bound stand-in (its weights fold at XLA
+        # compile time); here an ordinary tanh MLP on the same weights'
+        # distribution: w_in from seed layers+1, hidden i from seed i,
+        # w_out from seed layers+2
+        n = int(params.get("n", 256))
+        layers = int(params.get("layers", 12))
+
+        def one(x):
+            h = x.reshape(x.shape[0], -1).to(torch.float32)
+            dev = h.device
+            w_in = weights.get("w_in", (h.shape[1], n), layers + 1, dev)
+            h = torch.tanh(h @ (w_in * 0.1))
+            for i in range(layers):
+                w = weights.get(f"w{i}", (n, n), i, dev)
+                h = torch.tanh(h @ (w * 0.05))
+            return h @ weights.get("w_out", (n, 1), layers + 2, dev)
+
+        return lambda *xs: tuple(one(x) for x in xs)
+
+    def sleeper(params, weights):
+        # a known fixed service time: sleeps on the host once per invoke
+        # (never during shape inference), then scales by factor in the
+        # input's dtype
+        ms = float(params.get("ms", 5.0))
+        f = float(params.get("factor", 1.0))
+
+        def one(x):
+            work = computable(x)
+            return (work * torch.tensor(f).to(work.dtype)).to(x.dtype)
+
+        def fn(*xs):
+            if not any(x.is_meta for x in xs):
+                time.sleep(ms / 1e3)
+            return tuple(one(x) for x in xs)
+
+        return fn
+
+    return {
+        "passthrough": passthrough,
+        "scaler": scaler,
+        "add": add,
+        "average": average,
+        "argmax": argmax,
+        "matmul": matmul,
+        "mlp": mlp,
+        "sleeper": sleeper,
+    }
+
+
+class _Builtin:
+    """A builtin:// model as the backend serves it: inputs in nnstreamer_tpu's
+    dtypes, outputs as a tuple, and a shape rule that runs the model on
+    meta tensors."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def __call__(self, *xs):
+        return tuple(self.fn(*(canonicalize(x) for x in xs)))
+
+    def output_info(self, in_info: TensorsInfo) -> TensorsInfo:
+        metas = [torch.empty(s.shape, dtype=s.dtype.torch_dtype,
+                             device="meta") for s in in_info.specs]
+        return TensorsInfo.of(*(
+            TensorSpec(tuple(o.shape), DataType.from_any(o.dtype))
+            for o in self(*metas)))
+
+
+def make_builtin(model: str, params: Optional[Dict[str, str]] = None,
+                 weights: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> _Builtin:
+    """``builtin://<name>[?k=v...]`` → the served callable. ``params``
+    add to (and override) the URI's query; ``weights`` replace the drawn
+    ones by name (matmul: ``w``; mlp: ``w_in``, ``w0``.., ``w_out``)."""
+    parsed = urllib.parse.urlparse(model)
+    name = parsed.netloc or parsed.path.lstrip("/")
+    merged = dict(urllib.parse.parse_qsl(parsed.query))
+    merged.update(params or {})
+    builtins = _builtin_models()
+    if name not in builtins:
+        raise ValueError(
+            f"unknown builtin model '{name}' (have: {sorted(builtins)})")
+    return _Builtin(builtins[name](merged, _Weights(weights)))
 
 
 def _select_device(props: FilterProperties) -> torch.device:
@@ -96,6 +272,8 @@ class TorchBackend(FilterBackend):
         return self._device
 
     def _load_model(self, model: str, props: FilterProperties) -> Callable:
+        if model.startswith("builtin://"):
+            return make_builtin(model, props.custom_dict())
         if ":" in model and not os.path.exists(model):
             mod_name, _, attr = model.partition(":")
             entry = getattr(importlib.import_module(mod_name), attr)
@@ -105,24 +283,16 @@ class TorchBackend(FilterBackend):
             return maker(device=self._device) if maker else entry
         raise ValueError(
             f"torch backend cannot load model '{model}' (expected "
-            "'<module>:<attr>')")
+            "'<module>:<attr>' or 'builtin://<name>')")
 
     def set_input_info(self, in_info: TensorsInfo) -> Optional[TensorsInfo]:
         rule = getattr(self._fn, "output_info", None)
         return rule(in_info) if rule is not None else None
 
-    def _to_device(self, x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            x = np.asarray(x)
-            if not x.flags.writeable:  # torch.from_numpy needs a writable array
-                x = x.copy()
-            x = torch.from_numpy(x)
-        return x.to(self._device)
-
     def invoke(self, inputs: List[Any]) -> List[Any]:
         if self._fn is None:
             raise RuntimeError("torch backend: invoke before open")
-        xs = [self._to_device(x) for x in inputs]
+        xs = [as_torch(x).to(self._device) for x in inputs]
         with torch.inference_mode():
             out = self._fn(*xs)
         return list(out) if isinstance(out, (list, tuple)) else [out]

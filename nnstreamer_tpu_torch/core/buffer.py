@@ -44,6 +44,17 @@ def _to_host(a):
     return a if a.dtype is torch.bfloat16 else a.numpy()
 
 
+def as_torch(a) -> torch.Tensor:
+    """A numpy array (zero-copy; a read-only one is copied, which
+    ``torch.from_numpy`` needs) or a torch tensor as a torch tensor."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
 @dataclass
 class Buffer:
     """One frame of a tensor (or media) stream.

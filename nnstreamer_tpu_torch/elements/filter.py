@@ -13,10 +13,13 @@ steady-state chain (§3.2) runs: validate → input-combination → invoke (time
 * ``framework=auto`` detects the backend from the model extension via the
   config's framework_priority (tensor_filter_common.c:1218).
 
+* ``model=registry://name[@version]`` resolves through
+  ``registry/models.py``; its ``framework`` entry feeds ``framework=auto``,
+  and a ``builtin://`` model picks ``torch``.
+
 Not in this package yet (nnstreamer_tpu has them): invoke-dynamic, suspend,
-hot model swap (is-updatable / reload), placement pins, registry:// model
-URIs, layout and tensor-name properties, segment fusion and the memory
-accounting hooks.
+hot model swap (is-updatable / reload), placement pins, layout and
+tensor-name properties, segment fusion and the memory accounting hooks.
 """
 from __future__ import annotations
 
@@ -84,7 +87,8 @@ class TensorFilter(TransformElement):
     SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new("other/tensors")),)
     PROPERTIES = {
         "framework": Prop("auto", str, "backend name or 'auto' (detect from model ext)"),
-        "model": Prop("", str, "module:attr of a callable or model entry"),
+        "model": Prop("", str, "module:attr of a callable or model entry, "
+                      "builtin://<name>[?k=v...] or registry://name[@ver]"),
         "custom": Prop("", str, "backend-specific option string 'k:v,k2:v2'"),
         "accelerator": Prop("auto", str,
                             "auto | cpu | gpu (auto and gpu run on cuda:0)"),
@@ -168,12 +172,23 @@ class TensorFilter(TransformElement):
         return super().get_property(key)
 
     # -- lifecycle ----------------------------------------------------------
-    def _detect_framework(self, model: str) -> str:
+    def _resolve_model(self) -> tuple:
+        """(path, framework_hint): expands registry:// URIs (reference
+        mlagent:// resolution, gst/nnstreamer/ml_agent.c)."""
+        from ..registry.models import resolve
+
+        return resolve(self.props["model"])
+
+    def _detect_framework(self, model: str, hint: Optional[str]) -> str:
         # aliases ([filter-aliases] in the ini, reference nnstreamer.ini.in)
         # apply to explicit framework names AND to auto-detect candidates
         fw = self.props["framework"]
         if fw != "auto":
             return get_config().filter_alias(fw)
+        if hint:
+            return get_config().filter_alias(hint)
+        if model.startswith("builtin://"):
+            return "torch"
         candidates = [get_config().filter_alias(c)
                       for c in get_config().framework_priority(model)]
         available = set(subplugin_names(SubpluginKind.FILTER))
@@ -211,14 +226,16 @@ class TensorFilter(TransformElement):
     def _open_backend(self) -> None:
         if self.backend is not None:
             return
-        model = self.props["model"]
+        # resolve ONCE: path and framework hint must describe the same
+        # registry version even if the registry file changes concurrently
+        model, hint = self._resolve_model()
         fprops = FilterProperties(
             model=model,
             custom=self._custom_with_config_file(),
             accelerator=Accelerator(self.props["accelerator"]),
         )
         self.backend = acquire_backend(
-            self._detect_framework(model), fprops,
+            self._detect_framework(model, hint), fprops,
             self.props["shared_tensor_filter_key"]
         )
 

@@ -1,10 +1,9 @@
-"""Source elements: a synthetic tensor test source and programmatic
-injection.
+"""Source elements: synthetic test sources and programmatic injection.
 
-Reference analogs: GStreamer ``appsrc`` (used throughout the reference's
-tests, SURVEY.md §4) plus a tensor-native test source. Frames are made on
-the host, or on the card with ``tensor_src device=true``; ``videotestsrc``
-and ``tensor_src_callable`` are not in this package yet.
+Reference analogs: GStreamer ``videotestsrc``/``appsrc`` (used throughout
+the reference's tests, SURVEY.md §4) plus a tensor-native test source.
+Frames are made on the host, or on the card with ``tensor_src
+device=true``; ``tensor_src_callable`` is not in this package yet.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from ..core import (
     clock_now,
     parse_caps_string,
 )
-from ..core.caps import any_media_caps
+from ..core.caps import VIDEO_MIME, any_media_caps
 from ..core.tensors import TensorSpec
 from ..registry.elements import register_element
 from ..runtime.element import Prop, SourceElement, prop_bool
@@ -179,6 +178,85 @@ class TensorSrc(_PacedSource):
                 a = np.full(spec.shape, self._frame - 1).astype(dt)
             arrays.append(a)
         return Buffer(arrays, **kw)
+
+
+@register_element
+class VideoTestSrc(_PacedSource):
+    """Raw-video test source (GStreamer ``videotestsrc`` analog).
+
+    Produces ``video/raw`` frames: HxWxC uint8 arrays. Patterns: smpte-ish
+    gradient, solid, checkers, counter.
+    """
+
+    ELEMENT_NAME = "videotestsrc"
+    SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new(VIDEO_MIME)),)
+    PROPERTIES = {
+        "width": Prop(320, int),
+        "height": Prop(240, int),
+        "format": Prop("RGB", str, "RGB | BGR | GRAY8 | RGBA | BGRx"),
+        "pattern": Prop("gradient", str, "gradient | solid | checkers | counter"),
+        # GStreamer live-source pacing: this runtime is backpressure-
+        # driven (no pipeline clock), so accepted as a no-op for the
+        # reference's launch lines
+        "is_live": Prop(False, prop_bool, "accepted for compat (no-op)"),
+    }
+
+    _CHANNELS = {"RGB": 3, "BGR": 3, "GRAY8": 1, "RGBA": 4, "BGRx": 4}
+
+    def get_src_caps(self) -> Caps:
+        # GStreamer test sources have no size props — size/format come from
+        # downstream caps negotiation. Our push-based analog: adopt the
+        # nearest downstream capsfilter's constraints (reference launch
+        # idiom: videotestsrc ! video/x-raw,width=...,format=RGB ! ...)
+        from .media import downstream_filter_fields
+
+        hint = downstream_filter_fields(self)
+        for key in ("width", "height"):
+            if isinstance(hint.get(key), int):  # scalars only, not ranges
+                self.props[key] = hint[key]
+        fmt = hint.get("format")
+        if isinstance(fmt, str) and fmt in self._CHANNELS:
+            # only formats this source can synthesize; anything else is
+            # videoconvert's job downstream
+            self.props["format"] = fmt
+        if not self.props["framerate"]:
+            fr = hint.get("framerate")
+            if isinstance(fr, tuple) and len(fr) == 2:
+                self.props["framerate"] = fr[0] / max(fr[1], 1)
+            elif isinstance(fr, (int, float)):
+                self.props["framerate"] = float(fr)
+        p = self.props
+        fps = p["framerate"]
+        return Caps.new(
+            VIDEO_MIME,
+            format=p["format"],
+            width=p["width"],
+            height=p["height"],
+            framerate=(int(fps), 1) if fps else (0, 1),
+        )
+
+    def create(self) -> Optional[Buffer]:
+        kw = self._pace()
+        if kw is None:
+            return None
+        p = self.props
+        h, w = p["height"], p["width"]
+        c = self._CHANNELS[p["format"]]
+        idx = self._frame - 1
+        pattern = p["pattern"]
+        if pattern == "solid":
+            frame = np.full((h, w, c), 128, np.uint8)
+        elif pattern == "checkers":
+            yy, xx = np.mgrid[0:h, 0:w]
+            frame = (((yy // 8 + xx // 8) % 2) * 255).astype(np.uint8)
+            frame = np.repeat(frame[:, :, None], c, axis=2)
+        elif pattern == "counter":
+            frame = np.full((h, w, c), idx % 256, np.uint8)
+        else:  # gradient
+            xx = np.linspace(0, 255, w, dtype=np.uint8)
+            frame = np.broadcast_to(xx[None, :, None], (h, w, c)).copy()
+            frame[:, :, 0] = ((frame[:, :, 0].astype(np.int32) + idx) % 256).astype(np.uint8)
+        return Buffer([frame], **kw)
 
 
 @register_element

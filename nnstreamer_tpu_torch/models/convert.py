@@ -9,6 +9,9 @@ tensors on ``device``:
 * ``mobilenet_params_from_flax`` — the MobileNet-v2 flax tree as a state
   dict of models/mobilenet_v2.py's ``MobileNetV2``, with the kernels
   transposed to torch's layouts.
+* ``builtin_params_from_jax`` — the weights nnstreamer_tpu's
+  ``builtin://matmul`` and ``builtin://mlp`` draw from ``jax.random``,
+  as the ``weights`` of the torch backend's ``make_builtin``.
 """
 from __future__ import annotations
 
@@ -126,3 +129,25 @@ def mobilenet_params_from_flax(tree: Dict[str, Any],
         raise KeyError(f"the flax tree has {total} leaves; the MobileNet-v2 "
                        f"layout uses {len(out)}")
     return out
+
+
+def builtin_params_from_jax(name: str, arrays: Dict[str, Any],
+                            device: Optional[Union[str, torch.device]] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """nnstreamer_tpu's builtin weights → ``make_builtin(weights=...)``.
+
+    ``matmul``: {"w": (n, n)}, ``jax.random.normal(PRNGKey(0), (n, n))``.
+    ``mlp``: {"w_in": (features, n), "w": [(n, n)] * layers, "w_out":
+    (n, 1)}, drawn from PRNGKey(layers + 1), PRNGKey(i) and PRNGKey(layers
+    + 2); the hidden list becomes ``w0``.. in order. Same layouts (x @ w)
+    on both sides, so nothing is transposed."""
+    device = resolve_device(device)
+    if name == "matmul":
+        return {"w": _tensor(arrays["w"], device, torch.float32)}
+    if name == "mlp":
+        out = {"w_in": _tensor(arrays["w_in"], device, torch.float32),
+               "w_out": _tensor(arrays["w_out"], device, torch.float32)}
+        for i, w in enumerate(arrays["w"]):
+            out[f"w{i}"] = _tensor(w, device, torch.float32)
+        return out
+    raise ValueError(f"builtin '{name}' has no weights (matmul, mlp do)")

@@ -33,6 +33,10 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.decoder",
     "nnstreamer_tpu_torch.elements.aggregator",
     "nnstreamer_tpu_torch.elements.generate",
+    "nnstreamer_tpu_torch.elements.tee",
+    "nnstreamer_tpu_torch.elements.media",
+    "nnstreamer_tpu_torch.elements.converter",
+    "nnstreamer_tpu_torch.elements.transform",
 )
 
 _loaded = False

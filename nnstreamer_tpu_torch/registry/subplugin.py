@@ -1,8 +1,8 @@
 """Subplugin registry (L2).
 
 Reference analog: ``gst/nnstreamer/nnstreamer_subplugin.c`` — per-type hash
-tables (FILTER/DECODER/CONVERTER/TRAINER, :139-293; the port has FILTER
-and DECODER so far) populated by ``.so``
+tables (FILTER/DECODER/CONVERTER/TRAINER, :139-293; the port has FILTER,
+DECODER and CONVERTER so far) populated by ``.so``
 constructors after lazy ``g_module_open``. Python redesign: per-type dicts
 populated by ``@register(kind, name)`` decorators at import time; lazy loading
 resolves a not-yet-registered name by importing (a) the built-in module for
@@ -22,6 +22,7 @@ from ..utils.log import logger
 class SubpluginKind(enum.Enum):
     FILTER = "filter"        # NN framework backends
     DECODER = "decoder"      # tensor_decoder modes
+    CONVERTER = "converter"  # tensor_converter external parsers
 
 
 _REGISTRY: Dict[SubpluginKind, Dict[str, Any]] = {k: {} for k in SubpluginKind}
@@ -34,6 +35,7 @@ _lock = threading.RLock()
 _BUILTIN_MODULES: Dict[SubpluginKind, tuple] = {
     SubpluginKind.FILTER: ("nnstreamer_tpu_torch.backends.torch_backend",),
     SubpluginKind.DECODER: ("nnstreamer_tpu_torch.decoders",),
+    SubpluginKind.CONVERTER: ("nnstreamer_tpu_torch.converters",),
 }
 _scanned: Dict[SubpluginKind, bool] = {k: False for k in SubpluginKind}
 

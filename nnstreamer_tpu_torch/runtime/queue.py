@@ -39,11 +39,25 @@ class _Channel:
         # downstream = oldest queued buffer evicted
         self.dropped_upstream = 0    # guarded-by: _cond
         self.dropped_downstream = 0  # guarded-by: _cond
+        # depth retunes (set_capacity)
+        self.retuned = 0             # guarded-by: _cond
 
     def reset_counters(self) -> None:
         with self._cond:
             self.dropped_upstream = 0
             self.dropped_downstream = 0
+
+    def set_capacity(self, capacity: int) -> None:
+        """Retune the depth while buffers flow. Capacity is only read
+        under ``_cond``, and blocked producers are woken so a raised
+        capacity (or a switch to unbounded) admits them at once."""
+        capacity = max(0, int(capacity))
+        with self._cond:
+            if capacity == self.capacity:
+                return
+            self.capacity = capacity
+            self.retuned += 1
+            self._cond.notify_all()
 
     def put_buf(self, buf: Buffer) -> None:
         with self._cond:
@@ -59,7 +73,10 @@ class _Channel:
                             self.dropped_downstream += 1
                             break
                 else:
-                    while not self._closed and self._n_bufs >= self.capacity:
+                    # capacity is re-read every slice: set_capacity may
+                    # raise it or make the queue unbounded meanwhile
+                    while (not self._closed and self.capacity > 0
+                           and self._n_bufs >= self.capacity):
                         self._cond.wait(0.25)  # backpressure, bounded slice
                     if self._closed:
                         return
@@ -131,7 +148,14 @@ class QueueElement(Element):
             "leaky": ch.leaky,
             "dropped_upstream": ch.dropped_upstream,
             "dropped_downstream": ch.dropped_downstream,
+            "retuned": ch.retuned,
         }
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize the bounded channel without stopping flow (nnstreamer_tpu's
+        placement planner tunes depths this way); counted in
+        ``stats['retuned']``."""
+        self._ch.set_capacity(capacity)
 
     def reset_flow(self) -> None:
         super().reset_flow()

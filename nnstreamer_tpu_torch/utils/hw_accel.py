@@ -24,7 +24,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"no CUDA device available for {dev}; pass device='cpu' "
-                "(accelerator=cpu on tensor_filter) to run on the CPU")
+                "(accelerator=cpu on a pipeline element) to run on the CPU")
         n = torch.cuda.device_count()
         if dev.index >= n:
             raise RuntimeError(

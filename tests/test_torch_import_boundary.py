@@ -40,6 +40,21 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.ops.decode_attention",
     "nnstreamer_tpu_torch.ops.flash_attention",
     "nnstreamer_tpu_torch.utils.threads",
+    "nnstreamer_tpu_torch.elements.tee",
+    "nnstreamer_tpu_torch.elements.media",
+    "nnstreamer_tpu_torch.elements.converter",
+    "nnstreamer_tpu_torch.elements.transform",
+    "nnstreamer_tpu_torch.ops.transform_ops",
+    "nnstreamer_tpu_torch.converters",
+    "nnstreamer_tpu_torch.converters.base",
+    "nnstreamer_tpu_torch.converters.bytes_converter",
+    "nnstreamer_tpu_torch.core.serialize",
+    "nnstreamer_tpu_torch.core.wire_protobuf",
+    "nnstreamer_tpu_torch.core.wire_flatbuf",
+    "nnstreamer_tpu_torch.decoders.serialize",
+    "nnstreamer_tpu_torch.registry.models",
+    "nnstreamer_tpu_torch.runtime.pbtxt",
+    "nnstreamer_tpu_torch.runtime.describe",
 ]
 
 
@@ -59,9 +74,14 @@ from nnstreamer_tpu_torch.registry.elements import element_factories
 from nnstreamer_tpu_torch.registry.subplugin import SubpluginKind, get
 assert {{"appsrc", "tensor_filter", "tensor_generate", "tensor_sink",
          "tensor_src", "queue", "tensor_aggregator",
-         "tensor_decoder"}} <= set(element_factories())
+         "tensor_decoder", "tee", "videotestsrc", "videoconvert",
+         "videoscale", "imagefreeze", "audiotestsrc", "audioconvert",
+         "tensor_converter", "tensor_transform"}} <= set(element_factories())
 assert get(SubpluginKind.FILTER, "torch") is get(SubpluginKind.FILTER, "pytorch")
 assert get(SubpluginKind.DECODER, "image_labeling").MODE == "image_labeling"
+for mode in ("flexbuf", "protobuf", "flatbuf"):
+    assert get(SubpluginKind.DECODER, mode).MODE == mode
+    assert get(SubpluginKind.CONVERTER, mode).NAME == mode
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded
