@@ -73,6 +73,31 @@ phase fails:
    ms (CUDA events) per batch, and the card's busy share over a profiled
    window. This path runs no hand-written kernel either.
 
+10. continuous-batching LM serving at ``base`` width — (a) the decode
+    kernel with one position per slot, pos = 0, 17, 130, 543, 1023, 1500,
+    2000, 2047 over 8 slots, f32 and bf16 caches, held against its plain
+    version (phase 3's tolerances) and timed beside its bound and SDPA
+    with a per-row boolean mask; (b) ``base.make_continuous(slots=8)``
+    behind ``DecodeScheduler``: 24 requests (prompts of 64-512 tokens
+    from seed 0, 64 steps) in three waves of 8, each submitted when the
+    previous one is half done; every request's tokens equal the same
+    prompt run alone through the batch-1 ``make_generate`` on the card
+    (a mismatch passes only where the batch-1 run's top-2 logit margin at
+    the first differing step is below 1e-4; later steps of that request
+    are then not compared), 12 decode-kernel launches per decode step and
+    12 flash launches per admit; tokens/s, time to first token, step
+    time, mean active slots; (c) the paged engine (page 16, chunk 64,
+    prefix sharing) on the same 24 requests plus 8 that share a
+    256-token prefix: tokens equal the dense engine's (the same near-tie
+    rule), pages shared while they run, and one slot's preempt→restore
+    byte-exact; (d) the paged engine behind an n-gram draft (k=4): tokens
+    equal target-only decoding, the acceptance rate; (e) two pipelines
+    ``appsrc ! tensor_serving framework=torch
+    model=...mobilenet_v2:filter_model_u8 shared-key=mnet
+    bucket-sizes=1,2,4,8 ! tensor_sink``, 32 frames each fed in
+    lockstep: every frame's label equals the argmax ``tensor_filter``
+    gives for it, and at least one batch mixed both streams.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1016,11 +1041,13 @@ def mb_run_line(name: str, line: str) -> dict:
 def mb_device_busy(name: str, line: str) -> dict:
     """The card's busy share over a steady window of a line: a torch.profiler
     trace (CUDA activity only, so the host is not slowed by op records)
-    started on this thread once MB_WARM batches reached the sink, and
-    stopped MB_PROFILED batches after the start returned (the source runs
-    unbounded and the pipeline is stopped after the window). Busy = the
-    union of the kernels' and copies' intervals, over the host time from
-    the start's return to the stop. None where the trace holds no device
+    started before the pipeline plays and stopped after it has stopped, so
+    that no thread launches work while the profiler starts or stops. The
+    window is marked on the card's own timeline: a marker kernel
+    (``torch.cuda._sleep``) launched once MB_WARM batches reached the sink,
+    and another MB_PROFILED batches later after a synchronize. Busy = the
+    union of the kernels' and copies' intervals between the two markers,
+    over the time between them. None where the window holds no device
     activity."""
     import re
     import threading
@@ -1050,22 +1077,35 @@ def mb_device_busy(name: str, line: str) -> dict:
     prof = profile(activities=[ProfilerActivity.CUDA])
     pipe = parse_launch(line)
     pipe.get("out").connect(on_data)
-    pipe.play()
+    prof.start()
     try:
-        wait_for_batches(MB_WARM)
-        prof.start()
-        t0, k0 = time.perf_counter(), wait_for_batches(0)
-        wait_for_batches(k0 + MB_PROFILED)
+        pipe.play()
+        try:
+            wait_for_batches(MB_WARM)
+            torch.cuda._sleep(1000)              # marker: the window opens
+            k0 = wait_for_batches(0)
+            wait_for_batches(k0 + MB_PROFILED)
+            torch.cuda.synchronize()
+            k1 = wait_for_batches(0)
+            torch.cuda._sleep(1000)              # marker: the window closes
+        finally:
+            pipe.stop()
         torch.cuda.synchronize()
-        t1, k1 = time.perf_counter(), wait_for_batches(0)
-        prof.stop()
     finally:
-        pipe.stop()
+        prof.stop()
     while (msg := pipe.bus.pop(timeout=0)) is not None:
         if msg.type is MessageType.ERROR:
             fail(f"mobilenet {name} profiled run: {msg}")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = sorted(e.time_range.start for e in events
+                   if "spin_kernel" in e.name)
+    if len(marks) != 2:
+        fail(f"mobilenet {name} profiled run: {len(marks)} window markers "
+             "in the trace, expected 2")
+    lo, hi = marks
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events if "spin_kernel" not in e.name
+                   and e.time_range.end > lo and e.time_range.start < hi)
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -1074,7 +1114,7 @@ def mb_device_busy(name: str, line: str) -> dict:
         elif b > end:
             busy += b - end
             end = b
-    wall_us = 1e6 * (t1 - t0)
+    wall_us = hi - lo
     return {"busy_share": busy / wall_us if spans else None,
             "device_events_per_batch": len(spans) / (k1 - k0),
             "window_ms": wall_us / 1e3, "batches": k1 - k0}
@@ -1455,6 +1495,512 @@ def phase_video_line(report: dict) -> None:
     report["video_line"] = r
 
 
+# continuous serving (phase 10): slot positions of the per-slot kernel
+# check, requests, waves and steps, the paged engine's knobs, the shared
+# prefix, the draft burst, tensor_serving frames per stream
+CS_POS = (0, 17, 130, 543, 1023, 1500, 2000, 2047)
+CS_SLOTS, CS_REQUESTS, CS_STEPS, CS_PROMPT_RANGE = 8, 24, 64, (64, 512)
+CS_PAGE, CS_CHUNK, CS_PREFIX, CS_SHARED = 16, 64, 256, 8
+CS_SHARED_TAIL = (16, 64)   # tokens after the shared prefix
+CS_SPEC_K, CS_SPEC_REQUESTS = 4, 8
+# a greedy mismatch passes only at a near tie of the batch-1 run
+CS_TIE_MARGIN = 1e-4
+TS_FRAMES = 32
+TS_MODEL = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model_u8"
+
+
+def cs_slot_kernel(dev: torch.device) -> dict:
+    """(a): the decode kernel with a (B,) position vector at base shapes."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    s = BASE_SHAPE
+    B, H, T, D, bk = s["B"], s["H"], s["T"], s["D"], s["block_k"]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn(B, H, 1, D, device=dev, generator=gen)
+    pos = torch.tensor(CS_POS, dtype=torch.int32, device=dev)
+    # SDPA's per-row boolean mask (True = attend), (B, 1, 1, T)
+    mask = (torch.arange(T, device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    n = [p + 1 for p in CS_POS]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        elt = torch.tensor([], dtype=dtype).element_size()
+        caches = [(torch.randn(B, H, T, D, device=dev, generator=gen).to(dtype),
+                   torch.randn(B, H, T, D, device=dev, generator=gen).to(dtype))
+                  for _ in range(4 if dtype is torch.float32 else 6)]
+        k, v = caches[0]
+        got = decode_attention(q, k, v, pos, bk)
+        want = decode_attention_plain(q, k, v, pos, bk)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+        # each slot equals the kernel on that slot alone at its position
+        for b, p in enumerate(CS_POS):
+            one = decode_attention(q[b:b + 1].contiguous(),
+                                   k[b:b + 1].contiguous(),
+                                   v[b:b + 1].contiguous(), p, bk)
+            torch.testing.assert_close(got[b:b + 1], one, rtol=KERNEL_RTOL,
+                                       atol=KERNEL_ATOL)
+        args = [(q, ck, cv, pos, bk) for ck, cv in caches]
+        q_lib = q.to(dtype)
+        lib_args = [(q_lib, ck, cv, mask) for ck, cv in caches]
+        nbytes = (sum(2 * H * m * D * elt for m in n) + 2 * B * H * D * 4
+                  + 4 * B)
+        flops = sum(4 * H * m * D + H * m for m in n)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        ms = time_ms(decode_attention, args)
+        out[str(dtype)] = {
+            "pos": list(CS_POS), "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(decode_attention_plain, args),
+            "library_ms": time_ms(
+                lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mm), lib_args),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        out[str(dtype)]["share_of_bound"] = \
+            out[str(dtype)]["bound_ms"] / ms
+        print(f"decode_attention per-slot pos {dtype}: {ms:.5f} ms, "
+              f"{100 * out[str(dtype)]['share_of_bound']:.1f}% of its bound: "
+              + json.dumps(out[str(dtype)]))
+        del caches, args, lib_args
+    return out
+
+
+def cs_prompts(n: int, vocab: int, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    lo, hi = CS_PROMPT_RANGE
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def cs_run(sched, prompts, steps: int, on_wait=None) -> dict:
+    """Submit ``prompts`` in waves of CS_SLOTS, each wave when the previous
+    one is half done; return the tokens and the wall time."""
+    reqs = []
+    t0 = time.perf_counter()
+    for w in range(0, len(prompts), CS_SLOTS):
+        prev = reqs[-CS_SLOTS:]
+        while prev and min(len(r.tokens) for r in prev) < steps // 2 \
+                and not all(r.done() for r in prev):
+            if on_wait is not None:
+                on_wait()
+            time.sleep(0.002)
+        reqs += [sched.submit(p, steps=steps) for p in prompts[w:w + CS_SLOTS]]
+    while not all(r.done() for r in reqs):
+        if on_wait is not None:
+            on_wait()
+        time.sleep(0.002)
+    wall = time.perf_counter() - t0
+    return {"tokens": [r.result(1)[0].tolist() for r in reqs],
+            "wall_s": wall}
+
+
+def cs_margin(cfg, params, prompt, tokens, j: int, dev) -> float:
+    """Top-2 logit margin of the batch-1 run at generated step ``j``,
+    teacher-forced along ``tokens[:j]``."""
+    from nnstreamer_tpu_torch.models.decoding import (
+        decode_step,
+        init_cache,
+        prefill,
+    )
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, 1, params["embed"].dtype, dev)
+        logits, cache, pos = prefill(
+            cfg, params, torch.from_numpy(prompt[None]).to(dev), cache)
+        for i in range(j):
+            tok = torch.tensor([tokens[i]], dtype=torch.int32, device=dev)
+            logits, cache = decode_step(cfg, params, tok, pos + i, cache)
+        top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def cs_compare(name: str, got, want, prompts, cfg, params, dev) -> list:
+    """``got`` equal to ``want`` stream by stream, but at a near tie of the
+    batch-1 run (margin below CS_TIE_MARGIN at the first differing step),
+    after which that stream is not compared. Returns the ties."""
+    ties = []
+    for i, (g, w, p) in enumerate(zip(got, want, prompts)):
+        if len(g) != len(w):
+            fail(f"{name} request {i}: {len(g)} tokens, expected {len(w)}")
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        m = cs_margin(cfg, params, p, w, j, dev)
+        if not m < CS_TIE_MARGIN:
+            fail(f"{name} request {i}: token {j} is {g[j]}, expected {w[j]} "
+                 f"(batch-1 top-2 margin {m} >= {CS_TIE_MARGIN})")
+        ties.append({"request": i, "step": j, "margin": m})
+        print(f"{name} request {i}: near tie at step {j} (batch-1 top-2 "
+              f"margin {m:.3e} < {CS_TIE_MARGIN}); later steps not compared")
+    return ties
+
+
+def cs_engine_stats(name: str, sched, wall: float, n_tokens: int) -> dict:
+    snap = sched.metrics_snapshot()
+    steps = snap["decode_steps"]
+    r = {"generated_tokens": n_tokens, "wall_s": wall,
+         "tokens_per_s": n_tokens / wall,
+         "ttft_ms_p50": snap["ttft"]["p50_ms"],
+         "ttft_ms_p99": snap["ttft"]["p99_ms"],
+         "step_ms_mean": snap["device"]["avg_dispatch_latency_ms"],
+         "decode_steps": steps,
+         "mean_active_slots": snap["batch_occupancy"] * CS_SLOTS,
+         "preempted": snap["preempted"]}
+    print(f"{name}: {n_tokens} generated tokens in {wall:.3f} s = "
+          f"{r['tokens_per_s']:.1f} tokens/s; time to first token p50 "
+          f"{r['ttft_ms_p50']:.2f} ms, p99 {r['ttft_ms_p99']:.2f} ms; "
+          f"{steps} decode steps of {r['step_ms_mean']:.3f} ms (mean, host "
+          f"clock incl. the token copy); mean active slots "
+          f"{r['mean_active_slots']:.2f} of {CS_SLOTS}")
+    return r
+
+
+def cs_step_breakdown(eng, prompts, n: int = 20) -> dict:
+    """Where one dense decode step's time goes, all slots active: host
+    ms per step (wall clock, the step ends in its token copy), the card's
+    busy share over ``n`` steps (CUDA-only profile: the union of kernel
+    and copy intervals over the window), and device ms per step by aten
+    op and for the decode kernel (a CPU+CUDA profile of ``n // 2``
+    steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for slot, p in enumerate(prompts[:eng.slots]):
+        eng.admit(slot, p, CS_STEPS)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    prof.stop()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    m = n // 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(m):
+            eng.step()
+        torch.cuda.synchronize()
+    by_op = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        # the decode kernel is launched through ctypes, outside any aten op
+        if us > 0 and (e.key.startswith("aten::")
+                       or "decode_split_kernel" in e.key):
+            key = ("decode_attention kernel" if "decode_split_kernel"
+                   in e.key else e.key)
+            by_op[key] = by_op.get(key, 0.0) + us / 1e3 / m
+    by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
+    for slot in range(eng.slots):
+        eng.release(slot)
+    return {"host_ms_per_step": host_ms,
+            "busy_share": busy / wall_us if spans else None,
+            "device_events_per_step": len(spans) / n,
+            "device_ms_per_step": sum(by_op.values()),
+            "device_ms_by_op": by_op}
+
+
+def cs_preempt_restore(eng, prompt, dev) -> dict:
+    """One slot admitted, stepped, preempted and restored directly on the
+    paged engine: its pages' bytes come back unchanged."""
+    eng.admit(0, prompt, CS_STEPS)
+    for _ in range(3):
+        eng.step()
+    held = eng.slot_pages(0).clone()
+    blob = eng.preempt(0)
+    eng.restore(0, blob)
+    back = eng.slot_pages(0)
+    same = held.shape == back.shape and torch.equal(
+        held.contiguous().view(torch.uint8), back.contiguous().view(
+            torch.uint8))
+    eng.release(0)
+    if not same:
+        fail("paged engine: preempt -> restore changed the slot's pages")
+    return {"pages": int(held.shape[2]), "bytes": held.numel()
+            * held.element_size(), "byte_exact": True}
+
+
+def cs_tensor_serving(dev: torch.device) -> dict:
+    """(e): two pipelines sharing one scheduler, against tensor_filter."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    caps = ("appsrc name=in caps=other/tensors,format=static,"
+            "dimensions=3:224:224:1,types=uint8 ")
+    line = (caps + f"! tensor_serving framework=torch model={TS_MODEL} "
+            "shared-key=mnet bucket-sizes=1,2,4,8 ! tensor_sink name=out")
+    rng = np.random.default_rng(7)
+    frames = [[rng.integers(0, 256, (1, 224, 224, 3)).astype(np.uint8)
+               for _ in range(TS_FRAMES)] for _ in range(2)]
+    pipes = [parse_launch(line) for _ in range(2)]
+    got = [[], []]
+    for i, p in enumerate(pipes):
+        p.get("out").connect(got[i].append)
+        p.play()
+    try:
+        for k in range(TS_FRAMES):   # lockstep: frame k of both streams
+            for i in range(2):
+                pipes[i].get("in").push_buffer(frames[i][k])
+            deadline = time.monotonic() + 120
+            while min(len(g) for g in got) <= k:
+                if time.monotonic() > deadline:
+                    fail(f"tensor_serving: frame {k} did not come out")
+                time.sleep(0.0005)
+        for p in pipes:
+            p.get("in").end_of_stream()
+        for p in pipes:
+            msg = p.wait(timeout=120)
+            if msg.type is not MessageType.EOS:
+                fail(f"tensor_serving pipeline: {msg}")
+    finally:
+        for p in pipes:
+            p.stop()
+    # the same frames one at a time through tensor_filter
+    ref = parse_launch(caps + f"! tensor_filter framework=torch "
+                       f"model={TS_MODEL} ! tensor_sink name=out")
+    want = []
+    ref.get("out").connect(want.append)
+    ref.play()
+    try:
+        for i in range(2):
+            for f in frames[i]:
+                ref.get("in").push_buffer(f)
+        ref.get("in").end_of_stream()
+        if ref.wait(timeout=120).type is not MessageType.EOS:
+            fail("tensor_filter reference pipeline did not reach EOS")
+    finally:
+        ref.stop()
+    served = [b for g in got for b in g]
+    if len(served) != 2 * TS_FRAMES or len(want) != 2 * TS_FRAMES:
+        fail(f"tensor_serving: {len(served)} outputs, tensor_filter "
+             f"{len(want)}, expected {2 * TS_FRAMES}")
+    worst, ties = 0.0, []
+    for i, (a, b) in enumerate(zip(served, want)):
+        la, lb = a.tensors[0], b.tensors[0]
+        if not (la.is_cuda and tuple(la.shape) == (1, 1001)):
+            fail(f"tensor_serving frame {i}: logits {tuple(la.shape)} on "
+                 f"{la.device}")
+        worst = max(worst, (la - lb).abs().max().item())
+        if int(la.argmax()) != int(lb.argmax()):
+            top = torch.topk(lb[0].float(), 2).values
+            margin = float(top[0] - top[1])
+            if not margin < MB_BF16_ATOL:
+                fail(f"tensor_serving frame {i}: label {int(la.argmax())}, "
+                     f"tensor_filter's {int(lb.argmax())} (margin {margin})")
+            ties.append({"frame": i, "margin": margin})
+    if worst > MB_BF16_ATOL:
+        fail(f"tensor_serving logits differ from tensor_filter's by {worst} "
+             f"> {MB_BF16_ATOL}")
+    ids = [[b.meta["serving"]["batch_id"] for b in g] for g in got]
+    rows = {}
+    for bid in ids[0] + ids[1]:
+        rows[bid] = rows.get(bid, 0) + 1
+    mixed = len(set(ids[0]) & set(ids[1]))
+    if mixed < 1:
+        fail("tensor_serving: no batch mixed the two streams")
+    sizes = {}
+    for r in rows.values():
+        sizes[r] = sizes.get(r, 0) + 1
+    r = {"frames": len(served), "batches": len(rows),
+         "mixed_batches": mixed, "batch_rows": sizes,
+         "logits_max_abs_err_vs_filter": worst, "label_ties": ties}
+    print(f"tensor_serving: 2 pipelines x {TS_FRAMES} frames, shared-key "
+          f"mnet: {len(rows)} batches, {mixed} mixing both streams, rows "
+          f"per batch {sizes}; labels equal tensor_filter's argmax "
+          f"({len(ties)} near ties), logits max |diff| {worst:.3e} "
+          f"(atol {MB_BF16_ATOL})")
+    return r
+
+
+def phase_continuous(report: dict, dev: torch.device) -> dict:
+    from nnstreamer_tpu_torch.models.decoding import make_generate
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.serving import (
+        DecodeScheduler,
+        NgramDraft,
+        SpeculativeLMEngine,
+    )
+
+    # every number of this phase stands beside the card it ran on
+    print(f"continuous serving on {report['device']} (name, power limit)")
+    r = {"slot_kernel": cs_slot_kernel(dev)}
+    cfg = base._cfg_serve
+    layers = cfg.layers
+    prompts = cs_prompts(CS_REQUESTS, cfg.vocab)
+
+    # (b) the dense engine behind the scheduler
+    eng = base.make_continuous(slots=CS_SLOTS, device=dev)
+    params = eng.params
+    sched = DecodeScheduler(eng, name="cs-dense")
+    try:
+        reset_launches()
+        run = cs_run(sched, prompts, CS_STEPS)
+        launches = read_launches()
+        dense = cs_engine_stats("continuous dense", sched, run["wall_s"],
+                                CS_REQUESTS * CS_STEPS)
+        steps = sched.metrics_snapshot()["decode_steps"]
+    finally:
+        sched.close()
+    want_l = {"decode_attention": layers * steps,
+              "flash_attention": layers * CS_REQUESTS}
+    if launches != want_l:
+        fail(f"continuous dense: kernel launches {launches}, expected "
+             f"{want_l} ({layers} layers x {steps} decode steps, x "
+             f"{CS_REQUESTS} admits for flash)")
+    gen = make_generate(cfg)
+    with torch.inference_mode():
+        alone = [gen(params, torch.from_numpy(p[None]).to(dev),
+                     CS_STEPS)[0, len(p):].tolist() for p in prompts]
+    dense["ties_vs_batch1"] = cs_compare(
+        "continuous dense vs batch-1", run["tokens"], alone, prompts, cfg,
+        params, dev)
+    dense.update(launches=launches, cache_bytes=eng.cache_bytes,
+                 param_bytes=eng.param_bytes)
+    print(f"continuous dense: {CS_REQUESTS} requests equal batch-1 "
+          f"make_generate; kernel launches {launches} ({layers} x {steps} "
+          f"steps); cache {eng.cache_bytes} bytes, params "
+          f"{eng.param_bytes} bytes")
+    dense["step_breakdown"] = bd = cs_step_breakdown(eng, prompts)
+    top = ", ".join(f"{k} {v:.4f}" for k, v in
+                    list(bd["device_ms_by_op"].items())[:6])
+    print(f"continuous dense step, {CS_SLOTS} slots active: host "
+          f"{bd['host_ms_per_step']:.3f} ms a step; card busy "
+          + ("not measured (no device activity in the trace)"
+             if bd["busy_share"] is None else f"{100 * bd['busy_share']:.1f}%")
+          + f", {bd['device_events_per_step']:.1f} device events a step; "
+          f"device ms a step by op: {top} of "
+          f"{bd['device_ms_per_step']:.4f} in all")
+    r["dense"] = dense
+    dense_tokens = run["tokens"]
+    del eng, alone
+
+    # (c) the paged engine: the same requests plus a shared prefix
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab, CS_PREFIX).astype(np.int32)
+    # the first is the prefix alone: its prefill registers the prefix's
+    # full pages under exactly those tokens, which the others start with
+    lo, hi = CS_SHARED_TAIL
+    shared = [prefix] + [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab, int(rng.integers(lo, hi + 1))).astype(np.int32)])
+        for _ in range(CS_SHARED - 1)]
+    peng = base.make_continuous(slots=CS_SLOTS, paged=True,
+                                page_size=CS_PAGE, chunk=CS_CHUNK,
+                                share_prefixes=True, device=dev)
+    r["preempt_restore"] = cs_preempt_restore(peng, prompts[0], dev)
+    print(f"paged preempt -> restore: {r['preempt_restore']['pages']} pages "
+          f"({r['preempt_restore']['bytes']} bytes) byte-exact on the card")
+    sched = DecodeScheduler(peng, name="cs-paged")
+    peak_shared = [0]
+
+    def sample():
+        peak_shared[0] = max(peak_shared[0],
+                             peng.pool.stats()["pages_shared"])
+
+    try:
+        reset_launches()
+        prun = cs_run(sched, prompts, CS_STEPS, on_wait=sample)
+        paged_launches = read_launches()
+        paged = cs_engine_stats("continuous paged", sched, prun["wall_s"],
+                                CS_REQUESTS * CS_STEPS)
+        # the shared-prefix requests: the first registers the prefix's
+        # pages when its prefill completes, the rest then map them
+        t0 = time.perf_counter()
+        first = sched.submit(shared[0], steps=CS_STEPS)
+        while not first.tokens and not first.done():
+            time.sleep(0.001)
+        rest = [sched.submit(p, steps=CS_STEPS) for p in shared[1:]]
+        while not all(q.done() for q in [first] + rest):
+            sample()
+            time.sleep(0.002)
+        shared_s = time.perf_counter() - t0
+        prun["tokens"] += [q.result(1)[0].tolist() for q in [first] + rest]
+        pool = peng.pool.stats()
+    finally:
+        sched.close()
+    paged["shared_prefix_tokens_per_s"] = CS_SHARED * CS_STEPS / shared_s
+    if pool["prefix_hits_total"] < CS_SHARED - 1:
+        fail(f"paged engine: {pool['prefix_hits_total']} prefix hits for "
+             f"{CS_SHARED - 1} requests sharing a registered prefix")
+    paged["ties_vs_dense"] = cs_compare(
+        "continuous paged vs dense", prun["tokens"][:CS_REQUESTS],
+        dense_tokens, prompts, cfg, params, dev)
+    with torch.inference_mode():
+        shared_alone = [gen(params, torch.from_numpy(p[None]).to(dev),
+                            CS_STEPS)[0, len(p):].tolist() for p in shared]
+    paged["ties_shared_vs_batch1"] = cs_compare(
+        "continuous paged, shared prefix, vs batch-1",
+        prun["tokens"][CS_REQUESTS:], shared_alone, shared, cfg, params, dev)
+    if not (peak_shared[0] > 0 and pool["prefix_hits_total"] > 0):
+        fail(f"paged engine: no pages shared (peak {peak_shared[0]}, prefix "
+             f"hits {pool['prefix_hits_total']})")
+    paged.update(launches=paged_launches, pages_shared_peak=peak_shared[0],
+                 prefix_hits=pool["prefix_hits_total"],
+                 cow_copies=pool["cow_copies_total"],
+                 cache_bytes=peng.cache_bytes)
+    print(f"continuous paged: tokens equal the dense engine's and the "
+          f"shared-prefix requests' batch-1 tokens; pages shared (peak) "
+          f"{peak_shared[0]}, prefix hits {pool['prefix_hits_total']}, COW "
+          f"copies {pool['cow_copies_total']}; the {CS_SHARED} shared-prefix "
+          f"requests at {paged['shared_prefix_tokens_per_s']:.1f} tokens/s; "
+          f"kernel launches {paged_launches} (its attention is "
+          "gather-then-dense)")
+    r["paged"] = paged
+
+    # (d) speculative decode over the paged engine, n-gram draft
+    spec = SpeculativeLMEngine(peng, NgramDraft(), k=CS_SPEC_K)
+    sched = DecodeScheduler(spec, name="cs-spec")
+    try:
+        srun = cs_run(sched, prompts[:CS_SPEC_REQUESTS], CS_STEPS)
+        sr = cs_engine_stats("continuous speculative", sched, srun["wall_s"],
+                             CS_SPEC_REQUESTS * CS_STEPS)
+    finally:
+        sched.close()
+    sr["ties_vs_target_only"] = cs_compare(
+        "speculative vs target-only", srun["tokens"],
+        prun["tokens"][:CS_SPEC_REQUESTS], prompts[:CS_SPEC_REQUESTS], cfg,
+        params, dev)
+    sr.update(acceptance_rate=spec.acceptance_rate(),
+              rounds=spec.spec_rounds)
+    print(f"continuous speculative (n-gram, k={CS_SPEC_K}): tokens equal "
+          f"target-only decoding; acceptance rate "
+          f"{spec.acceptance_rate():.4f} over {spec.spec_rounds} rounds")
+    r["speculative"] = sr
+    del peng, spec, params
+
+    # (e) tensor_serving
+    reset_launches()
+    r["tensor_serving"] = cs_tensor_serving(dev)
+    r["tensor_serving"]["launches"] = read_launches()
+    report["continuous"] = r
+    return r
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -1482,17 +2028,20 @@ def main() -> None:
     phase_mobilenet_model(report, dev)
     phase_mobilenet_lines(report)
     phase_video_line(report)
+    cont = phase_continuous(report, dev)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
+                "launches_continuous": cont["dense"]["launches"][name],
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     # launches: the tensor_generate path's run (the filter path's, equal,
-    # is checked in phase 4); times: the float32 main path's shapes
+    # is checked in phase 4) and the continuous dense engine's run (phase
+    # 10); times: the float32 main path's shapes
     kernels = [
         line("decode_attention",
              "nnstreamer_tpu_torch/csrc/decode_attention.cu",
@@ -1501,6 +2050,11 @@ def main() -> None:
              "nnstreamer_tpu_torch/csrc/flash_attention.cu",
              "nnstreamer_tpu/ops/pallas_attention.py:89", flash_t),
     ]
+    # the decode row also carries its per-slot-position timing (phase 10)
+    slot = cont["slot_kernel"][str(torch.float32)]
+    kernels[0]["per_slot_pos"] = {k: slot[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

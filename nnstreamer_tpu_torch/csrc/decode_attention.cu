@@ -40,8 +40,13 @@
 //   stream. A prefix that fits one share is written directly.
 // Keys past pos are never read: a NaN there cannot reach the output.
 //
-// Later work, not done here: a pos per row (the continuous engine); each
-// block already derives its share from its own row's pos.
+// Positions per row: pos is one int32 for every row, or one per batch
+// entry (the continuous engine's slots, each at its own position). Row
+// r = b*H + h reads pos[r / pos_stride]: the wrapper passes pos_stride = H
+// for a (B,) vector and = rows for a single value. Each block derives its
+// share from its own row's pos, and n_split stays a function of the shapes,
+// so rows at different positions simply leave different numbers of splits
+// idle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,7 +121,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ pos_ptr,
                     float* __restrict__ out, float* __restrict__ part,
-                    int* __restrict__ counters, int t_len, float scale_log2) {
+                    int* __restrict__ counters, int t_len, int pos_stride,
+                    float scale_log2) {
   using L = Layout<D, T>;
   constexpr int kVe = L::kVe, kNv = L::kNv, kSub = L::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -135,7 +141,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const float q_d = tid < D ? q[(size_t)row * D + tid] : 0.f;
 
   // keys [0, pos] are visible; a pos past the cache is clamped to its end
-  const int n_valid = min(*pos_ptr, t_len - 1) + 1;
+  const int n_valid = min(pos_ptr[row / pos_stride], t_len - 1) + 1;
   if (n_valid <= 0) {  // nothing visible: the output is zero
     if (split == 0)
       for (int d = tid; d < D; d += kThreads) o[d] = 0.f;
@@ -301,7 +307,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            void* out, void* part, void* counters, int rows, int t_len,
-           int n_split, float scale, cudaStream_t stream) {
+           int pos_stride, int n_split, float scale, cudaStream_t stream) {
   const int max_per = (t_len + n_split - 1) / n_split;
   const int max_share = (max_per + kShareAlign - 1) / kShareAlign * kShareAlign;
   // the ring, then q and the share's scores in f32
@@ -317,20 +323,21 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos),
       static_cast<float*>(out), static_cast<float*>(part),
-      static_cast<int*>(counters), t_len, scale * kLog2e);
+      static_cast<int*>(counters), t_len, pos_stride, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* pos,
              void* out, void* part, void* counters, int rows, int t_len,
-             int d_head, int n_split, float scale, cudaStream_t s) {
+             int pos_stride, int d_head, int n_split, float scale,
+             cudaStream_t s) {
   switch (d_head) {
-    case 8: return launch<8, T>(q, k, v, pos, out, part, counters, rows, t_len, n_split, scale, s);
-    case 16: return launch<16, T>(q, k, v, pos, out, part, counters, rows, t_len, n_split, scale, s);
-    case 32: return launch<32, T>(q, k, v, pos, out, part, counters, rows, t_len, n_split, scale, s);
-    case 64: return launch<64, T>(q, k, v, pos, out, part, counters, rows, t_len, n_split, scale, s);
-    case 128: return launch<128, T>(q, k, v, pos, out, part, counters, rows, t_len, n_split, scale, s);
+    case 8: return launch<8, T>(q, k, v, pos, out, part, counters, rows, t_len, pos_stride, n_split, scale, s);
+    case 16: return launch<16, T>(q, k, v, pos, out, part, counters, rows, t_len, pos_stride, n_split, scale, s);
+    case 32: return launch<32, T>(q, k, v, pos, out, part, counters, rows, t_len, pos_stride, n_split, scale, s);
+    case 64: return launch<64, T>(q, k, v, pos, out, part, counters, rows, t_len, pos_stride, n_split, scale, s);
+    case 128: return launch<128, T>(q, k, v, pos, out, part, counters, rows, t_len, pos_stride, n_split, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -338,19 +345,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* pos,
 }  // namespace
 
 // q, out: (rows, D) f32; k, v: (rows, t_len, D) f32 or bf16, contiguous and
-// 16-byte aligned; D in {8, 16, 32, 64, 128}; pos: one int32 on the device.
+// 16-byte aligned; D in {8, 16, 32, 64, 128}; pos: int32 on the device, row
+// r reading pos[r / pos_stride] (rows / pos_stride values, pos_stride >= 1).
 // part: rows * n_split * (D + 2) f32 of scratch; counters: rows int32 that
 // are zero (and are left zero). Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int nns_decode_attention(const void* q, const void* k,
                                     const void* v, const void* pos, void* out,
                                     void* part, void* counters, int rows,
-                                    int t_len, int d_head, int n_split,
-                                    int kv_bf16, float scale, void* stream) {
+                                    int t_len, int pos_stride, int d_head,
+                                    int n_split, int kv_bf16, float scale,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pos_stride < 1) return static_cast<int>(cudaErrorInvalidValue);
   return kv_bf16 ? dispatch<__nv_bfloat16>(q, k, v, pos, out, part, counters,
-                                           rows, t_len, d_head, n_split,
-                                           scale, s)
+                                           rows, t_len, pos_stride, d_head,
+                                           n_split, scale, s)
                  : dispatch<float>(q, k, v, pos, out, part, counters, rows,
-                                   t_len, d_head, n_split, scale, s);
+                                   t_len, pos_stride, d_head, n_split, scale,
+                                   s);
 }

@@ -20,6 +20,23 @@ from ..core.caps import OCTET_MIME, TEXT_MIME, VIDEO_MIME
 from .base import Decoder, register_decoder
 
 
+def _host_array(t) -> np.ndarray:
+    """A host tensor as numpy. numpy has no bfloat16: a CPU
+    ``torch.bfloat16`` tensor widens to float32, which is exact, so an
+    argmax over it is the bfloat16 argmax."""
+    if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
+        return t.float().numpy()
+    return np.asarray(t)
+
+
+def _raw_bytes(t) -> bytes:
+    """A host tensor's bytes in memory order; a CPU ``torch.bfloat16``
+    tensor gives its raw 16-bit words."""
+    if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().tobytes()
+    return np.ascontiguousarray(t).tobytes()
+
+
 @register_decoder
 class DirectVideo(Decoder):
     """Interpret a (1,H,W,C) / (H,W,C) tensor as a raw video frame."""
@@ -98,7 +115,7 @@ class ImageLabeling(Decoder):
         return self.labels[i] if i < len(self.labels) else str(i)
 
     def decode(self, buf: Buffer, in_info: TensorsInfo) -> Optional[Buffer]:
-        scores = np.asarray(buf.tensors[0])
+        scores = _host_array(buf.tensors[0])
         # batched input (aggregator upstream): one label per leading-dim
         # frame; the reference only ever sees batch=1. The leading axis is
         # a batch only when the remaining axes hold the class scores — a
@@ -155,5 +172,5 @@ class OctetStream(Decoder):
         return Caps.new(OCTET_MIME)
 
     def decode(self, buf: Buffer, in_info: TensorsInfo) -> Optional[Buffer]:
-        raw = b"".join(np.ascontiguousarray(t).tobytes() for t in buf.tensors)
+        raw = b"".join(_raw_bytes(t) for t in buf.tensors)
         return Buffer([np.frombuffer(raw, np.uint8)])

@@ -164,7 +164,10 @@ class TensorSrc(_PacedSource):
         pattern = self.props["pattern"]
         arrays = []
         for spec in self._info.specs:
-            dt = spec.dtype.np_dtype
+            # numpy has no bfloat16: made in float32 and rounded once into
+            # a CPU torch.bfloat16 tensor, the port's host bfloat16
+            bf16 = spec.dtype.torch_dtype is torch.bfloat16
+            dt = np.float32 if bf16 else spec.dtype.np_dtype
             if pattern == "zeros":
                 a = np.zeros(spec.shape, dt)
             elif pattern == "ones":
@@ -176,7 +179,8 @@ class TensorSrc(_PacedSource):
                     a = self._rng.integers(0, 127, spec.shape).astype(dt)
             else:  # counter: every element = frame index (mod dtype range)
                 a = np.full(spec.shape, self._frame - 1).astype(dt)
-            arrays.append(a)
+            arrays.append(torch.from_numpy(a).to(torch.bfloat16) if bf16
+                          else a)
         return Buffer(arrays, **kw)
 
 

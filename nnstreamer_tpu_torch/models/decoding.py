@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import replace
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -135,30 +135,56 @@ def prefill_continue(cfg: TransformerConfig, params, tokens: torch.Tensor,
 
 
 def decode_step(cfg: TransformerConfig, params, token: torch.Tensor,
-                pos: int, cache: List[dict]) -> Tuple[torch.Tensor, List[dict]]:
+                pos: Union[int, torch.Tensor], cache: List[dict]
+                ) -> Tuple[torch.Tensor, List[dict]]:
     """One token (B,) at position ``pos`` → (logits (B, V), cache).
 
-    Writes the token's K/V at cache[:, :, pos] and attends against
-    cache[:, :, :pos+1]."""
+    ``pos`` is an int (every row at one position) or a (B,) int32 tensor
+    on the token's device, one position per row — the continuous engine
+    steps its slots, each at its own position, in one call. Row b writes
+    its K/V at cache[b, :, pos[b]] and attends against cache[b, :,
+    :pos[b]+1]. A position past the cache is clamped to its last entry,
+    as JAX clamps the start of ``dynamic_update_slice`` (the engines never
+    step a live row there)."""
     B = token.shape[0]
-    x = (params["embed"][token.long()] + params["pos"][pos]).float()
+    T = cache[0]["k"].shape[2]
+    per_row = isinstance(pos, torch.Tensor)
+    if per_row:
+        if tuple(pos.shape) != (B,):
+            raise ValueError(f"pos must be an int or ({B},), got "
+                             f"{tuple(pos.shape)}")
+        idx = pos.long().clamp(0, T - 1)                      # (B,)
+        rows = torch.arange(B, device=token.device)
+        pos_emb = params["pos"][idx]                          # (B, D)
+    else:
+        idx = min(max(int(pos), 0), T - 1)
+        pos_emb = params["pos"][idx]
+    x = (params["embed"][token.long()] + pos_emb).float()
     x = x[:, None, :]                                         # (B, 1, D)
-    T = cfg.max_seq
     kernel = cfg.decode_attn == "kernel"
     if kernel:
         block_k = math.gcd(T, 128)
-        # one device-side position for every layer of this step
-        pos_t = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
-                 if x.is_cuda else pos)
+        if per_row:
+            pos_t = pos.to(torch.int32)
+        else:
+            # one device-side position for every layer of this step
+            pos_t = (torch.full((1,), int(pos), dtype=torch.int32,
+                                device=x.device) if x.is_cuda else int(pos))
     else:
-        visible = torch.arange(T, device=x.device) <= pos
+        t = torch.arange(T, device=x.device)
+        visible = ((t[None, :] <= pos[:, None])[:, None, None, :] if per_row
+                   else t <= pos)                             # (B,1,1,T)|(T,)
     for li, blk in enumerate(params["blocks"]):
         h = _rmsnorm(x, blk["ln1"])
         q, k, v = (_split_heads(cfg, t)
                    for t in _mm(h, blk["wqkv"]).split(cfg.dim, dim=-1))
         ck, cv = cache[li]["k"], cache[li]["v"]
-        ck[:, :, pos] = k[:, :, 0]
-        cv[:, :, pos] = v[:, :, 0]
+        if per_row:
+            ck[rows, :, idx] = k[:, :, 0].to(ck.dtype)
+            cv[rows, :, idx] = v[:, :, 0].to(cv.dtype)
+        else:
+            ck[:, :, idx] = k[:, :, 0]
+            cv[:, :, idx] = v[:, :, 0]
         if kernel:
             o = decode_attention(q.contiguous(), ck, cv, pos_t, block_k)
         else:

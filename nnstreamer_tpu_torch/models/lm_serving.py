@@ -27,7 +27,12 @@ Weights are random, from ``seed``, unless the entry carries ``params``:
 nnstreamer_tpu's parameter pytree as numpy arrays, converted by
 ``models/convert.py`` — the same weights then serve through both packages.
 
-Not in this package yet: ``make_sharded`` (mesh) and ``make_continuous``.
+Continuous batching (the serving layer, serving/): ``make_continuous(slots,
+paged=..., draft=..., device=...)`` builds the slot engine a
+``serving.DecodeScheduler`` drives — requests join and retire between
+decode steps, each slot at its own position.
+
+Not in this package yet: ``make_sharded`` (mesh).
 """
 from __future__ import annotations
 
@@ -255,6 +260,55 @@ class _LMServingEntry:
                 yield token
 
         return stream
+
+    def make_continuous(self, slots: int = 4, mesh=None,
+                        paged: bool = False, draft=None,
+                        spec_k: int = 4, device=None, **paged_kw):
+        """Continuous-batching decode state for the serving layer: a
+        fixed-``slots`` engine on ``device`` (default the card) where
+        sequences join and retire independently between decode steps
+        (``serving.DecodeScheduler`` drives it). Params honor the entry's
+        serve knobs (serve_dtype, cache_len). ``mesh`` raises: one device
+        only.
+
+        ``paged=True`` builds the block-table
+        :class:`~..serving.PagedLMEngine` (``paged_kw``: page_size / pages
+        / chunk / share_prefixes). ``draft`` additionally wraps it in
+        :class:`~..serving.SpeculativeLMEngine`: pass a draft object
+        (``NgramDraft()``), a draft ``_LMServingEntry`` (becomes a
+        ``ModelDraft`` over its own params, on the same device), or the
+        string ``"ngram"``; ``spec_k`` is the draft burst length verified
+        per target pass."""
+        from ..serving.lm_engine import from_entry
+
+        device = resolve_device(device)
+        eng = from_entry(self, slots=slots, mesh=mesh, paged=paged,
+                         device=device, **paged_kw)
+        if draft is None:
+            return eng
+        if not paged:
+            raise ValueError(
+                "speculative decode rides the paged engine "
+                "(verify() needs block tables); pass paged=True")
+        from ..serving.speculative import (
+            ModelDraft,
+            NgramDraft,
+            SpeculativeLMEngine,
+        )
+
+        if isinstance(draft, str):
+            if draft != "ngram":
+                raise ValueError(f"unknown draft spec {draft!r}")
+            draft = NgramDraft()
+        elif isinstance(draft, _LMServingEntry):
+            dcfg = draft._cfg_serve
+            if dcfg.vocab != self._cfg_serve.vocab:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab} != target vocab "
+                    f"{self._cfg_serve.vocab}: speculative verify "
+                    "compares token ids, the vocabularies must match")
+            draft = ModelDraft(dcfg, draft.build_params(device))
+        return SpeculativeLMEngine(eng, draft, k=spec_k)
 
     def make_session(self, device=None, temperature: float = 0.0):
         """Stateful multi-turn serving: ``session.generate(tokens, steps)``

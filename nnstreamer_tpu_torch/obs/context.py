@@ -1,0 +1,322 @@
+"""Request-scoped tracing: trace contexts, spans, Perfetto export (L7).
+
+The port of nnstreamer_tpu's ``obs/context.py``, unchanged: pure Python.
+
+One request through the full stack — ``QueryClient.request()`` → fabric
+router (retries, hedges) → replica query server → serving batcher →
+fused device segment — is ONE trace: a root span minted where the
+request enters, child spans per attempt, and span *links* where
+fan-in makes strict parentage a lie (a coalesced batch serves N
+requests: the batch span links to every request span instead of
+pretending one of them is its parent).
+
+Wire propagation: a :class:`TraceContext` rides buffer meta as
+``meta["trace"] = {"trace_id", "span_id"}`` — the query protocol's DATA
+frames already carry meta as JSON (core/serialize.py), so the context
+crosses every process boundary the tensors do, for free.
+
+Cost discipline: the hot
+paths check ONE module-global, :data:`TRACING`, and do nothing else when
+it is False. Spans use ``time.monotonic()`` so fabric/scheduler/fusion
+timestamps (already monotonic) pass straight through.
+
+Export: :func:`export_chrome_trace` writes chrome://tracing / Perfetto
+JSON (``X`` complete events); trace_id/span_id/parent_span_id/links ride
+each event's ``args`` so tooling (and tests) can reconstruct the tree.
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+import threading
+import time
+from typing import List, Optional, Sequence, Tuple
+
+from ..analysis import sanitizer as _san
+from . import flight
+
+# module-global fast path: instrumented call sites check this and only
+# this when tracing is off (the microbench overhead gate measures it)
+TRACING = False
+
+# per-process id prefix so traces from different processes (a remote
+# replica, a subprocess service) can never collide
+_uniq = f"{os.getpid():x}{int.from_bytes(os.urandom(3), 'big'):06x}"
+_trace_seq = itertools.count(1)
+_span_seq = itertools.count(1)
+
+# finished spans, bounded (deque append/iteration is thread-safe under
+# the GIL; oldest spans fall off — export is for recent activity, the
+# flight recorder keeps the tail even when tracing is later disabled)
+MAX_FINISHED = 16384
+_finished: "collections.deque[Span]" = collections.deque(maxlen=MAX_FINISHED)
+_finished_seq = itertools.count(1)
+# the published total must never go BACKWARDS (Prometheus reads it as a
+# counter; a regression renders as a reset → phantom rate spike), so the
+# take-a-seq + publish pair is serialized by a tiny lock
+_count_lock = threading.Lock()
+_finished_total = 0                  # guarded-by: _count_lock (reads racy-ok)
+_t0 = time.monotonic()
+
+
+def _new_trace_id() -> str:
+    return f"{_uniq}-{next(_trace_seq):x}"
+
+
+def _new_span_id() -> str:
+    return f"s{next(_span_seq):x}"
+
+
+class TraceContext:
+    """The propagatable half of a span: (trace_id, span_id)."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, trace_id: str, span_id: str):
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def to_meta(self) -> dict:
+        """Wire form for ``buffer.meta['trace']`` (plain JSON-able dict)."""
+        return {"trace_id": self.trace_id, "span_id": self.span_id}
+
+    @staticmethod
+    def from_meta(obj) -> Optional["TraceContext"]:
+        """Parse a wire/meta value back into a context; None for anything
+        that is not one (meta is client-supplied data — never raise)."""
+        if isinstance(obj, TraceContext):
+            return obj
+        if isinstance(obj, dict):
+            t, s = obj.get("trace_id"), obj.get("span_id")
+            if isinstance(t, str) and isinstance(s, str) and t and s:
+                return TraceContext(t, s)
+        return None
+
+    def __repr__(self):
+        return f"TraceContext({self.trace_id}/{self.span_id})"
+
+
+class Span:
+    """One timed operation inside a trace. Created via
+    :func:`start_span` (live, call :meth:`end`) or :func:`record_span`
+    (post-hoc, already finished)."""
+
+    __slots__ = ("name", "kind", "trace_id", "span_id", "parent_id",
+                 "start_s", "dur_s", "status", "attrs", "links", "tid",
+                 "_done")
+
+    def __init__(self, name: str, kind: str, trace_id: str, span_id: str,
+                 parent_id: Optional[str], start_s: float,
+                 attrs: Optional[dict],
+                 links: Sequence[Tuple[str, str]]):
+        self.name = name
+        self.kind = kind
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.start_s = start_s
+        self.dur_s = 0.0
+        self.status = "open"
+        self.attrs = attrs or {}
+        self.links: List[Tuple[str, str]] = list(links)
+        self.tid = threading.get_ident()
+        self._done = False
+
+    def context(self) -> TraceContext:
+        return TraceContext(self.trace_id, self.span_id)
+
+    def add_link(self, ctx: Optional[TraceContext]) -> None:
+        if ctx is not None:
+            self.links.append((ctx.trace_id, ctx.span_id))
+
+    def set_attr(self, key: str, value) -> None:
+        self.attrs[key] = value
+
+    def end(self, status: str = "ok") -> TraceContext:
+        """Finish the span (idempotent) and record it."""
+        if not self._done:
+            self._done = True
+            self.dur_s = max(0.0, time.monotonic() - self.start_s)
+            self.status = status
+            _record_finished(self)
+        return self.context()
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name, "kind": self.kind,
+            "trace_id": self.trace_id, "span_id": self.span_id,
+            "parent_span_id": self.parent_id,
+            "start_s": self.start_s, "dur_s": self.dur_s,
+            "status": self.status, "attrs": dict(self.attrs),
+            "links": [{"trace_id": t, "span_id": s}
+                      for t, s in self.links],
+        }
+
+    def __repr__(self):
+        return (f"Span<{self.kind}:{self.name} {self.trace_id}/"
+                f"{self.span_id} {self.status}>")
+
+
+def _record_finished(span: Span) -> None:
+    global _finished_total
+    if _san.LEAK:
+        # both terminal paths (Span.end and record_span's post-hoc
+        # emission) funnel here: the span leaves the leak ledger
+        _san.note_release("span", span.span_id)
+    with _count_lock:
+        _finished_total = next(_finished_seq)
+    _finished.append(span)
+    # spans land in the always-on flight recorder too, so a postmortem
+    # dump shows the last requests even after tracing is switched off
+    flight.record("span", f"{span.kind}:{span.name}",
+                  {"trace": span.trace_id, "span": span.span_id,
+                   "status": span.status,
+                   "dur_ms": round(span.dur_s * 1e3, 3)})
+
+
+def _coerce_parent(parent) -> Optional[TraceContext]:
+    if parent is None:
+        return None
+    if isinstance(parent, Span):
+        return parent.context()
+    return TraceContext.from_meta(parent)
+
+
+def start_span(name: str, kind: str = "span", parent=None,
+               links: Sequence[TraceContext] = (),
+               attrs: Optional[dict] = None,
+               trace_id: Optional[str] = None) -> Span:
+    """Open a live span. ``parent`` may be a :class:`TraceContext`, a
+    :class:`Span`, or a meta dict; no parent (and no ``trace_id``) mints
+    a fresh trace."""
+    pctx = _coerce_parent(parent)
+    tid = trace_id or (pctx.trace_id if pctx is not None
+                       else _new_trace_id())
+    span = Span(name, kind, tid, _new_span_id(),
+                pctx.span_id if pctx is not None else None,
+                time.monotonic(), attrs,
+                [(c.trace_id, c.span_id) for c in links if c is not None])
+    if _san.LEAK:
+        _san.note_acquire("span", span.span_id,
+                          detail=f"{kind}:{name}")
+    return span
+
+
+def record_span(name: str, kind: str = "span", parent=None,
+                trace_id: Optional[str] = None,
+                links: Sequence[TraceContext] = (),
+                attrs: Optional[dict] = None,
+                start_s: Optional[float] = None, dur_s: float = 0.0,
+                status: str = "ok") -> TraceContext:
+    """One-shot emission of an already-finished span (batch/fused
+    dispatch paths measure first, report after). Returns the new span's
+    context."""
+    span = start_span(name, kind=kind, parent=parent, links=links,
+                      attrs=attrs, trace_id=trace_id)
+    if start_s is not None:
+        span.start_s = start_s
+    span._done = True
+    span.dur_s = max(0.0, dur_s)
+    span.status = status
+    _record_finished(span)
+    return span.context()
+
+
+# -- control -----------------------------------------------------------------
+
+def enable_tracing() -> None:
+    global TRACING
+    TRACING = True
+
+
+def disable_tracing() -> None:
+    global TRACING
+    TRACING = False
+
+
+def reset() -> None:
+    """Drop recorded spans (tests / fresh export windows)."""
+    _finished.clear()
+
+
+def finished_spans() -> List[Span]:
+    """Snapshot of the recent finished spans, oldest first."""
+    return list(_finished)
+
+
+def spans_for_trace(trace_id: str) -> List[Span]:
+    return [s for s in _finished if s.trace_id == trace_id]
+
+
+def mono_to_wall_offset() -> float:
+    """``time.time() - time.monotonic()`` right now: the per-process
+    clock offset that converts span start times (monotonic) to wall
+    clock. Exported alongside spans so a DIFFERENT process (the fleet
+    scraper) can place them on one shared timeline — monotonic epochs
+    are process-private, wall clock is not."""
+    return time.time() - time.monotonic()
+
+
+def export_spans(trace_id: Optional[str] = None,
+                 last: Optional[int] = None) -> dict:
+    """Serializable span export for cross-process stitching (the
+    ``GET /spans`` route — service/api.py). Each span dict additionally
+    carries ``start_wall_s`` (wall-clock start, one offset applied to
+    the whole batch) so the fleet view can interleave spans from many
+    processes; ``pid`` identifies the exporting process in the joined
+    Perfetto document."""
+    offset = mono_to_wall_offset()
+    spans = (spans_for_trace(trace_id) if trace_id is not None
+             else finished_spans())
+    if last is not None:
+        spans = spans[-last:]
+    out = []
+    for s in spans:
+        d = s.to_dict()
+        d["start_wall_s"] = s.start_s + offset
+        d["tid"] = s.tid
+        out.append(d)
+    return {"pid": os.getpid(), "tracing": TRACING,
+            "mono_to_wall": offset, "spans": out}
+
+
+def stats() -> dict:
+    return {"finished_total": _finished_total, "retained": len(_finished),
+            "tracing": TRACING}
+
+
+# -- export ------------------------------------------------------------------
+
+def export_chrome_trace(path: Optional[str] = None) -> dict:
+    """Serialize the recent spans as chrome://tracing / Perfetto JSON.
+    Returns the trace dict; also writes it to ``path`` when given. Each
+    event's ``args`` carries trace_id / span_id / parent_span_id / links
+    so the request tree survives the format."""
+    events = []
+    for s in finished_spans():
+        events.append({
+            "name": s.name,
+            "cat": s.kind,
+            "ph": "X",
+            "ts": (s.start_s - _t0) * 1e6,
+            "dur": s.dur_s * 1e6,
+            "pid": os.getpid(),
+            "tid": s.tid,
+            "args": {
+                "trace_id": s.trace_id,
+                "span_id": s.span_id,
+                "parent_span_id": s.parent_id,
+                "status": s.status,
+                "links": [{"trace_id": t, "span_id": sid}
+                          for t, sid in s.links],
+                **s.attrs,
+            },
+        })
+    doc = {"traceEvents": events}
+    if path:
+        import json
+
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+    return doc

@@ -11,6 +11,10 @@ shared-memory ring with asynchronous copies, and combines the blocks'
 partial softmax results in the last block of each (b, h). Its header gives
 the bound on the card and the design.
 
+``pos`` is one position for the whole batch (an int, or one int32 on the
+device) or one per batch entry (a ``(B,)`` int32 tensor on q's device, the
+continuous engine's slots): row (b, h) attends ``[0, pos[b]]``.
+
 ``decode_attention`` is the wrapper. On CPU tensors it runs
 ``decode_attention_plain``, the same function in PyTorch ops (masked
 scores, softmax, weighted sum, in f32) — the version the tests hold against
@@ -63,30 +67,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return block_k
 
 
-def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           pos: Pos, block_k: int = 128) -> torch.Tensor:
-    """The same function in PyTorch ops: positions ``<= pos`` are attended.
-    ``pos`` is an int or a 1-element integer tensor. ``block_k`` only
-    validates the cache length, as the kernel requires."""
-    _check(q, k, v, block_k)
-    D, T = q.shape[3], k.shape[2]
-    scale = 1.0 / (D ** 0.5)
-    s = (q.float() * scale) @ k.float().transpose(-1, -2)     # (B, H, 1, T)
-    visible = torch.arange(T, device=q.device) <= pos
-    s = s.masked_fill(~visible, -1e30)
-    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
-
-
-def _pos_tensor(pos: Pos, device: torch.device) -> torch.Tensor:
+def _pos_tensor(pos: Pos, batch: int, device: torch.device) -> torch.Tensor:
+    """``pos`` as int32 on ``device``: one value, or ``batch`` values (one
+    per batch entry)."""
     if isinstance(pos, torch.Tensor):
-        if pos.numel() != 1 or pos.dtype is not torch.int32 \
-                or pos.device != device:
+        if pos.numel() not in (1, batch) or pos.dim() > 1 \
+                or pos.dtype is not torch.int32 or pos.device != device:
             raise ValueError(
-                f"pos must be one int32 on {device}, got {pos.dtype} "
-                f"{tuple(pos.shape)} on {pos.device}")
-        return pos
+                f"pos must be one int32 or a ({batch},) int32 vector on "
+                f"{device}, got {pos.dtype} {tuple(pos.shape)} on "
+                f"{pos.device}")
+        return pos.reshape(-1)
     # a fill kernel with the value as its argument: no host-to-device copy
     return torch.full((1,), int(pos), dtype=torch.int32, device=device)
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           pos: Pos, block_k: int = 128) -> torch.Tensor:
+    """The same function in PyTorch ops: row (b, h) attends positions
+    ``<= pos`` (or ``<= pos[b]``). ``pos`` is an int, one int32 or a
+    ``(B,)`` int32 vector on q's device. ``block_k`` only validates the
+    cache length, as the kernel requires."""
+    _check(q, k, v, block_k)
+    B, D, T = q.shape[0], q.shape[3], k.shape[2]
+    scale = 1.0 / (D ** 0.5)
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)     # (B, H, 1, T)
+    # (1 or B, T) visible positions, broadcast over heads and the query
+    visible = (torch.arange(T, device=q.device)[None, :]
+               <= _pos_tensor(pos, B, q.device)[:, None])
+    s = s.masked_fill(~visible[:, None, None, :], -1e30)
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
 def decode_splits(rows: int, t_len: int, sms: int) -> int:
@@ -129,7 +139,7 @@ def _kernel():
     use)."""
     fn = load_kernel("decode_attention").nns_decode_attention
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                    ctypes.c_float, vp]
     fn.restype = ctypes.c_int
     return fn
@@ -141,7 +151,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, H, 1, D) float32; k/v: (B, H, T, D) float32 or bfloat16 caches;
     ``pos``: positions ``<= pos`` are attended (cache[pos] holds the current
-    token's K/V, already written) — an int, or one int32 on q's device.
+    token's K/V, already written) — an int, one int32 on q's device, or a
+    ``(B,)`` int32 vector on q's device with one position per batch entry
+    (a position past the cache is read as its last one).
     Returns (B, H, 1, D) float32. ``block_k`` must divide T: the JAX
     kernel's contract, kept here; the CUDA kernel sizes its own shares. On
     the card q, k, v must be contiguous, k and v 16-byte aligned, and D in
@@ -164,8 +176,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention needs contiguous q, k and v")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention needs 16-byte aligned k and v")
-    pos_t = _pos_tensor(pos, q.device)
+    pos_t = _pos_tensor(pos, B, q.device)
     rows = B * H
+    # row b*H + h reads pos_t[row // pos_stride]
+    pos_stride = H if pos_t.numel() == B and B > 1 else rows
     n_split = decode_splits(rows, T, _sm_count(q.device.index))
     out = torch.empty_like(q)
     part = torch.empty(rows * n_split * (D + 2), dtype=torch.float32,
@@ -176,7 +190,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         counters = _row_counters(q.device, stream, rows)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
                  out.data_ptr(), part.data_ptr(), counters.data_ptr(), rows,
-                 T, D, n_split, int(k.dtype is torch.bfloat16),
+                 T, pos_stride, D, n_split, int(k.dtype is torch.bfloat16),
                  1.0 / (D ** 0.5), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

@@ -167,8 +167,10 @@ def make_arithmetic(ops: Sequence[Tuple],
         y = x
         if out_dtype is not None:
             y = _cast(y, canonical_dtype(out_dtype.torch_dtype))
-        elif _is_int(x):
-            y = y.to(torch.float32)  # reference promotes int arith to float
+        elif _is_int(x) or x.dtype is torch.bfloat16:
+            # the reference promotes every input that is not a numpy
+            # floating type to float32: integers, and bfloat16 too
+            y = y.to(torch.float32)
         for entry in ops:
             op, val, ch = entry if len(entry) == 3 else (*entry, None)
             if ch is None or per_channel_dim is None:

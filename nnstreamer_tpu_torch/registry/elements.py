@@ -37,6 +37,7 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.media",
     "nnstreamer_tpu_torch.elements.converter",
     "nnstreamer_tpu_torch.elements.transform",
+    "nnstreamer_tpu_torch.elements.serving",
 )
 
 _loaded = False

@@ -1,0 +1,97 @@
+"""nnstreamer_tpu_torch.serving — continuous-batching request scheduler
+(L6).
+
+The port of nnstreamer_tpu's ``serving/`` package: the layer between
+ingress (the ``tensor_serving`` element, or direct ``Scheduler.submit``)
+and model execution, merging concurrent requests from many clients into
+full device batches.
+
+Public surface:
+
+* :class:`Scheduler` / :class:`DecodeScheduler` — the two loops;
+* :class:`RequestQueue`, :class:`BatchFormer`, :class:`Request` — the
+  building blocks, composable separately;
+* :class:`ContinuousLMEngine` / :class:`PagedLMEngine` — slot-based LM
+  decode state (dense per-slot caches stepped by one batched decode with
+  a position per slot vs a block-table paged KV pool with COW prefix
+  sharing, chunked prefill, and preempt/restore);
+* :class:`KVPagePool` — the refcounted page allocator + prefix registry;
+* :class:`SpeculativeLMEngine` (+ :class:`NgramDraft`/:class:`ModelDraft`)
+  — draft-verify decoding riding the same join/retire loop;
+* typed admission errors (:class:`AdmissionError` and friends);
+* :func:`metrics_snapshot` — per-request/per-batch observability across
+  every live scheduler;
+* :func:`get_shared_scheduler` / :func:`release_shared_scheduler` — the
+  refcounted per-key table ``tensor_serving`` elements share one device
+  batch through.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Tuple
+
+from .batcher import Batch, BatchFormer  # noqa: F401
+from .kv_pool import KVPagePool, PagePoolExhausted  # noqa: F401
+from .lm_engine import ContinuousLMEngine, PagedLMEngine  # noqa: F401
+from .metrics import ServingMetrics, metrics_snapshot  # noqa: F401
+from .speculative import (  # noqa: F401
+    ModelDraft,
+    NgramDraft,
+    SpeculativeLMEngine,
+)
+from .queue import RequestQueue  # noqa: F401
+from .request import (  # noqa: F401
+    AdmissionError,
+    DeadlineExceededError,
+    MemoryPressureError,
+    OverloadShedError,
+    QueueFullError,
+    Request,
+    SchedulerClosedError,
+    ServingError,
+)
+from .scheduler import (  # noqa: F401
+    BackendExecutor,
+    DecodeScheduler,
+    Scheduler,
+    SignatureExecutor,
+)
+
+# -- shared scheduler table (tensor_serving elements with the same key
+# coalesce into ONE device batch across pipelines) --------------------------
+_shared: Dict[str, Tuple[object, tuple]] = {}
+_shared_refs: Dict[str, int] = {}
+_shared_lock = threading.Lock()
+
+
+def get_shared_scheduler(key: str, factory: Callable[[], object],
+                         signature: tuple = ()) -> object:
+    """Acquire the scheduler registered under ``key`` (creating it via
+    ``factory`` on first acquire). ``signature`` guards against two
+    elements binding one key to DIFFERENT models — coalescing their
+    requests would feed one model the other's traffic."""
+    with _shared_lock:
+        entry = _shared.get(key)
+        if entry is None:
+            sched = factory()
+            _shared[key] = (sched, signature)
+            _shared_refs[key] = 0
+        elif entry[1] != signature:
+            raise ValueError(
+                f"serving key '{key}' already bound to {entry[1]}; "
+                f"cannot rebind to {signature}")
+        _shared_refs[key] += 1
+        return _shared[key][0]
+
+
+def release_shared_scheduler(key: str) -> None:
+    """Release one reference; the last release closes the scheduler."""
+    with _shared_lock:
+        if key not in _shared:
+            return
+        _shared_refs[key] -= 1
+        if _shared_refs[key] > 0:
+            return
+        sched, _ = _shared.pop(key)
+        _shared_refs.pop(key, None)
+    sched.close()

@@ -1,0 +1,279 @@
+"""Batch formation: shape-bucketed coalescing with a max-wait timer (L6).
+
+The port of nnstreamer_tpu's ``serving/batcher.py``. There, jit compiles
+per input signature, so a batcher that emitted whatever row count happened
+to be pending would trigger a recompile storm. The port runs eagerly, but
+keeps the design: every batch is padded UP to a fixed bucket size (from
+``bucket_sizes``), so steady-state traffic shows the model at most
+``len(bucket_sizes)`` input shapes per tensor layout — the shapes a later
+CUDA graph or compiled program would capture (the scheduler's executor
+counts them, ``compile_count``).
+
+The max-wait timer bounds the latency cost of waiting for a full bucket:
+a batch is flushed when (a) it fills its largest bucket, (b) the OLDEST
+member has waited ``max_wait_s``, or (c) a member's deadline is about to
+pass.
+
+Tensors are numpy arrays or torch tensors. A batch of host arrays is
+stacked on the host; one holding a torch tensor is stacked with torch on
+that tensor's device (a CUDA frame stays on the card). Outputs are sliced
+back per request where they lie.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .request import Request
+
+_batch_ids = itertools.count()
+
+
+class Batch:
+    """A formed batch: ``requests`` contributing ``rows`` real rows,
+    padded to ``padded_rows`` (the bucket)."""
+
+    __slots__ = ("id", "requests", "rows", "padded_rows", "bucket_key",
+                 "formed_time")
+
+    def __init__(self, requests: List[Request], rows: int, padded_rows: int,
+                 bucket_key: tuple):
+        self.id = next(_batch_ids)
+        self.requests = requests
+        self.rows = rows
+        self.padded_rows = padded_rows
+        self.bucket_key = bucket_key
+        self.formed_time = time.monotonic()
+
+    def stacked_tensors(self) -> tuple:
+        """Concatenate member rows along axis 0 and zero-pad to the
+        bucket — the tensors handed to the executor. Host arrays stack
+        with numpy; if any member's tensor is a torch tensor, that tensor
+        stacks with torch on its device."""
+        n_tensors = len(self.requests[0].tensors)
+        out = []
+        for ti in range(n_tensors):
+            parts = [r.tensors[ti] for r in self.requests]
+            out.append(_stack_padded(parts, self.padded_rows))
+        return tuple(out)
+
+    def split_outputs(self, outputs: Sequence) -> List[Tuple]:
+        """Slice per-request row ranges back out of the batched outputs
+        (views, on the outputs' device). An output whose leading dim does
+        not match the padded batch (a model that reduces away the batch
+        axis) is replicated to every member — the same
+        every-consumer-sees-it semantics a broadcast scalar has."""
+        per_request: List[List] = [[] for _ in self.requests]
+        for out in outputs:
+            a = out if isinstance(out, torch.Tensor) else np.asarray(out)
+            if a.ndim >= 1 and a.shape[0] == self.padded_rows:
+                start = 0
+                for i, r in enumerate(self.requests):
+                    per_request[i].append(a[start:start + r.rows])
+                    start += r.rows
+            else:
+                for i in range(len(self.requests)):
+                    per_request[i].append(a)
+        return [tuple(p) for p in per_request]
+
+
+def _stack_padded(parts: list, rows: int):
+    """``parts`` concatenated on axis 0 and zero-padded to ``rows``;
+    dimensionless scalars batch as rows of shape ()."""
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        dev = next(p.device for p in parts if isinstance(p, torch.Tensor))
+        ts = [p.to(dev) if isinstance(p, torch.Tensor)
+              else torch.as_tensor(np.asarray(p), device=dev) for p in parts]
+        ts = [t[None] if t.dim() == 0 else t for t in ts]
+        a = ts[0] if len(ts) == 1 else torch.cat(ts, dim=0)
+        pad = rows - a.shape[0]
+        if pad > 0:
+            a = torch.cat([a, a.new_zeros((pad, *a.shape[1:]))], dim=0)
+        return a
+    arrs = [np.asarray(p) for p in parts]
+    arrs = [p[None] if p.ndim == 0 else p for p in arrs]
+    a = arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=0)
+    pad = rows - a.shape[0]
+    if pad > 0:
+        a = np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)],
+                           axis=0)
+    return a
+
+
+class _Pending:
+    __slots__ = ("requests", "rows", "oldest", "newest")
+
+    def __init__(self):
+        self.requests: List[Request] = []
+        self.rows = 0
+        self.oldest: Optional[float] = None
+        self.newest: Optional[float] = None
+
+
+class BatchFormer:
+    """Coalesce compatible requests into shape-bucketed batches.
+
+    ``bucket_sizes`` — ascending row counts a batch may be padded to
+    (the input shapes the model will ever see, per tensor layout).
+    ``max_wait_s`` — flush budget for a partially-filled bucket.
+    ``idle_linger_s`` — under DENSE traffic (recent inter-arrival EWMA
+    below this), an idle-boundary cell is held up to this long after its
+    newest member before flushing: a burst of concurrent submitters
+    reaches the former one request at a time (GIL / socket scheduling),
+    and flushing on the first arrival's bucket boundary would fragment
+    the burst into many tiny batches. Sparse traffic (lone client) still
+    flushes boundary cells immediately — it pays no linger.
+    """
+
+    def __init__(self, bucket_sizes: Sequence[int] = (1, 2, 4, 8),
+                 max_wait_s: float = 0.005,
+                 idle_linger_s: float = 0.0005):
+        sizes = sorted(set(int(b) for b in bucket_sizes))
+        if not sizes or sizes[0] < 1:
+            raise ValueError(f"bucket_sizes={bucket_sizes!r} must be "
+                             "positive integers")
+        self.bucket_sizes = tuple(sizes)
+        self.max_bucket = sizes[-1]
+        self.max_wait_s = max_wait_s
+        self.idle_linger_s = idle_linger_s
+        self._pending: Dict[tuple, _Pending] = {}
+        self._last_add: Optional[float] = None
+        self._gap_ewma = float("inf")  # inter-arrival spacing estimate
+        self._expect_rows = 0          # scheduler hint: resubmits imminent
+        self._expect_until = 0.0
+
+    def bucket_for(self, rows: int) -> int:
+        """Smallest configured bucket holding ``rows`` (rows above the
+        largest bucket pad to the next multiple of it — an oversized
+        request still gets a stable signature)."""
+        for b in self.bucket_sizes:
+            if rows <= b:
+                return b
+        mb = self.max_bucket
+        return ((rows + mb - 1) // mb) * mb
+
+    def add(self, req: Request) -> None:
+        now = time.monotonic()
+        if self._last_add is not None:
+            gap = now - self._last_add
+            if self._gap_ewma == float("inf"):
+                self._gap_ewma = gap
+            else:
+                self._gap_ewma += 0.25 * (gap - self._gap_ewma)
+        self._last_add = now
+        if self._expect_rows > 0:
+            self._expect_rows -= req.rows
+        key = req.bucket_key()
+        cell = self._pending.get(key)
+        if cell is None:
+            cell = self._pending[key] = _Pending()
+        if not cell.requests:
+            cell.oldest = now
+        cell.newest = now
+        cell.requests.append(req)
+        cell.rows += req.rows
+
+    def expect(self, rows: int, window_s: float) -> None:
+        """Scheduler hint: results for ``rows`` requests were just
+        delivered, so closed-loop clients are about to resubmit — hold
+        idle-boundary flushes until those arrivals land (each ``add``
+        pays the count down; the flush fires the moment the burst is
+        complete) or ``window_s`` lapses, whichever comes first."""
+        self._expect_rows = rows
+        self._expect_until = time.monotonic() + window_s
+
+    def _expecting_arrivals(self) -> bool:
+        """More traffic is likely to land within the linger window, so an
+        idle-boundary cell is worth holding. Inside an active expect
+        window the outstanding count is authoritative (closed-loop
+        clients accounted for exactly); outside it, fall back to the
+        inter-arrival density estimate (open-loop streams)."""
+        if time.monotonic() < self._expect_until:
+            return self._expect_rows > 0
+        return self._gap_ewma < self.idle_linger_s
+
+    def pending_rows(self) -> int:
+        return sum(c.rows for c in self._pending.values())
+
+    def next_flush_in(self) -> Optional[float]:
+        """Seconds until the oldest pending member forces a flush (None =
+        nothing pending). The scheduler uses this as its queue-poll
+        timeout so a lone request never waits longer than max_wait — or,
+        for a boundary cell held by the linger, longer than the linger."""
+        expecting = self._expecting_arrivals()
+        t_next: Optional[float] = None
+        for c in self._pending.values():
+            if not c.requests:
+                continue
+            t = c.oldest + self.max_wait_s
+            if expecting and c.rows in self.bucket_sizes:
+                t = min(t, c.newest + self.idle_linger_s)
+            t_next = t if t_next is None else min(t_next, t)
+        if t_next is None:
+            return None
+        return max(0.0, t_next - time.monotonic())
+
+    def take_ready(self, force: bool = False,
+                   idle: bool = False) -> List[Batch]:
+        """Pop every batch that is ready: full (>= largest bucket), aged
+        past max_wait, or holding a member whose deadline leaves no room
+        to keep waiting. ``idle=True`` (the queue behind the former is
+        drained) additionally flushes cells sitting exactly ON a bucket
+        boundary: padding cost is zero and no co-batchable traffic is
+        waiting, so holding them out the max-wait timer buys occupancy
+        nothing — it only defers the batch (measured 9× throughput at
+        offered-load 1 in tools/bench_serving.py). Under dense traffic
+        the boundary flush lingers ``idle_linger_s`` past the newest
+        arrival first: concurrent submitters trickle in one at a time,
+        and an instant flush would split their burst into fragment
+        batches. ``force=True`` flushes everything (shutdown)."""
+        now = time.monotonic()
+        expecting = self._expecting_arrivals()
+        ready: List[Batch] = []
+        for key, cell in list(self._pending.items()):
+            if not cell.requests:
+                del self._pending[key]
+                continue
+            full = cell.rows >= self.max_bucket
+            aged = now - cell.oldest >= self.max_wait_s
+            boundary = (idle and cell.rows in self.bucket_sizes
+                        and (not expecting
+                             or now - cell.newest >= self.idle_linger_s))
+            urgent = any(
+                r.deadline is not None
+                and r.deadline - now <= self.max_wait_s
+                for r in cell.requests)
+            if not (force or full or aged or boundary or urgent):
+                continue
+            ready.extend(self._form(key, cell))
+            del self._pending[key]
+        return ready
+
+    def _form(self, key: tuple, cell: _Pending) -> List[Batch]:
+        """Split a pending cell into batches of at most max_bucket rows,
+        keeping each request whole (a request's rows never straddle two
+        batches — its output slices back out contiguously)."""
+        batches: List[Batch] = []
+        group: List[Request] = []
+        rows = 0
+        for r in cell.requests:
+            if group and rows + r.rows > self.max_bucket:
+                batches.append(Batch(group, rows, self.bucket_for(rows), key))
+                group, rows = [], 0
+            group.append(r)
+            rows += r.rows
+        if group:
+            batches.append(Batch(group, rows, self.bucket_for(rows), key))
+        return batches
+
+    def drain(self) -> List[Request]:
+        """Remove and return every pending request (shutdown path)."""
+        out: List[Request] = []
+        for cell in self._pending.values():
+            out.extend(cell.requests)
+        self._pending.clear()
+        return out

@@ -1,0 +1,324 @@
+"""Paged KV-cache allocator: refcounted page pool + prefix registry (L6).
+
+The port of nnstreamer_tpu's ``serving/kv_pool.py``, unchanged: pure host
+Python over the port's sanitizer ledger and metrics registry.
+
+The dense ``ContinuousLMEngine`` gives every slot a full ``max_seq`` KV
+cache, so concurrent-stream count is bounded by worst-case sequence
+length × slots whatever the traffic actually looks like. The paged
+engine (``lm_engine.PagedLMEngine``) instead draws fixed-size **pages**
+(``page_size`` positions each) from the pool owned here and addresses
+them through per-slot **block tables** — a slot's resident bytes follow
+its ACTUAL sequence length, and identical prompt prefixes dedupe across
+streams by sharing pages (Hermes' memory-over-kernels framing, arxiv
+2409.04249; pages are planner-visible resources per the multi-TPU
+profiled-segmentation stance, arxiv 2503.01025).
+
+This module is pure HOST bookkeeping — the device arrays live in the
+engine; the pool decides *which* page indices back *which* positions:
+
+* **allocation** — a bounded free list. Exhaustion raises the typed
+  :class:`PagePoolExhausted`; the scheduler answers with a typed shed
+  (admission) or deadline-aware preempt/restore (mid-decode), never an
+  OOM.
+* **refcounts + COW** — a page referenced by N block tables has
+  refcount N. Writers must hold an EXCLUSIVE page: the engine's
+  ``_ensure_writable`` asks :meth:`is_shared` and, for a shared page,
+  allocates a fresh one, device-copies the contents, and swaps its
+  block-table entry (copy-on-write) — the sibling stream never observes
+  the divergence.
+* **prefix registry** — completed prompt prefills register their page
+  chain under the prompt tokens (LRU-bounded; registry holds its own
+  refs). A later admit whose prompt starts with a registered chain
+  shares those pages instead of recomputing the prefill
+  (``prefix_hits_total``).
+
+Leakcheck contract: every page incref pairs with exactly one decref
+(``# pairs-with:`` on both sites); under ``NNS_LEAKCHECK=1`` an engine
+or scheduler exit path that drops a block table without releasing its
+pages fails the test ledger. Gauges
+``nns_serving_kv_{pages_total,pages_used,pages_shared,prefix_hits_total,
+preemptions_total}`` render from the collector below on every scrape.
+"""
+from __future__ import annotations
+
+import weakref
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+from ..analysis import sanitizer as _san
+from ..analysis.sanitizer import named_lock
+from ..obs import metrics as obs_metrics
+from .request import ServingError
+
+
+class PagePoolExhausted(ServingError):
+    """The pool has no free page for a required allocation. Recoverable
+    by policy, not by retry: the scheduler either sheds the request with
+    a typed ``MemoryPressureError`` (admission) or preempts a victim's
+    pages to host and restores them on readmission (mid-decode)."""
+
+
+_pools: "weakref.WeakSet" = weakref.WeakSet()
+
+
+class KVPagePool:
+    """Host-side allocator for a fixed pool of KV pages.
+
+    ``pages`` counts USABLE pages; index 0 is additionally reserved as
+    the null sink every inactive/garbage write is routed to, so device
+    scatters never need a branch. Page indices handed out are in
+    ``[1, pages]``.
+    """
+
+    def __init__(self, pages: int, page_size: int,
+                 name: str = "kv_pool", prefix_capacity: int = 32):
+        if pages < 1:
+            raise ValueError(f"pages={pages} must be >= 1")
+        if page_size < 1 or (page_size & (page_size - 1)):
+            raise ValueError(
+                f"page_size={page_size} must be a positive power of two")
+        self.pages = pages
+        self.page_size = page_size
+        self.name = name
+        self._lock = named_lock(f"KVPagePool._lock:{name}")
+        # index 0 = null page (never allocated, never freed)
+        self._free: List[int] = list(range(pages, 0, -1))  # guarded-by: _lock
+        self._ref: Dict[int, int] = {}                     # guarded-by: _lock
+        # prompt-token chain -> (page ids, covered positions); LRU order,
+        # registry holds one ref per page it advertises
+        self._prefixes: "OrderedDict[Tuple[int, ...], Tuple[List[int], int]]" \
+            = OrderedDict()                                # guarded-by: _lock
+        self._prefix_capacity = prefix_capacity
+        # monotonic counters (guarded-by: _lock)
+        self.prefix_hits = 0
+        self.cow_copies = 0
+        self.preemptions = 0
+        self.restores = 0
+        _pools.add(self)
+
+    def _dec_locked(self, pages: List[int]) -> List[int]:
+        """Decref under the held lock; returns the pages actually
+        decref'd (for the caller's leak-ledger notes)."""
+        dropped: List[int] = []
+        for p in pages:
+            if p == 0 or p not in self._ref:
+                continue
+            self._ref[p] -= 1
+            dropped.append(p)
+            if self._ref[p] == 0:
+                del self._ref[p]
+                self._free.append(p)
+        return dropped
+
+    # -- allocation ----------------------------------------------------------
+    def alloc(self, n: int) -> List[int]:   # pairs-with: release
+        """Take ``n`` exclusive pages (refcount 1 each). Under pressure
+        the prefix registry gives way first — LRU chains evict until the
+        request fits (cached prefixes are an optimization, live streams
+        are a contract). Raises the typed :class:`PagePoolExhausted`
+        only when eviction cannot help — all-or-nothing, so a partial
+        grab never strands pages."""
+        got: List[int] = []
+        evicted: List[int] = []
+        try:
+            with self._lock:
+                while n > len(self._free) and self._prefixes:
+                    _, (pages, _) = self._prefixes.popitem(last=False)
+                    evicted.extend(self._dec_locked(pages))
+                if n > len(self._free):
+                    raise PagePoolExhausted(
+                        f"pool '{self.name}': need {n} pages, "
+                        f"{len(self._free)} free of {self.pages}")
+                got = [self._free.pop() for _ in range(n)]
+                for p in got:
+                    self._ref[p] = 1
+        finally:
+            if _san.LEAK:
+                for p in evicted:  # pairs-with: retain (register_prefix)
+                    _san.note_release("kv_page", f"{self.name}:p{p}")
+                for p in got:
+                    _san.note_acquire("kv_page", f"{self.name}:p{p}")
+        return got
+
+    def retain(self, pages: List[int]) -> None:   # pairs-with: release
+        """Share already-allocated pages (one more block table points at
+        them); each incref pairs with one :meth:`release` decref."""
+        with self._lock:
+            for p in pages:
+                if p not in self._ref:
+                    raise ServingError(
+                        f"pool '{self.name}': retain of unallocated page {p}")
+                self._ref[p] += 1
+        if _san.LEAK:
+            for p in pages:
+                _san.note_acquire("kv_page", f"{self.name}:p{p}")
+
+    def release(self, pages: List[int]) -> None:
+        """Drop one reference per listed page; refcount 0 returns the
+        page to the free list. Unknown/null entries are ignored so exit
+        paths can pass raw block-table rows."""
+        with self._lock:
+            freed = self._dec_locked(pages)
+        if _san.LEAK:
+            for p in freed:
+                _san.note_release("kv_page", f"{self.name}:p{p}")
+
+    def refcount(self, page: int) -> int:
+        with self._lock:
+            return self._ref.get(page, 0)
+
+    def is_shared(self, page: int) -> bool:
+        """True when a write to ``page`` must copy-on-write first."""
+        with self._lock:
+            return self._ref.get(page, 0) > 1
+
+    # -- prefix registry ------------------------------------------------------
+    def register_prefix(self, tokens, pages: List[int],
+                        covered: int) -> None:
+        """Advertise a prefilled prompt's page chain for reuse: ``pages``
+        back positions ``[0, covered)`` of ``tokens``. The registry
+        holds its own reference per page (released on LRU eviction /
+        close) so a retired stream's prefix outlives it."""
+        key = tuple(int(t) for t in tokens[:covered])
+        if not key or not pages:
+            return
+        self.retain(pages)  # pairs-with: release (eviction / close)
+        evicted: Optional[List[int]] = None
+        try:
+            with self._lock:
+                if key in self._prefixes:
+                    old_pages, _ = self._prefixes.pop(key)
+                    evicted = old_pages
+                self._prefixes[key] = (list(pages), covered)
+                self._prefixes.move_to_end(key)
+                if len(self._prefixes) > self._prefix_capacity:
+                    _, (lru_pages, _) = self._prefixes.popitem(last=False)
+                    evicted = (evicted or []) + lru_pages
+        except BaseException:
+            self.release(pages)  # registration failed: drop our incref
+            raise
+        if evicted:
+            self.release(evicted)
+
+    def lookup_prefix(self, tokens) -> Tuple[List[int], int]:
+        """Longest registered chain that prefixes ``tokens``: returns
+        ``(pages, covered)`` with a registry-independent reference
+        already taken on each page (caller owns it; release on retire),
+        or ``([], 0)``. Counts a prefix hit."""
+        toks = tuple(int(t) for t in tokens)
+        best_key: Optional[Tuple[int, ...]] = None
+        best: Tuple[List[int], int] = ([], 0)
+        with self._lock:
+            for key, (pages, covered) in self._prefixes.items():
+                if covered <= len(toks) and covered > best[1] \
+                        and toks[:covered] == key:
+                    best_key, best = key, (list(pages), covered)
+            if best_key is not None:
+                self._prefixes.move_to_end(best_key)
+                self.prefix_hits += 1
+        if best_key is not None:
+            self.retain(best[0])  # pairs-with: release (slot retire)
+        return best
+
+    def clear_prefixes(self) -> None:
+        with self._lock:
+            chains = [pages for pages, _ in self._prefixes.values()]
+            self._prefixes.clear()
+        for pages in chains:
+            self.release(pages)
+
+    # -- event counters -------------------------------------------------------
+    def note_cow(self) -> None:
+        with self._lock:
+            self.cow_copies += 1
+
+    def note_preemption(self) -> None:
+        with self._lock:
+            self.preemptions += 1
+
+    def note_restore(self) -> None:
+        with self._lock:
+            self.restores += 1
+
+    # -- introspection --------------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        with self._lock:
+            return len(self._ref)
+
+    @property
+    def shared_pages(self) -> int:
+        with self._lock:
+            return sum(1 for c in self._ref.values() if c > 1)
+
+    def stats(self) -> dict:
+        with self._lock:
+            used = len(self._ref)
+            return {
+                "name": self.name,
+                "pages_total": self.pages,
+                "pages_used": used,
+                "pages_free": len(self._free),
+                "pages_shared": sum(1 for c in self._ref.values() if c > 1),
+                "page_size": self.page_size,
+                "prefix_entries": len(self._prefixes),
+                "prefix_hits_total": self.prefix_hits,
+                "cow_copies_total": self.cow_copies,
+                "preemptions_total": self.preemptions,
+                "restores_total": self.restores,
+                "occupancy": used / self.pages if self.pages else 0.0,
+            }
+
+    def close(self) -> None:
+        """Release the registry's references (engine/scheduler exit paths
+        release slot-held ones); the leak ledger must read zero after."""
+        self.clear_prefixes()
+        _pools.discard(self)
+
+
+# -- metrics collector (scrape-time, weakset pattern of obs/metrics.py) ------
+
+_G_TOTAL = obs_metrics.gauge(
+    "nns_serving_kv_pages_total", "KV page-pool capacity", ("pool",))
+_G_USED = obs_metrics.gauge(
+    "nns_serving_kv_pages_used", "KV pages currently referenced", ("pool",))
+_G_SHARED = obs_metrics.gauge(
+    "nns_serving_kv_pages_shared",
+    "KV pages referenced by more than one block table (prefix sharing)",
+    ("pool",))
+_G_PREFIX_HITS = obs_metrics.gauge(
+    "nns_serving_kv_prefix_hits_total",
+    "admits that reused a registered prompt-prefix page chain", ("pool",))
+_G_PREEMPT = obs_metrics.gauge(
+    "nns_serving_kv_preemptions_total",
+    "requests whose pages were evicted to host under memory pressure",
+    ("pool",))
+_G_COW = obs_metrics.gauge(
+    "nns_serving_kv_cow_copies_total",
+    "copy-on-write page copies (write into a shared page)", ("pool",))
+
+
+def _collect_kv(_registry) -> None:
+    for g in (_G_TOTAL, _G_USED, _G_SHARED, _G_PREFIX_HITS, _G_PREEMPT,
+              _G_COW):
+        g.clear()
+    for pool in list(_pools):
+        try:
+            s = pool.stats()
+        except Exception:  # noqa: BLE001 - pool mid-close
+            continue
+        _G_TOTAL.set(s["pages_total"], pool=s["name"])
+        _G_USED.set(s["pages_used"], pool=s["name"])
+        _G_SHARED.set(s["pages_shared"], pool=s["name"])
+        _G_PREFIX_HITS.set(s["prefix_hits_total"], pool=s["name"])
+        _G_PREEMPT.set(s["preemptions_total"], pool=s["name"])
+        _G_COW.set(s["cow_copies_total"], pool=s["name"])
+
+
+obs_metrics.register_collector("serving_kv", _collect_kv)

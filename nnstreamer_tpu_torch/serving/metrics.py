@@ -1,0 +1,179 @@
+"""Serving observability: per-scheduler aggregates + global snapshot (L6).
+
+The port of nnstreamer_tpu's ``serving/metrics.py``. Builds on the
+primitives the filter layer reports through (``utils/stats.py`` —
+InvokeStats device/dispatch channels, and LatencyReservoir for tails).
+
+Per-REQUEST metrics live on the request itself (``Request.metrics``:
+enqueue_time, batch_id, bucket, queue_wait_s, device_time_s, ttft_s,
+total_latency_s). This module aggregates across requests/batches and
+exposes ``serving.metrics_snapshot()`` over every live scheduler.
+
+Not in this package yet: the profiler's request series
+(``obs.profile.record_request`` in ``record_request_done``), which comes
+with ``obs/profile.py``.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Dict, Optional
+
+from ..utils.stats import InvokeStats, LatencyReservoir
+
+_registry: "weakref.WeakValueDictionary[str, object]" = \
+    weakref.WeakValueDictionary()
+_registry_lock = threading.Lock()
+_name_counter: Dict[str, int] = {}
+
+
+def register_scheduler(name: str, scheduler) -> str:
+    """Track a scheduler for the global snapshot; returns the (uniquified)
+    name it is registered under."""
+    with _registry_lock:
+        n = _name_counter.get(name, 0)
+        _name_counter[name] = n + 1
+        unique = name if n == 0 else f"{name}#{n}"
+        _registry[unique] = scheduler
+        return unique
+
+
+def iter_schedulers():
+    """(name, scheduler) over every live scheduler (the obs metrics
+    collector reads this so the Prometheus plane and the snapshot share
+    one source)."""
+    with _registry_lock:
+        return list(_registry.items())
+
+
+def metrics_snapshot() -> dict:
+    """{scheduler_name: scheduler.metrics_snapshot()} across every live
+    scheduler (schedulers drop out when garbage-collected), plus — under
+    the ``"fabric"`` key — every live replica pool's snapshot
+    (``obs.metrics.pools_snapshot``; none until the fabric is ported)."""
+    out = {name: s.metrics_snapshot() for name, s in iter_schedulers()}
+    from ..obs import metrics as obs_metrics
+
+    fabric = obs_metrics.pools_snapshot()
+    if fabric:
+        out["fabric"] = fabric
+    return out
+
+
+class ServingMetrics:
+    """One scheduler's aggregate counters + latency channels."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # request-series name ("serving:<scheduler>") — set by the owning
+        # scheduler after registration; the profiler's request series
+        # reads it once obs/profile.py is ported
+        self.series: Optional[str] = None
+        self.submitted = 0
+        self.completed = 0
+        self.failed = 0
+        self.shed_queue_full = 0
+        self.shed_deadline = 0
+        self.shed_memory = 0
+        self.shed_overload = 0
+        self.batches = 0
+        self.batched_rows = 0      # real rows executed
+        self.padded_rows = 0       # rows incl. bucket padding
+        self.decode_steps = 0
+        self.retired_early = 0     # decode: finished before max steps (eos)
+        self.preempted = 0         # pages evicted to host (pressure)
+        self.restored = 0          # preempted requests resumed
+        # device channel: batch execution time (dispatch+block, the
+        # reference-comparable number); reservoirs: per-request tails
+        self.device = InvokeStats()
+        self.queue_wait = LatencyReservoir()
+        self.ttft = LatencyReservoir()
+        self.total = LatencyReservoir()
+
+    # -- recording ----------------------------------------------------------
+    def record_submit(self, n: int = 1) -> None:
+        with self._lock:
+            self.submitted += n
+
+    def record_shed(self, deadline: bool = False,
+                    memory: bool = False,
+                    overload: bool = False) -> None:
+        with self._lock:
+            if memory:
+                self.shed_memory += 1
+            elif overload:
+                self.shed_overload += 1
+            elif deadline:
+                self.shed_deadline += 1
+            else:
+                self.shed_queue_full += 1
+
+    def record_batch(self, rows: int, padded_rows: int,
+                     device_s: float) -> None:
+        with self._lock:
+            self.batches += 1
+            self.batched_rows += rows
+            self.padded_rows += padded_rows
+        self.device.record(device_s)
+        self.device.record_device(device_s)
+
+    def record_request_done(self, req, failed: bool = False) -> None:
+        with self._lock:
+            if failed:
+                self.failed += 1
+            else:
+                self.completed += 1
+        m = req.metrics
+        if "queue_wait_s" in m:
+            self.queue_wait.add(m["queue_wait_s"])
+        if "ttft_s" in m:
+            self.ttft.add(m["ttft_s"])
+        if "total_latency_s" in m:
+            self.total.add(m["total_latency_s"])
+
+    def record_decode_step(self, active: int, slots: int,
+                           device_s: float) -> None:
+        with self._lock:
+            self.decode_steps += 1
+            self.batched_rows += active
+            self.padded_rows += slots
+        self.device.record(device_s)
+        self.device.record_device(device_s)
+
+    def record_early_retire(self) -> None:
+        with self._lock:
+            self.retired_early += 1
+
+    def record_preemption(self) -> None:
+        with self._lock:
+            self.preempted += 1
+
+    def record_restore(self) -> None:
+        with self._lock:
+            self.restored += 1
+
+    # -- snapshot -----------------------------------------------------------
+    def snapshot(self) -> dict:
+        with self._lock:
+            padded = self.padded_rows
+            occupancy = (self.batched_rows / padded) if padded else 0.0
+            out = {
+                "submitted": self.submitted,
+                "completed": self.completed,
+                "failed": self.failed,
+                "shed_queue_full": self.shed_queue_full,
+                "shed_deadline": self.shed_deadline,
+                "shed_memory": self.shed_memory,
+                "shed_overload": self.shed_overload,
+                "batches": self.batches,
+                "decode_steps": self.decode_steps,
+                "retired_early": self.retired_early,
+                "preempted": self.preempted,
+                "restored": self.restored,
+                "batch_occupancy": occupancy,
+            }
+        out["device"] = self.device.snapshot()
+        out["queue_wait"] = self.queue_wait.snapshot()
+        out["ttft"] = self.ttft.snapshot()
+        out["total_latency"] = self.total.snapshot()
+        return out

@@ -1,0 +1,334 @@
+"""Draft-verify speculative decoding over the paged engine (L6).
+
+The port of nnstreamer_tpu's ``serving/speculative.py``. A decode step
+yields ONE token per slot however small the model. Speculative decoding
+lets a cheap **draft** propose K-1 tokens and the **target** score all K
+positions in ONE ``verify`` pass; greedy acceptance keeps the longest
+prefix of proposals the target agrees with, plus the target's own
+correction token. Because acceptance is exact-match against the target's
+argmax, the emitted stream is **token-identical to target-only decode for
+ANY acceptance pattern** — a draft can only change throughput, never
+output.
+
+Round protocol (carry state: ``tok`` = last emitted token, K/V for it
+not yet written; cache valid for positions < ``pos``):
+
+1. draft proposes ``d1..d_{K-1}`` continuing the slot's history;
+2. target ``verify`` scores ``[tok, d1..d_{K-1}]`` at positions
+   ``pos..pos+K-1`` in one pass (writing their K/V);
+3. ``j`` = longest prefix with ``argmax(L_{i-1}) == d_i``; emit
+   ``d1..dj`` + the correction ``argmax(L_j)`` — 1..K tokens;
+4. ``pos`` advances by ``j+1``; rejected positions hold garbage K/V that
+   the ``<= pos`` visibility mask hides until decode overwrites them.
+
+Drafts: :class:`NgramDraft` (prompt-lookup self-speculation — no device
+work) and :class:`ModelDraft` (a small transformer riding the same
+decoding primitives — the classic (draft, target) pair).
+"""
+from __future__ import annotations
+
+import weakref
+from typing import List
+
+import numpy as np
+import torch
+
+from ..models.decoding import decode_step, init_cache, prefill
+from ..obs import metrics as obs_metrics
+from .lm_engine import PagedLMEngine
+
+_engines: "weakref.WeakSet" = weakref.WeakSet()
+
+
+class NgramDraft:
+    """Prompt-lookup draft: propose the continuation that followed the
+    most recent earlier occurrence of the current suffix n-gram. No
+    parameters, no device work — acceptance is high exactly when the
+    output re-uses spans of its own context (the prompt-lookup
+    observation), and a miss costs only rejected verify columns."""
+
+    def __init__(self, ngram: int = 3):
+        self.ngram = ngram
+
+    def admit(self, slot: int, tokens, first: int) -> None:
+        pass  # stateless: history arrives with every propose
+
+    def propose(self, slot: int, hist: List[int], k: int) -> List[int]:
+        if k <= 0:
+            return []
+        h = hist
+        for n in range(min(self.ngram, len(h) - 1), 0, -1):
+            pat = h[-n:]
+            # latest earlier occurrence wins (most recent context)
+            for i in range(len(h) - n - 1, -1, -1):
+                if h[i:i + n] == pat:
+                    out = h[i + n:i + n + k]
+                    if out:
+                        return (out + [out[-1]] * k)[:k]
+        return [h[-1]] * k  # cold fallback: padding the verify columns
+
+    def commit(self, slot: int, emitted: List[int]) -> None:
+        pass
+
+    def release(self, slot: int) -> None:
+        pass
+
+    def restore(self, slot: int, hist: List[int]) -> None:
+        pass
+
+
+class ModelDraft:
+    """Small-transformer draft: per-slot batch-1 dense cache driven by
+    the shared decoding primitives (on the draft params' device). Mirrors
+    the target's carry protocol — accepted proposals were the draft's own
+    predictions, so their K/V is already correct; a correction just moves
+    the carry, and rejected positions stay invisible behind the
+    ``<= pos`` mask."""
+
+    def __init__(self, cfg, params):
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self._cache = {}    # slot -> dense batch-1 cache
+        self._pos = {}      # slot -> carry position (= len(history) - 1)
+        self._written = {}  # slot -> positions with VALID K/V (count)
+
+    @torch.no_grad()
+    def _ingest(self, slot: int, token: int, pos: int) -> int:
+        tok = torch.full((1,), token, dtype=torch.int32, device=self.device)
+        logits, self._cache[slot] = decode_step(
+            self.cfg, self.params, tok, pos, self._cache[slot])
+        return int(torch.argmax(logits[0]))
+
+    @torch.no_grad()
+    def admit(self, slot: int, tokens, first: int) -> None:
+        toks = torch.from_numpy(np.asarray(tokens, np.int32)[None, :]).to(
+            self.device)
+        cache = init_cache(self.cfg, 1, self.params["embed"].dtype,
+                           self.device)
+        _, self._cache[slot], pos = prefill(self.cfg, self.params, toks,
+                                            cache)
+        self._pos[slot] = int(pos)
+        self._written[slot] = int(pos)
+
+    def propose(self, slot: int, hist: List[int], k: int) -> List[int]:
+        if slot not in self._cache or k <= 0:
+            return []
+        pos = self._pos[slot]  # == len(hist) - 1, the carry's position
+        # catch-up: a fully-accepted round leaves the last accepted
+        # token's K/V unwritten (the target wrote it, we never stepped
+        # it) — replay it from the authoritative history
+        while self._written[slot] < pos:
+            w = self._written[slot]
+            self._ingest(slot, int(hist[w]), w)
+            self._written[slot] = w + 1
+        tok = int(hist[-1])
+        out: List[int] = []
+        for i in range(k):
+            if pos + i >= self.cfg.max_seq:
+                break
+            tok = self._ingest(slot, tok, pos + i)
+            self._written[slot] = max(self._written[slot], pos + i + 1)
+            out.append(tok)
+        return out
+
+    def commit(self, slot: int, emitted: List[int]) -> None:
+        # accepted proposals were the draft's own predictions, so their
+        # K/V is already correct; everything past the correction point
+        # is STALE (it was written for a rejected prediction) — roll the
+        # validity watermark back so propose() replays it from history
+        if slot in self._pos and emitted:
+            self._written[slot] = min(self._written[slot],
+                                      self._pos[slot] + len(emitted))
+            self._pos[slot] += len(emitted)
+
+    def release(self, slot: int) -> None:
+        self._cache.pop(slot, None)
+        self._pos.pop(slot, None)
+        self._written.pop(slot, None)
+
+    def restore(self, slot: int, hist: List[int]) -> None:
+        # re-derive draft state from the authoritative history:
+        # cache = prefill(hist[:-1]), carry = hist[-1]
+        self.admit(slot, hist[:-1], int(hist[-1]))
+
+
+class SpeculativeLMEngine:
+    """Scheduler-facing wrapper pairing a :class:`PagedLMEngine` target
+    with a draft. Implements the engine contract plus ``step_tokens()``
+    — the multi-token-per-pass path ``DecodeScheduler`` prefers when
+    present. ``step()`` stays available and speculative, returning only
+    each slot's first emitted token (contract shim for callers that
+    cannot consume bursts)."""
+
+    def __init__(self, target: PagedLMEngine, draft, k: int = 4):
+        if k < 2:
+            raise ValueError(f"k={k} must be >= 2 (1 carry + proposals)")
+        self.target = target
+        self.draft = draft
+        self.k = k
+        self._hist: "dict[int, List[int]]" = {}
+        # acceptance accounting (scraped by the collector below)
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        _engines.add(self)
+
+    # -- contract delegation --------------------------------------------------
+    @property
+    def cfg(self):
+        return self.target.cfg
+
+    @property
+    def slots(self) -> int:
+        return self.target.slots
+
+    @property
+    def compile_count(self) -> int:
+        return self.target.compile_count
+
+    @property
+    def active_slots(self) -> int:
+        return self.target.active_slots
+
+    @property
+    def pool(self):
+        return self.target.pool
+
+    def validate(self, tokens, steps) -> None:
+        self.target.validate(tokens, steps)
+
+    def projected_page_bytes(self, tokens: int, steps: int) -> int:
+        return self.target.projected_page_bytes(tokens, steps)
+
+    def memory_bytes(self) -> dict:
+        out = dict(self.target.memory_bytes())
+        # rides the target's row in obs top's SERVING section: occupancy
+        # and acceptance answer "is speculation paying for its pages?"
+        out["spec_acceptance_rate"] = self.acceptance_rate()
+        return out
+
+    def admit_start(self, slot: int, tokens, steps: int) -> None:
+        self.target.admit_start(slot, tokens, steps)
+        self._hist[slot] = [int(t) for t in np.asarray(tokens).ravel()]
+
+    def prefill_tick(self):
+        done = self.target.prefill_tick()
+        for slot, first in done:
+            self._hist[slot].append(int(first))
+            self.draft.admit(slot, self._hist[slot][:-1], int(first))
+        return done
+
+    def admit(self, slot: int, tokens, steps: int) -> int:
+        self.admit_start(slot, tokens, steps)
+        while True:
+            for s, first in self.prefill_tick():
+                if s == slot:
+                    return first
+
+    def release(self, slot: int) -> None:
+        self.target.release(slot)
+        self.draft.release(slot)
+        self._hist.pop(slot, None)
+
+    def preempt(self, slot: int) -> dict:
+        blob = self.target.preempt(slot)
+        blob["hist"] = list(self._hist.get(slot, []))
+        self.draft.release(slot)
+        return blob
+
+    def restore(self, slot: int, blob: dict) -> None:
+        self.target.restore(slot, blob)
+        self._hist[slot] = list(blob.get("hist", []))
+        if self._hist[slot]:
+            self.draft.restore(slot, self._hist[slot])
+
+    # -- the speculative round ------------------------------------------------
+    def step_tokens(self) -> List[List[int]]:
+        """One draft-verify round over every slot → per-slot emitted
+        token bursts (1..k tokens active, [] inactive). May raise
+        PagePoolExhausted exactly like ``step()``."""
+        t = self.target
+        active = np.flatnonzero(t._mask)
+        out: List[List[int]] = [[] for _ in range(t.slots)]
+        if active.size == 0:
+            return out
+        K = self.k
+        mat = np.zeros((t.slots, K), np.int32)
+        for s in active:
+            s = int(s)
+            mat[s, 0] = t._tok[s]
+            props = self.draft.propose(s, self._hist[s], K - 1)
+            props = (props + [mat[s, 0]] * (K - 1))[:K - 1]
+            mat[s, 1:] = props
+        # fused verify + greedy acceptance + carry advance on the device:
+        # emitted tokens are the target's own argmax prefix, so the
+        # round's host traffic is the mat upload and one small int copy
+        pred, n_emit = t.verify_commit(mat)
+        for s in active:
+            s = int(s)
+            n = int(n_emit[s])
+            if not n:
+                continue
+            emitted = [int(x) for x in pred[s, :n]]
+            self.spec_rounds += 1
+            self.spec_proposed += K - 1
+            self.spec_accepted += n - 1
+            self.draft.commit(s, emitted)
+            self._hist[s].extend(emitted)
+            out[s] = emitted
+        return out
+
+    def step(self) -> np.ndarray:
+        """Single-token contract shim: run a speculative round but emit
+        only the first token per slot (the rest of the burst is
+        discarded host-side — the cache stays consistent because commit
+        already advanced past the full acceptance)."""
+        burst = self.step_tokens()
+        tok = np.zeros((self.slots,), np.int32)
+        for s, toks in enumerate(burst):
+            if toks:
+                tok[s] = toks[0]
+        return tok
+
+    def acceptance_rate(self) -> float:
+        if not self.spec_proposed:
+            return 0.0
+        return self.spec_accepted / self.spec_proposed
+
+    def close(self) -> None:
+        self.target.close()
+        _engines.discard(self)
+
+
+# -- acceptance gauges (scrape-time, weakset pattern) ------------------------
+
+_G_ROUNDS = obs_metrics.gauge(
+    "nns_serving_spec_rounds_total",
+    "speculative draft-verify rounds (per slot)", ("pool",))
+_G_PROPOSED = obs_metrics.gauge(
+    "nns_serving_spec_proposed_total",
+    "draft tokens offered for verification", ("pool",))
+_G_ACCEPTED = obs_metrics.gauge(
+    "nns_serving_spec_accepted_total",
+    "draft tokens the target agreed with", ("pool",))
+_G_RATE = obs_metrics.gauge(
+    "nns_serving_spec_acceptance_rate",
+    "accepted / proposed over the engine lifetime", ("pool",))
+
+
+def _collect_spec(_registry) -> None:
+    for g in (_G_ROUNDS, _G_PROPOSED, _G_ACCEPTED, _G_RATE):
+        g.clear()
+    for eng in list(_engines):
+        try:
+            name = eng.target._mem_name
+            _G_ROUNDS.set(eng.spec_rounds, pool=name)
+            _G_PROPOSED.set(eng.spec_proposed, pool=name)
+            _G_ACCEPTED.set(eng.spec_accepted, pool=name)
+            _G_RATE.set(eng.acceptance_rate(), pool=name)
+        except Exception:  # noqa: BLE001 - engine mid-close
+            continue
+
+
+obs_metrics.register_collector("serving_spec", _collect_spec)

@@ -94,3 +94,55 @@ class InvokeStats:
             "recent_device_latency_ms": self.recent_device_latency_s * 1e3,
             "throughput_fps": self.throughput_fps,
         }
+
+
+class LatencyReservoir:
+    """Bounded sample ring for percentile estimates (p50/p99) — the
+    serving scheduler and bench tools need tail latency, which the
+    sliding averages above cannot express. Keeps the most recent
+    ``cap`` samples (a ring, not a random reservoir: serving snapshots
+    should reflect CURRENT load, not the whole lifetime mix)."""
+
+    def __init__(self, cap: int = 4096):
+        self._cap = cap
+        self._ring: list = []
+        self._idx = 0
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def add(self, value_s: float) -> None:
+        with self._lock:
+            self.count += 1
+            if len(self._ring) < self._cap:
+                self._ring.append(value_s)
+            else:
+                self._ring[self._idx] = value_s
+                self._idx = (self._idx + 1) % self._cap
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            data = sorted(self._ring)
+            n = self.count
+        if not data:
+            return {"count": n, "p50_ms": 0.0, "p99_ms": 0.0, "max_ms": 0.0}
+
+        def pick(q):
+            return data[min(len(data) - 1,
+                            max(0, int(round(q / 100.0 * (len(data) - 1)))))]
+        return {"count": n, "p50_ms": pick(50) * 1e3,
+                "p99_ms": pick(99) * 1e3, "max_ms": data[-1] * 1e3}
+
+
+class Timer:
+    """Context manager recording wall time into an InvokeStats."""
+
+    def __init__(self, stats: InvokeStats):
+        self.stats = stats
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self.stats.record(time.monotonic() - self._t0)
+        return False

@@ -165,3 +165,51 @@ def test_repeated_calls_reuse_the_counters(cuda_card):
         other = decode_attention(q, k, v, 900, 128)
     side.synchronize()
     torch.testing.assert_close(other, first, rtol=0, atol=0)
+
+
+# one position per batch entry (the continuous engine's slots): the main
+# path's slot positions at the base shape
+SLOT_POS = [0, 17, 130, 543, 1023, 1500, 2000, 2047]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_slot_pos_matches_plain(cuda_card, dtype):
+    q, k, v = _inputs(cuda_card, (8, 16, 2048, 64), dtype, seed=8)
+    pos = torch.tensor(SLOT_POS, dtype=torch.int32, device=cuda_card)
+    got = _holds(q, k, v, pos, 128)
+    # each slot equals the kernel run on that slot alone at its position
+    for b, p in enumerate(SLOT_POS):
+        one = decode_attention(q[b:b + 1].contiguous(),
+                               k[b:b + 1].contiguous(),
+                               v[b:b + 1].contiguous(), p, 128)
+        torch.testing.assert_close(got[b:b + 1], one, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_slot_nothing_past_each_pos_is_read(cuda_card, dtype):
+    q, k, v = _inputs(cuda_card, (8, 16, 2048, 64), dtype, seed=9)
+    pos = torch.tensor(SLOT_POS, dtype=torch.int32, device=cuda_card)
+    want = decode_attention_plain(q, k, v, pos, 128)
+    for b, p in enumerate(SLOT_POS):
+        k[b, :, p + 1:] = float("nan")
+        v[b, :, p + 1:] = float("nan")
+    got = decode_attention(q, k, v, pos, 128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_per_slot_pos_one_slot_and_errors(cuda_card):
+    q, k, v = _inputs(cuda_card, (1, 4, 256, 32), torch.float32, seed=10)
+    pos = torch.tensor([77], dtype=torch.int32, device=cuda_card)
+    _holds(q, k, v, pos, 128)
+    q, k, v = _inputs(cuda_card, (3, 4, 256, 32), torch.float32, seed=11)
+    with pytest.raises(ValueError, match="int32 vector"):
+        decode_attention(q, k, v, torch.zeros(2, dtype=torch.int32,
+                                              device=cuda_card), 128)
+    with pytest.raises(ValueError, match="int32 vector"):
+        decode_attention(q, k, v, torch.zeros(3, dtype=torch.int64,
+                                              device=cuda_card), 128)

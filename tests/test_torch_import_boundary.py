@@ -55,6 +55,24 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.registry.models",
     "nnstreamer_tpu_torch.runtime.pbtxt",
     "nnstreamer_tpu_torch.runtime.describe",
+    "nnstreamer_tpu_torch.analysis",
+    "nnstreamer_tpu_torch.analysis.sanitizer",
+    "nnstreamer_tpu_torch.obs",
+    "nnstreamer_tpu_torch.obs.context",
+    "nnstreamer_tpu_torch.obs.flight",
+    "nnstreamer_tpu_torch.obs.metrics",
+    "nnstreamer_tpu_torch.obs.memory",
+    "nnstreamer_tpu_torch.utils.stats",
+    "nnstreamer_tpu_torch.serving",
+    "nnstreamer_tpu_torch.serving.request",
+    "nnstreamer_tpu_torch.serving.queue",
+    "nnstreamer_tpu_torch.serving.batcher",
+    "nnstreamer_tpu_torch.serving.metrics",
+    "nnstreamer_tpu_torch.serving.scheduler",
+    "nnstreamer_tpu_torch.serving.kv_pool",
+    "nnstreamer_tpu_torch.serving.lm_engine",
+    "nnstreamer_tpu_torch.serving.speculative",
+    "nnstreamer_tpu_torch.elements.serving",
 ]
 
 
@@ -76,7 +94,8 @@ assert {{"appsrc", "tensor_filter", "tensor_generate", "tensor_sink",
          "tensor_src", "queue", "tensor_aggregator",
          "tensor_decoder", "tee", "videotestsrc", "videoconvert",
          "videoscale", "imagefreeze", "audiotestsrc", "audioconvert",
-         "tensor_converter", "tensor_transform"}} <= set(element_factories())
+         "tensor_converter", "tensor_transform",
+         "tensor_serving"}} <= set(element_factories())
 assert get(SubpluginKind.FILTER, "torch") is get(SubpluginKind.FILTER, "pytorch")
 assert get(SubpluginKind.DECODER, "image_labeling").MODE == "image_labeling"
 for mode in ("flexbuf", "protobuf", "flatbuf"):
