@@ -98,6 +98,32 @@ phase fails:
     lockstep: every frame's label equals the argmax ``tensor_filter``
     gives for it, and at least one batch mixed both streams.
 
+11. the zoo — the three lines of the reference's bench suite
+    (tools/bench_suite.py:637-682) at 224×224×3, bf16 on the card:
+    ``tensor_src ! tensor_aggregator frames-out=64 ! queue ! tensor_filter
+    model=...<m>:filter_model_u8 ! queue ! tensor_decoder <dec>
+    frames-in=64 ! tensor_sink`` with SSD-MobileNet (91 classes, 3135
+    anchors) into ``mode=bounding_boxes option1=mobilenet-ssd-postprocess
+    option3=,30 option4=224:224``, PoseNet (17 keypoints, 28×28 heatmaps)
+    into ``mode=pose_estimation option1=224:224 option2=heatmap``, and
+    DeepLab (21 classes, logits upsampled to 224×224) into
+    ``mode=image_segment option1=tflite-deeplab``. For each model: card
+    float32 (cuDNN's TF32 flag on) vs the CPU's and bf16 vs float32 on
+    every output (phase 8's limits; SSD's scores 2e-3 in bf16), the bf16
+    forward's time at batch 64; the line at 3 warm-up and 30 measured
+    batches of 64, frames/s at the sink, the filter's and the decoder's
+    host ms a batch, the bytes that cross to the host a batch with and
+    without the decoder's reduce; every batch reduced on the card (no
+    host decode) and every output on cuda:0. Gates: two batches of the
+    filter's card outputs decoded per frame on the host (frames-in=1,
+    pulled first) equal the batched reduce on the card — the line's own
+    decoded bytes for image_segment and pose_estimation, the (box,
+    class) lists and overlay bytes at ``option10=4096`` (no candidate
+    cut) for bounding_boxes, whose candidates above the threshold and
+    kept at the line's cap of 256 are printed. Then the push-to-decoded
+    p50 of one frame through ``appsrc ! tensor_filter ! tensor_decoder
+    ! tensor_sink``. This path runs no hand-written kernel.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1120,9 +1146,11 @@ def mb_device_busy(name: str, line: str) -> dict:
             "window_ms": wall_us / 1e3, "batches": k1 - k0}
 
 
-def mb_latency() -> dict:
-    """Push one frame, wait for its label; p50 over MB_P50_FRAMES frames
-    after MB_P50_WARM warm-up frames."""
+def frame_latency(name: str, model: str, dec: str, check) -> dict:
+    """Push one (1, 224, 224, 3) uint8 frame through ``appsrc !
+    tensor_filter model=<model> ! tensor_decoder <dec> ! tensor_sink``,
+    wait for its decoded buffer; p50 over MB_P50_FRAMES frames after
+    MB_P50_WARM warm-up frames. ``check(buf)`` holds each decoded buffer."""
     import threading
 
     from nnstreamer_tpu_torch.core import MessageType
@@ -1131,16 +1159,16 @@ def mb_latency() -> dict:
     pipe = parse_launch(
         "appsrc name=in caps=other/tensors,format=static,"
         "dimensions=3:224:224:1,types=uint8 ! tensor_filter framework=torch "
-        f"model={MB_MODEL} name=f ! tensor_decoder mode=image_labeling "
+        f"model={model} name=f ! tensor_decoder {dec} "
         "! tensor_sink name=out max-stored=1")
     arrived = threading.Event()
     got = []
 
-    def on_label(buf):
-        got.append(buf.meta["labels"])
+    def on_decoded(buf):
+        got.append(bool(check(buf)))
         arrived.set()
 
-    pipe.get("out").connect(on_label)
+    pipe.get("out").connect(on_decoded)
     frames = mb_host_frames(MB_P50_WARM + MB_P50_FRAMES)
     lat = []
     pipe.play()
@@ -1150,20 +1178,28 @@ def mb_latency() -> dict:
             t0 = time.perf_counter()
             pipe.get("in").push_buffer(frames[i:i + 1])
             if not arrived.wait(timeout=120):
-                fail(f"mobilenet latency: frame {i} gave no label in 120 s")
+                fail(f"{name} latency: frame {i} gave nothing in 120 s")
             lat.append(time.perf_counter() - t0)
         pipe.get("in").end_of_stream()
         msg = pipe.wait(timeout=60)
     finally:
         pipe.stop()
     if msg.type is not MessageType.EOS or len(got) != len(frames) \
-            or any(len(ls) != 1 for ls in got):
-        fail(f"mobilenet latency line: {msg}, {len(got)} label buffers")
+            or not all(got):
+        fail(f"{name} latency line: {msg}, {len(got)} decoded buffers, "
+             f"{got.count(False)} failed the check")
     steady = lat[MB_P50_WARM:]
     return {"p50_ms": 1e3 * statistics.median(steady),
             "p90_ms": 1e3 * float(np.percentile(steady, 90)),
             "first_ms_incl_model_build": 1e3 * lat[0],
             "frames": len(steady)}
+
+
+def mb_latency() -> dict:
+    """Push one frame, wait for its label; p50 over MB_P50_FRAMES frames
+    after MB_P50_WARM warm-up frames."""
+    return frame_latency("mobilenet", MB_MODEL, "mode=image_labeling",
+                         lambda buf: len(buf.meta["labels"]) == 1)
 
 
 def mb_host_costs() -> dict:
@@ -2001,6 +2037,331 @@ def phase_continuous(report: dict, dev: torch.device) -> dict:
     return r
 
 
+# the zoo phase (11): the three lines of the reference's bench suite
+# (tools/bench_suite.py:637-682) at 224×224×3, batch MB_BATCH, MB_WARM
+# warm-up and MB_MEASURED measured batches, bf16 on the card
+ZOO = {
+    "ssd_mobilenet": ("nnstreamer_tpu_torch.models.ssd_mobilenet",
+                      "mode=bounding_boxes option1=mobilenet-ssd-postprocess "
+                      "option3=,30 option4=224:224"),
+    "posenet": ("nnstreamer_tpu_torch.models.posenet",
+                "mode=pose_estimation option1=224:224 option2=heatmap"),
+    "deeplab": ("nnstreamer_tpu_torch.models.deeplab",
+                "mode=image_segment option1=tflite-deeplab"),
+}
+ZOO_OUTPUTS = {"ssd_mobilenet": ("boxes", "scores"),
+               "posenet": ("heatmaps",), "deeplab": ("logits",)}
+# measured batches whose filter outputs the decoder gates decode again
+ZOO_GATE_BATCHES = 2
+# bf16 vs f32 per output: phase 8's MB_BF16_ATOL, except SSD's scores.
+# Those are the sigmoid of 3135 x 91 class logits a frame that come
+# straight out of a bf16 convolution, with no average over the map to
+# shrink the rounding as MobileNet's global pool does. The port's bf16
+# build on the CPU already differs from its f32 build by 5.5e-4 there
+# (seed 0, 4 frames of mb_host_frames), above MB_BF16_ATOL; they are held
+# to 2e-3, about 4x that gap, which a fault in the model (a wrong layer,
+# a wrong weight layout) would exceed by far: the scores span 0.46-0.54.
+ZOO_BF16_ATOL = {("ssd_mobilenet", "scores"): 2e-3}
+# a candidate cap above SSD's 3135 anchors: nothing is cut before NMS
+ZOO_NO_CAP = 4096
+
+
+def zoo_tuple(out) -> tuple:
+    return tuple(out) if isinstance(out, (list, tuple)) else (out,)
+
+
+def zoo_model(name: str, dev: torch.device) -> dict:
+    """Card float32 (cuDNN's TF32 flag on) vs the CPU's float32, and card
+    bf16 vs card float32, on every output; the bf16 forward's time at
+    batch MB_BATCH."""
+    import importlib
+
+    from nnstreamer_tpu_torch.models._blocks import make_u8_entry
+
+    mod = importlib.import_module(ZOO[name][0])
+    f32_entry = make_u8_entry(replace(mod.filter_model, compute_dtype="float32"))
+    f32_card = f32_entry.make(dev)
+    bf16_card = mod.filter_model_u8.make(dev)
+    if bf16_card.dtype is not torch.bfloat16 or f32_card.dtype is not torch.float32:
+        fail(f"{name}: compute dtypes {bf16_card.dtype} (auto on the card) "
+             f"and {f32_card.dtype} (float32)")
+    x = torch.from_numpy(mb_host_frames(MB_PARITY_FRAMES))
+    cpu = zoo_tuple(f32_entry.make("cpu")(x))
+    xd = x.to(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        f32 = zoo_tuple(f32_card(xd))
+        if not torch.backends.cudnn.allow_tf32:
+            fail(f"{name}: the float32 forward left cuDNN's TF32 flag off")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    bf16 = zoo_tuple(bf16_card(xd))
+    r = {}
+    for out_name, c, f, b in zip(ZOO_OUTPUTS[name], cpu, f32, bf16):
+        if not (f.is_cuda and b.is_cuda and f.dtype is b.dtype is torch.float32
+                and f.shape == b.shape == c.shape
+                and bool(torch.isfinite(f).all())
+                and bool(torch.isfinite(b).all())):
+            fail(f"{name} {out_name}: card outputs {f.dtype} "
+                 f"{tuple(f.shape)} on {f.device}, {b.dtype} on {b.device}, "
+                 f"CPU {tuple(c.shape)}")
+        f, b = f.cpu(), b.cpu()
+        err = (f - c).abs().max().item()
+        cerr, cstd = mb_centred_err(f, c)
+        bf_err = (b - f).abs().max().item()
+        limit = ZOO_BF16_ATOL.get((name, out_name), MB_BF16_ATOL)
+        r[out_name] = {"shape": list(f.shape),
+                       "card_f32_vs_cpu_max_abs_err": err,
+                       "card_f32_vs_cpu_centred_err": cerr,
+                       "cpu_centred_std": cstd,
+                       "max_abs": c.abs().max().item(),
+                       "bf16_vs_f32_max_abs_err": bf_err,
+                       "bf16_atol": limit}
+        print(f"zoo {name} {out_name} {tuple(f.shape)} on {MB_PARITY_FRAMES} "
+              f"frames: card f32 (cuDNN TF32 flag on) vs CPU max |err| "
+              f"{err:.3e} (atol {MB_LOGIT_ATOL}), centred {cerr:.3e} vs "
+              f"centred std {cstd:.3e} (share {MB_CENTRED_SHARE}); bf16 vs "
+              f"f32 {bf_err:.3e} (atol {limit})")
+        if not (err <= MB_LOGIT_ATOL and cerr <= MB_CENTRED_SHARE * cstd):
+            fail(f"{name} {out_name}: card f32 differs from the CPU's: "
+                 f"{r[out_name]}")
+        if not bf_err <= limit:
+            fail(f"{name} {out_name}: bf16 differs from f32 by {bf_err}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batches = [(torch.randint(0, 127, (MB_BATCH, 224, 224, 3), generator=gen,
+                              device=dev, dtype=torch.uint8),)
+               for _ in range(2)]
+    r["forward_ms_bfloat16"] = time_ms(bf16_card, batches, reps=5, inner=5,
+                                       sleep_cycles=200_000_000)
+    print(f"zoo {name} filter_model_u8 forward at batch {MB_BATCH}, bf16: "
+          f"{r['forward_ms_bfloat16']:.4f} ms "
+          f"({MB_BATCH * 1e3 / r['forward_ms_bfloat16']:.1f} frames/s)")
+    return r
+
+
+def zoo_decoded(buf) -> tuple:
+    """A decoded buffer as comparable values: its bytes, and its
+    detections (box, class), keypoints or class map."""
+    meta = None
+    if "detections" in buf.meta:
+        meta = [(d["box"], d["class"]) for d in buf.meta["detections"]]
+    elif "keypoints" in buf.meta:
+        meta = [(k["x"], k["y"], k["score"], k["valid"])
+                for k in buf.meta["keypoints"]]
+    elif "class_map" in buf.meta:
+        meta = np.asarray(buf.meta["class_map"]).tobytes()
+    return bytes(np.ascontiguousarray(np.asarray(buf.tensors[0]))), meta
+
+
+def zoo_decode(dec: str, bufs, fi: int) -> list:
+    """``appsrc ! tensor_decoder <dec> frames-in=<fi> ! tensor_sink`` over
+    ``bufs`` (card tensors: the reduce path; numpy: the host path)."""
+    from nnstreamer_tpu_torch.core import Buffer, MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    first = bufs[0]
+    dims = ".".join(":".join(str(d) for d in reversed(t.shape)) for t in first)
+    types = ",".join("float32" for _ in first)
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,"
+        f"num_tensors={len(first)},dimensions={dims},types={types} "
+        f"! tensor_decoder {dec} frames-in={fi} name=d "
+        "! tensor_sink name=out max-stored=0")
+    got = []
+    pipe.get("out").connect(lambda buf: got.append(zoo_decoded(buf)))
+    pipe.play()
+    try:
+        for b in bufs:
+            pipe.get("in").push_buffer(Buffer(list(b)))
+        pipe.get("in").end_of_stream()
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"decoder {dec}: {msg}")
+    return got
+
+
+def zoo_line(name: str) -> tuple:
+    """Drive one zoo line at full width; the filter is tapped for its host
+    time and the outputs of ZOO_GATE_BATCHES measured batches, the decoder
+    for its host time and any host decode, the sink for the decoded
+    buffers of those batches. Returns (results, tapped outputs, their
+    decoded buffers)."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    n_batches, b = MB_WARM + MB_MEASURED, MB_BATCH
+    model = f"{ZOO[name][0]}:filter_model_u8"
+    line = (MB_HEAD.format(n=n_batches * b, b=b)
+            + f"! tensor_filter framework=torch model={model} "
+            "sync-invoke=false name=f ! queue max-size-buffers=8 "
+            f"! tensor_decoder {ZOO[name][1]} frames-in={b} name=d "
+            "! tensor_sink name=out max-stored=1")
+    pipe = parse_launch(line)
+    filt, dec = pipe.get("f"), pipe.get("d")
+    gate = range(MB_WARM, MB_WARM + ZOO_GATE_BATCHES)
+    tapped_out, devices, filter_s, decoder_s, host_decodes = {}, set(), [], [], []
+    transform = filt.transform
+
+    def tapped(buf):
+        t0 = time.perf_counter()
+        out = transform(buf)
+        filter_s.append(time.perf_counter() - t0)
+        k = len(filter_s) - 1
+        devices.add((str(filt.backend_device),)
+                    + tuple(str(t.device) for t in out.tensors))
+        if k in gate:
+            tapped_out[k] = list(out.tensors)
+        return out
+
+    filt.transform = tapped
+    host_decode = dec.decoder.decode
+
+    def counted_decode(buf, info):
+        host_decodes.append(1)
+        return host_decode(buf, info)
+
+    dec.decoder.decode = counted_decode
+    chain = dec.chain
+
+    def timed_chain(pad, buf):
+        t0 = time.perf_counter()
+        chain(pad, buf)
+        decoder_s.append(time.perf_counter() - t0)
+
+    dec.chain = timed_chain
+    times, decoded = [], {}
+
+    def on_data(buf):
+        i = len(times)
+        times.append(time.perf_counter())
+        if i // b in gate:
+            decoded[i] = zoo_decoded(buf)
+
+    pipe.get("out").connect(on_data)
+    reset_launches()
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    launches = read_launches()
+    if msg.type is not MessageType.EOS:
+        fail(f"zoo {name} line: {msg}")
+    want_dev = ("cuda:0",) * (1 + len(ZOO_OUTPUTS[name]))
+    if devices != {want_dev}:
+        fail(f"zoo {name}: filter (backend device, output devices) "
+             f"{sorted(devices)}, expected cuda:0 for all")
+    if len(filter_s) != n_batches or len(times) != n_batches * b:
+        fail(f"zoo {name}: {len(filter_s)} filter invocations and "
+             f"{len(times)} decoded buffers for {n_batches} batches of {b}")
+    if host_decodes:
+        fail(f"zoo {name}: the decoder decoded {len(host_decodes)} frames on "
+             "the host instead of reducing the batch on the card")
+    ends = times[b - 1::b]
+    steady = slice(MB_WARM, None)
+    first = tapped_out[gate[0]]
+    reduced = dec._get_reduce()(first)
+    r = {"frames_per_s": MB_MEASURED * b / (ends[-1] - ends[MB_WARM - 1]),
+         "batch_ms_median": 1e3 * statistics.median(
+             y - x for x, y in zip(ends[MB_WARM - 1:], ends[MB_WARM:])),
+         # host time of the filter's transform per batch (the H2D copy and
+         # the forward's launches) and of the decoder's chain (the reduce's
+         # launches, its one pull, which waits for the forward, and the
+         # per-frame host finish)
+         "filter_host_ms_median": 1e3 * statistics.median(filter_s[steady]),
+         "decoder_host_ms_median": 1e3 * statistics.median(decoder_s[steady]),
+         "d2h_bytes_per_batch_without_reduce": sum(
+             t.numel() * t.element_size() for t in first),
+         "d2h_bytes_per_batch_with_reduce": sum(
+             t.numel() * t.element_size() for t in reduced),
+         "launches": launches}
+    if name == "ssd_mobilenet":
+        n_above = reduced[3].cpu()
+        r["n_above_per_frame"] = {"min": int(n_above.min()),
+                                  "max": int(n_above.max())}
+        r["kept_per_frame"] = int(reduced[0].shape[1])
+        r["detections_per_frame_mean"] = float(np.mean(
+            [len(decoded[i][1]) for i in decoded]))
+    return r, tapped_out, decoded
+
+
+def zoo_gates(name: str, tapped_out: dict, decoded: dict) -> dict:
+    """The tapped card outputs decoded per frame on the host (frames-in=1,
+    the tensors pulled first) against the batched reduce on the card:
+    image_segment and pose_estimation against the line's own decoded
+    buffers; bounding_boxes, whose line caps the candidates at 256,
+    through the reduce again with the cap above the anchor count."""
+    dec, b = ZOO[name][1], MB_BATCH
+    batches = [tapped_out[k] for k in sorted(tapped_out)]
+    frames = []
+    for outs in batches:
+        host = [t.cpu().numpy() for t in outs]
+        frames += [[a[f:f + 1] for a in host] for f in range(b)]
+    host_dec = zoo_decode(dec, frames, 1)
+    if name == "ssd_mobilenet":
+        card = zoo_decode(f"{dec} option10={ZOO_NO_CAP}", batches, b)
+        capped = [decoded[i] for i in sorted(decoded)]
+        r = {"frames": len(host_dec),
+             "capped_frames_differing": sum(c != h for c, h in
+                                            zip(capped, host_dec))}
+    else:
+        card = [decoded[i] for i in sorted(decoded)]
+        r = {"frames": len(host_dec)}
+    if len(card) != len(host_dec) or card != host_dec:
+        bad = sum(c != h for c, h in zip(card, host_dec))
+        fail(f"zoo {name}: the reduce on the card and the host decode "
+             f"differ on {bad} of {len(host_dec)} frames")
+    r["equal"] = True
+    return r
+
+
+def phase_zoo(report: dict, dev: torch.device) -> dict:
+    print(f"zoo on {report['device']} (name, power limit)")
+    z = {}
+    for name, (module, dec) in ZOO.items():
+        r = {"model": zoo_model(name, dev)}
+        res, tapped_out, decoded = zoo_line(name)
+        r["line"] = res
+        print(f"zoo {name} line: {res['frames_per_s']:.1f} frames/s "
+              f"({MB_MEASURED} batches of {MB_BATCH} after {MB_WARM} warm-up; "
+              f"median batch {res['batch_ms_median']:.3f} ms; host per batch: "
+              f"filter {res['filter_host_ms_median']:.3f} ms, decoder "
+              f"{res['decoder_host_ms_median']:.3f} ms); device->host bytes "
+              f"per batch {res['d2h_bytes_per_batch_with_reduce']} with the "
+              f"reduce, {res['d2h_bytes_per_batch_without_reduce']} without; "
+              f"kernel launches {res['launches']} (this path runs no "
+              "hand-written kernel)")
+        if name == "ssd_mobilenet":
+            print(f"zoo {name} at the default cap: {res['n_above_per_frame']}"
+                  f" candidates above the threshold a frame, "
+                  f"{res['kept_per_frame']} kept for NMS, "
+                  f"{res['detections_per_frame_mean']:.2f} detections a "
+                  "frame after it")
+        r["gates"] = zoo_gates(name, tapped_out, decoded)
+        del tapped_out
+        print(f"zoo {name} gate: {r['gates']['frames']} frames decoded on the "
+              "host from the pulled outputs equal the batched reduce on the "
+              "card" + (f" at option10={ZOO_NO_CAP} ((box, class) lists and "
+                        "overlay bytes); at the line's cap of 256, "
+                        f"{r['gates']['capped_frames_differing']} frames "
+                        "differ from the host decode"
+                        if name == "ssd_mobilenet" else " (bytes)"))
+        r["latency_batch1"] = frame_latency(
+            f"zoo {name}", f"{module}:filter_model_u8", dec,
+            lambda buf: buf.tensors and buf.meta.keys() & {
+                "detections", "keypoints", "class_map"})
+        print(f"zoo {name} batch-1 push-to-decoded latency: p50 "
+              f"{r['latency_batch1']['p50_ms']:.3f} ms, p90 "
+              f"{r['latency_batch1']['p90_ms']:.3f} ms over {MB_P50_FRAMES} "
+              "frames")
+        z[name] = r
+        torch.cuda.empty_cache()
+    report["zoo"] = z
+    return z
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -2029,6 +2390,7 @@ def main() -> None:
     phase_mobilenet_lines(report)
     phase_video_line(report)
     cont = phase_continuous(report, dev)
+    phase_zoo(report, dev)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

@@ -9,8 +9,30 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
+import torch
+
 from ..core import Buffer, Caps, TensorsInfo
 from ..registry.subplugin import SubpluginKind, register
+
+
+def host_array(t) -> np.ndarray:
+    """A host tensor as numpy. numpy has no bfloat16: a CPU
+    ``torch.bfloat16`` tensor widens to float32, which is exact, so what a
+    decoder computes from it is what it computes from the bfloat16
+    values."""
+    if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
+        return t.float().numpy()
+    return np.asarray(t)
+
+
+def top_k(scores: torch.Tensor, k: int):
+    """The ``k`` largest of each row and their indices, largest first.
+    Equal scores keep index order, as ``lax.top_k`` does in
+    nnstreamer_tpu's reduces; ``torch.topk`` promises no order among ties
+    on the card, so this is a stable descending sort."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 class Decoder:

@@ -1,12 +1,12 @@
-"""Simple decoders: direct_video, image_labeling, octet_stream.
+"""Simple decoders: direct_video, image_labeling, octet_stream,
+tensor_region.
 
 Reference analogs (ext/nnstreamer/tensor_decoder/):
   * ``tensordec-directvideo.c`` — tensor → video/x-raw;
   * ``tensordec-imagelabel.c`` — argmax + label file → text;
-  * ``tensordec-octetstream.c`` — tensors → opaque bytes.
-
-``tensor_region`` (``tensordec-tensor_region.c``) is not in this package
-yet: it needs the SSD box decoding of ``bbox_classic``.
+  * ``tensordec-octetstream.c`` — tensors → opaque bytes;
+  * ``tensordec-tensor_region.c`` — detections → crop regions consumed by
+    tensor_crop (not in this package yet).
 """
 from __future__ import annotations
 
@@ -15,18 +15,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import Buffer, Caps, TensorsInfo
-from ..core.caps import OCTET_MIME, TEXT_MIME, VIDEO_MIME
-from .base import Decoder, register_decoder
-
-
-def _host_array(t) -> np.ndarray:
-    """A host tensor as numpy. numpy has no bfloat16: a CPU
-    ``torch.bfloat16`` tensor widens to float32, which is exact, so an
-    argmax over it is the bfloat16 argmax."""
-    if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
-        return t.float().numpy()
-    return np.asarray(t)
+from ..core import Buffer, Caps, TensorFormat, TensorsInfo
+from ..core.caps import OCTET_MIME, TEXT_MIME, VIDEO_MIME, caps_from_tensors_info
+from .base import Decoder, host_array, register_decoder, top_k
 
 
 def _raw_bytes(t) -> bytes:
@@ -115,7 +106,7 @@ class ImageLabeling(Decoder):
         return self.labels[i] if i < len(self.labels) else str(i)
 
     def decode(self, buf: Buffer, in_info: TensorsInfo) -> Optional[Buffer]:
-        scores = _host_array(buf.tensors[0])
+        scores = host_array(buf.tensors[0])
         # batched input (aggregator upstream): one label per leading-dim
         # frame; the reference only ever sees batch=1. The leading axis is
         # a batch only when the remaining axes hold the class scores — a
@@ -174,3 +165,103 @@ class OctetStream(Decoder):
     def decode(self, buf: Buffer, in_info: TensorsInfo) -> Optional[Buffer]:
         raw = b"".join(_raw_bytes(t) for t in buf.tensors)
         return Buffer([np.frombuffer(raw, np.uint8)])
+
+
+@register_decoder
+class TensorRegion(Decoder):
+    """Detections → (N,4) crop regions [x,y,w,h] for tensor_crop.
+
+    Two input modes, dispatched on option3:
+
+    * **simplified** (no option3): boxes (N,4) normalized
+      [ymin,xmin,ymax,xmax] + scores (N,) or (N,classes); option1 =
+      number of regions (default 1), option2 = "W:H" frame size to
+      denormalize to (default 1:1 = keep normalized). Output int32.
+    * **mobilenet-ssd** (option3 = box-priors file, the reference's
+      semantics — ``tensordec-tensor_region.c``): raw SSD heads
+      [boxes (N,4) center offsets; class logits (N,C)]; option1 = number
+      of regions, option2 = labels file (present for reference-CLI
+      compatibility; the decode itself only needs the logits), option4 =
+      input video size "W:H" (default 300:300). Decode matches the
+      reference exactly: first above-threshold class (:436-476 ``break``),
+      +1-inclusive integer NMS at IoU 0.5, zero-padded uint32 output of
+      exactly ``num`` regions (nnstreamer_tpu's copy is proven byte for
+      byte against the reference's fixture corpus in
+      tests/test_reference_parity.py).
+    """
+
+    MODE = "tensor_region"
+
+    def init(self, options):
+        super().init(options)
+        self.num = int(self.option(1, "1"))
+        self.priors = None
+        priors = self.option(3)
+        if priors:
+            from .bbox_classic import load_priors_txt
+
+            self.priors = (np.load(priors).astype(np.float32).T
+                           if priors.endswith(".npy") else load_priors_txt(priors))
+            wh = self.option(4, "300:300").split(":")
+            self.in_width, self.in_height = int(wh[0]), int(wh[1])
+        else:
+            wh = self.option(2, "1:1").split(":")
+            self.frame_w, self.frame_h = int(wh[0]), int(wh[1])
+
+    def get_out_caps(self, in_info: TensorsInfo) -> Optional[Caps]:
+        return caps_from_tensors_info(TensorsInfo((), TensorFormat.FLEXIBLE))
+
+    def decode(self, buf: Buffer, in_info: TensorsInfo) -> Optional[Buffer]:
+        if self.priors is not None:
+            from . import bbox_classic as bc
+
+            dets = bc.parse_mobilenet_ssd(
+                host_array(buf.tensors[0]).reshape(-1, 4),
+                host_array(buf.tensors[1]),
+                self.priors, self.in_width, self.in_height,
+                class_select="first")
+            dets = bc.nms_classic(dets, 0.5)
+            out = np.zeros((self.num, 4), np.uint32)
+            for i, d in enumerate(dets[: self.num]):
+                out[i] = (d.x, d.y, d.width, d.height)
+            return Buffer([out])
+        boxes = host_array(buf.tensors[0]).reshape(-1, 4).astype(np.float32)
+        scores = host_array(buf.tensors[1]).astype(np.float32) if buf.num_tensors > 1 else None
+        if scores is not None:
+            if scores.ndim > 1:
+                scores = scores.max(axis=-1)
+            order = np.argsort(-scores.reshape(-1))[: self.num]
+        else:
+            order = np.arange(min(self.num, boxes.shape[0]))
+        return self._regions_from(boxes[order])
+
+    def _regions_from(self, sel: np.ndarray) -> Buffer:
+        ymin, xmin, ymax, xmax = sel[:, 0], sel[:, 1], sel[:, 2], sel[:, 3]
+        x = np.round(xmin * self.frame_w).astype(np.int32)
+        y = np.round(ymin * self.frame_h).astype(np.int32)
+        w = np.round((xmax - xmin) * self.frame_w).astype(np.int32)
+        h = np.round((ymax - ymin) * self.frame_h).astype(np.int32)
+        return Buffer([np.stack([x, y, w, h], axis=1)])
+
+    def make_reduce(self, in_info: TensorsInfo):
+        """Device stage for the SIMPLIFIED mode only: top-num selection
+        where the batch lies, (num, 4) rows per frame cross to the host.
+        The priors (reference byte-parity) mode never reduces."""
+        if self.priors is not None:
+            return None
+        num = self.num
+
+        def reduce(ts):
+            boxes = ts[0].reshape(ts[0].shape[0], -1, 4).float()
+            if len(ts) > 1:
+                s = ts[1].float()
+                s = s.reshape(boxes.shape[0], boxes.shape[1], -1).amax(-1)
+                _, idx = top_k(s, min(num, boxes.shape[1]))
+                sel = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+            else:
+                sel = boxes[:, :num]
+            return (sel,)
+        return reduce
+
+    def decode_reduced(self, arrays, in_info: TensorsInfo) -> Optional[Buffer]:
+        return self._regions_from(np.asarray(arrays[0]))

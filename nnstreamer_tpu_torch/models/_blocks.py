@@ -117,6 +117,29 @@ class ConvBnRelu(nn.Module):
         return F.relu6(x) if self.act else x
 
 
+class Conv(nn.Module):
+    """flax's ``nn.Conv`` as the zoo's heads use it: SAME padding, stride 1,
+    with a bias (lecun_normal kernel, zero bias)."""
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3)):
+        super().__init__()
+        kh, kw = kernel
+        self.weight = nn.Parameter(torch.empty(features, in_ch, kh, kw),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _, cin, kh, kw = self.weight.shape
+        lecun_normal_(self.weight, cin * kh * kw, gen)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (conv2d_same(x, self.weight, (1, 1), (1, 1))
+                + self.bias[:, None, None])
+
+
 class InvertedResidual(nn.Module):
     """MobileNet-v2 block: 1x1 expand (unless ``expand == 1``) → 3x3
     depthwise → 1x1 linear projection, plus the input when the stride is
@@ -137,6 +160,66 @@ class InvertedResidual(nn.Module):
         h = self.expand(x) if self.expand is not None else x
         h = self.project(self.dw(h))
         return h + x if self.residual else h
+
+
+def place_model(model: nn.Module, compute_dtype, device, seed: int,
+                params, convert) -> nn.Module:
+    """A zoo model on ``device`` (None = the card) in eval mode, weights in
+    the compute dtype: random from ``seed``, or ``params``, nnstreamer_tpu's
+    flax tree as numpy arrays, mapped by ``convert`` (models/convert.py).
+    Random weights follow flax's initializers (lecun_normal kernels, BN
+    scale ones, biases zeros), drawn in module order from a CPU
+    ``torch.Generator``, so the card and the CPU get the same weights."""
+    dev = resolve_device(device)
+    dtype = resolve_compute_dtype(compute_dtype, dev)
+    if params is None:
+        gen = torch.Generator().manual_seed(seed)
+        for m in model.modules():
+            if isinstance(m, (ConvBnRelu, Conv)):
+                m.reset_parameters(gen)
+            elif isinstance(m, nn.Linear):
+                lecun_normal_(m.weight, m.in_features, gen)
+                with torch.no_grad():
+                    m.bias.zero_()
+    else:
+        model.load_state_dict(convert(params, "cpu"))
+    model.to(device=dev, dtype=dtype, memory_format=torch.channels_last)
+    return model.eval()
+
+
+def image_input_shape(in_info, name: str) -> Tuple[int, int, int]:
+    """(B, H, W) of the one (B, H, W, 3) input a zoo model takes; raises
+    ValueError for anything else."""
+    specs = in_info.specs
+    if len(specs) != 1 or len(specs[0].shape) != 4 or specs[0].shape[3] != 3:
+        raise ValueError(f"{name} takes one (B, H, W, 3) tensor, got "
+                         f"{in_info.describe()}")
+    b, h, w, _ = specs[0].shape
+    return b, h, w
+
+
+class ServedModel:
+    """A zoo model as a filter callable: ``call(x)`` under inference mode;
+    a float32 build on the card runs without TF32 (``exact_float32``).
+    ``output_info`` is the shape rule caps negotiation uses instead of
+    running the model."""
+
+    def __init__(self, model: nn.Module, call=None, output_info=None):
+        self.model = model
+        self.dtype = next(model.parameters()).dtype
+        self.exact = self.dtype is torch.float32
+        self._call = call or model
+        self._info = output_info or model.output_info
+
+    def output_info(self, in_info):
+        return self._info(in_info)
+
+    def __call__(self, x: torch.Tensor):
+        with torch.inference_mode():
+            if self.exact and x.is_cuda:
+                with exact_float32():
+                    return self._call(x)
+            return self._call(x)
 
 
 @dataclass(frozen=True)

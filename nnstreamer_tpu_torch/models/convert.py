@@ -9,6 +9,10 @@ tensors on ``device``:
 * ``mobilenet_params_from_flax`` — the MobileNet-v2 flax tree as a state
   dict of models/mobilenet_v2.py's ``MobileNetV2``, with the kernels
   transposed to torch's layouts.
+* ``ssd_params_from_flax``, ``posenet_params_from_flax`` and
+  ``deeplab_params_from_flax`` — the zoo's flax trees as state dicts of
+  models/{ssd_mobilenet,posenet,deeplab}.py (the heads' ``nn.Conv``
+  layers carry a bias);
 * ``builtin_params_from_jax`` — the weights nnstreamer_tpu's
   ``builtin://matmul`` and ``builtin://mlp`` draw from ``jax.random``,
   as the ``weights`` of the torch backend's ``make_builtin``.
@@ -98,6 +102,46 @@ def _count_leaves(node) -> int:
     return 1
 
 
+def conv_params_from_flax(node: Dict[str, Any],
+                          device: Optional[Union[str, torch.device]] = None,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """One flax ``nn.Conv`` with a bias — kernel (kh, kw, in, out), bias
+    (out,) — as the state dict of models/_blocks.py's ``Conv``."""
+    device = resolve_device(device)
+    return {"weight": _tensor(np.transpose(np.asarray(node["kernel"]),
+                                           (3, 2, 0, 1)), device, dtype),
+            "bias": _tensor(node["bias"], device, dtype)}
+
+
+def _add(out: Dict[str, torch.Tensor], prefix: str,
+         part: Dict[str, torch.Tensor]) -> None:
+    for name, t in part.items():
+        out[f"{prefix}.{name}"] = t
+
+
+def _trunk_params(p: Dict[str, Any], n_blocks: int, device, dtype
+                  ) -> Dict[str, torch.Tensor]:
+    """The stem (ConvBnRelu_0) and InvertedResidual_0..n-1 of a zoo trunk
+    as ``stem.*`` and ``blocks.{i}.*``."""
+    out: Dict[str, torch.Tensor] = {}
+    _add(out, "stem", convbnrelu_params_from_flax(p["ConvBnRelu_0"], device,
+                                                  dtype))
+    for i in range(n_blocks):
+        _add(out, f"blocks.{i}", inverted_residual_params_from_flax(
+            p[f"InvertedResidual_{i}"], device, dtype))
+    return out
+
+
+def _check_leaves(p: Dict[str, Any], out: Dict[str, torch.Tensor],
+                  name: str) -> Dict[str, torch.Tensor]:
+    total = _count_leaves(p)
+    if len(out) != total:
+        raise KeyError(f"the flax tree has {total} leaves; the {name} "
+                       f"layout uses {len(out)}")
+    return out
+
+
 def mobilenet_params_from_flax(tree: Dict[str, Any],
                                device: Optional[Union[str, torch.device]] = None,
                                dtype: Optional[torch.dtype] = None
@@ -111,24 +155,74 @@ def mobilenet_params_from_flax(tree: Dict[str, Any],
     theirs. Raises KeyError when a leaf is missing or left over."""
     device = resolve_device(device)
     p = tree["params"] if "params" in tree else tree
-    out: Dict[str, torch.Tensor] = {}
-    for part, node in (("stem", p["ConvBnRelu_0"]), ("head", p["ConvBnRelu_1"])):
-        for name, t in convbnrelu_params_from_flax(node, device, dtype).items():
-            out[f"{part}.{name}"] = t
-    i = 0
-    while f"InvertedResidual_{i}" in p:
-        for name, t in inverted_residual_params_from_flax(
-                p[f"InvertedResidual_{i}"], device, dtype).items():
-            out[f"blocks.{i}.{name}"] = t
-        i += 1
+    n_blocks = sum(k.startswith("InvertedResidual_") for k in p)
+    out = _trunk_params(p, n_blocks, device, dtype)
+    _add(out, "head", convbnrelu_params_from_flax(p["ConvBnRelu_1"], device,
+                                                  dtype))
     dense = p["Dense_0"]
     out["fc.weight"] = _tensor(np.asarray(dense["kernel"]).T, device, dtype)
     out["fc.bias"] = _tensor(dense["bias"], device, dtype)
-    total = _count_leaves(p)
-    if len(out) != total:
-        raise KeyError(f"the flax tree has {total} leaves; the MobileNet-v2 "
-                       f"layout uses {len(out)}")
-    return out
+    return _check_leaves(p, out, "MobileNet-v2")
+
+
+def ssd_params_from_flax(tree: Dict[str, Any],
+                         device: Optional[Union[str, torch.device]] = None,
+                         dtype: Optional[torch.dtype] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """nnstreamer_tpu's ``build_ssd_mobilenet`` parameters, ``{"params":
+    {Backbone_0: {ConvBnRelu_0 (stem), InvertedResidual_0..9,
+    ConvBnRelu_1 (the stride-64 layer)}, Conv_0..7}}``: Conv_2i is the
+    location head and Conv_2i+1 the class head of feature map i. Raises
+    KeyError when a leaf is missing or left over."""
+    device = resolve_device(device)
+    p = tree["params"] if "params" in tree else tree
+    bb = p["Backbone_0"]
+    out = _trunk_params(bb, 10, device, dtype)
+    _add(out, "extra", convbnrelu_params_from_flax(bb["ConvBnRelu_1"],
+                                                   device, dtype))
+    for i in range(4):
+        _add(out, f"loc_heads.{i}", conv_params_from_flax(
+            p[f"Conv_{2 * i}"], device, dtype))
+        _add(out, f"conf_heads.{i}", conv_params_from_flax(
+            p[f"Conv_{2 * i + 1}"], device, dtype))
+    return _check_leaves(p, out, "SSD-MobileNet")
+
+
+def posenet_params_from_flax(tree: Dict[str, Any],
+                             device: Optional[Union[str, torch.device]] = None,
+                             dtype: Optional[torch.dtype] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """nnstreamer_tpu's ``build_posenet`` parameters, ``{"params":
+    {ConvBnRelu_0 (stem), InvertedResidual_0..6, Conv_0 (the heatmap
+    head)}}``."""
+    device = resolve_device(device)
+    p = tree["params"] if "params" in tree else tree
+    out = _trunk_params(p, 7, device, dtype)
+    _add(out, "head", conv_params_from_flax(p["Conv_0"], device, dtype))
+    return _check_leaves(p, out, "PoseNet")
+
+
+def deeplab_params_from_flax(tree: Dict[str, Any],
+                             device: Optional[Union[str, torch.device]] = None,
+                             dtype: Optional[torch.dtype] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """nnstreamer_tpu's ``build_deeplab`` parameters, ``{"params":
+    {ConvBnRelu_0 (stem), InvertedResidual_0..8, ConvBnRelu_1..3 (the
+    ASPP branches: 1×1, dilated 6, dilated 12), ConvBnRelu_4 (the
+    image-pooling branch), ConvBnRelu_5 (the fuse), Conv_0 (the
+    classifier)}}``."""
+    device = resolve_device(device)
+    p = tree["params"] if "params" in tree else tree
+    out = _trunk_params(p, 9, device, dtype)
+    for i in range(3):
+        _add(out, f"aspp.{i}", convbnrelu_params_from_flax(
+            p[f"ConvBnRelu_{i + 1}"], device, dtype))
+    _add(out, "pool_proj", convbnrelu_params_from_flax(p["ConvBnRelu_4"],
+                                                       device, dtype))
+    _add(out, "fuse", convbnrelu_params_from_flax(p["ConvBnRelu_5"], device,
+                                                  dtype))
+    _add(out, "classifier", conv_params_from_flax(p["Conv_0"], device, dtype))
+    return _check_leaves(p, out, "DeepLab")
 
 
 def builtin_params_from_jax(name: str, arrays: Dict[str, Any],

@@ -30,15 +30,14 @@ import torch
 from torch import nn
 
 from ..core import DataType, TensorSpec, TensorsInfo
-from ..utils.hw_accel import resolve_device
 from .convert import mobilenet_params_from_flax
 from ._blocks import (
     ConvBnRelu,
     InvertedResidual,
-    exact_float32,
-    lecun_normal_,
+    ServedModel,
+    image_input_shape,
     make_u8_entry,
-    resolve_compute_dtype,
+    place_model,
 )
 
 # (expansion t, output channels c, repeats n, stride s) — the standard
@@ -79,16 +78,6 @@ class MobileNetV2(nn.Module):
         """The compute dtype: the one the parameters are held in."""
         return self.fc.weight.dtype
 
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        """flax's initializers: lecun_normal kernels, BN scale ones, BN
-        bias and Dense bias zeros."""
-        for m in self.modules():
-            if isinstance(m, ConvBnRelu):
-                m.reset_parameters(gen)
-        lecun_normal_(self.fc.weight, self.fc.weight.shape[1], gen)
-        with torch.no_grad():
-            self.fc.bias.zero_()
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a contiguous NHWC tensor permuted to NCHW is channels_last
         x = x.to(self.dtype).permute(0, 3, 1, 2)
@@ -98,6 +87,11 @@ class MobileNetV2(nn.Module):
         x = self.head(x).mean(dim=(2, 3))  # global average pool
         return self.fc(x).float()
 
+    def output_info(self, in_info: TensorsInfo) -> TensorsInfo:
+        b, _, _ = image_input_shape(in_info, "mobilenet_v2")
+        return TensorsInfo.of(TensorSpec((b, self.fc.out_features),
+                                         DataType.FLOAT32))
+
 
 def build_mobilenet_v2(num_classes: int = 1001, width_mult: float = 1.0,
                        compute_dtype: str = "auto", device=None, seed: int = 0,
@@ -106,40 +100,8 @@ def build_mobilenet_v2(num_classes: int = 1001, width_mult: float = 1.0,
     the compute dtype: random from ``seed`` (a CPU ``torch.Generator``, so
     the card and the CPU get the same weights), or ``params``, a flax tree
     of nnstreamer_tpu's ``build_mobilenet_v2`` as numpy arrays."""
-    dev = resolve_device(device)
-    dtype = resolve_compute_dtype(compute_dtype, dev)
-    model = MobileNetV2(num_classes, width_mult)
-    if params is None:
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-    else:
-        model.load_state_dict(mobilenet_params_from_flax(params, "cpu"))
-    model.to(device=dev, dtype=dtype, memory_format=torch.channels_last)
-    return model.eval()
-
-
-class _Served:
-    """The filter callable: logits for a (B, H, W, 3) batch; float32
-    builds run without TF32."""
-
-    def __init__(self, model: MobileNetV2, num_classes: int):
-        self.model, self.num_classes = model, num_classes
-        self.dtype = model.dtype
-        self.exact = model.dtype is torch.float32
-
-    def output_info(self, in_info: TensorsInfo) -> TensorsInfo:
-        specs = in_info.specs
-        if len(specs) != 1 or len(specs[0].shape) != 4 or specs[0].shape[3] != 3:
-            raise ValueError(f"mobilenet_v2 takes one (B, H, W, 3) tensor, "
-                             f"got {in_info.describe()}")
-        return TensorsInfo.of(TensorSpec((specs[0].shape[0], self.num_classes),
-                                         DataType.FLOAT32))
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            if self.exact and x.is_cuda:
-                with exact_float32():
-                    return self.model(x)
-            return self.model(x)
+    return place_model(MobileNetV2(num_classes, width_mult), compute_dtype,
+                       device, seed, params, mobilenet_params_from_flax)
 
 
 @dataclass(frozen=True)
@@ -155,11 +117,10 @@ class _FilterEntry:
     params: Optional[Dict[str, Any]] = field(default=None, compare=False,
                                              repr=False)
 
-    def make(self, device=None) -> _Served:
-        model = build_mobilenet_v2(self.num_classes, self.width_mult,
-                                   self.compute_dtype, device, self.seed,
-                                   self.params)
-        return _Served(model, self.num_classes)
+    def make(self, device=None) -> ServedModel:
+        return ServedModel(build_mobilenet_v2(
+            self.num_classes, self.width_mult, self.compute_dtype, device,
+            self.seed, self.params))
 
 
 filter_model = _FilterEntry()

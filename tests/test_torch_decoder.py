@@ -53,8 +53,8 @@ def test_golden_bytes(name, mode, options, arrays):
 
 def test_registry_lists_the_modes():
     assert set(PORT_MODES) <= set(names(SubpluginKind.DECODER))
-    with pytest.raises(KeyError, match="no decoder subplugin 'bounding_boxes'"):
-        get(SubpluginKind.DECODER, "bounding_boxes")
+    with pytest.raises(KeyError, match="no decoder subplugin 'python3'"):
+        get(SubpluginKind.DECODER, "python3")
 
 
 def _run(pkg: str, dims: str, types: str, dec: str, bufs):

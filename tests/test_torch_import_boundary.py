@@ -73,6 +73,14 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.serving.lm_engine",
     "nnstreamer_tpu_torch.serving.speculative",
     "nnstreamer_tpu_torch.elements.serving",
+    "nnstreamer_tpu_torch.ops.nms",
+    "nnstreamer_tpu_torch.decoders.font",
+    "nnstreamer_tpu_torch.decoders.bbox_classic",
+    "nnstreamer_tpu_torch.decoders.bounding_boxes",
+    "nnstreamer_tpu_torch.decoders.segment_pose",
+    "nnstreamer_tpu_torch.models.ssd_mobilenet",
+    "nnstreamer_tpu_torch.models.posenet",
+    "nnstreamer_tpu_torch.models.deeplab",
 ]
 
 
@@ -101,6 +109,50 @@ assert get(SubpluginKind.DECODER, "image_labeling").MODE == "image_labeling"
 for mode in ("flexbuf", "protobuf", "flatbuf"):
     assert get(SubpluginKind.DECODER, mode).MODE == mode
     assert get(SubpluginKind.CONVERTER, mode).NAME == mode
+for mode in ("bounding_boxes", "pose_estimation", "image_segment",
+             "tensor_region", "font"):
+    assert get(SubpluginKind.DECODER, mode).MODE == mode
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_zoo_line_constructs_with_jax_blocked():
+    """The SSD line's decoder and filter entry construct, and the decoder
+    decodes a CPU batch through its reduce, with no JAX to import."""
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+import numpy as np
+import torch
+from nnstreamer_tpu_torch.core import Buffer
+from nnstreamer_tpu_torch.runtime.parse import parse_launch
+from nnstreamer_tpu_torch.models import ssd_mobilenet
+pipe = parse_launch(
+    "appsrc name=in caps=other/tensors,format=static,num_tensors=2,"
+    "dimensions=4:255:2.91:255:2,types=float32,float32 "
+    "! tensor_decoder mode=bounding_boxes option1=mobilenet-ssd-postprocess "
+    "option3=,30 option4=64:64 frames-in=2 ! tensor_sink name=out")
+got = []
+pipe.get("out").connect(got.append)
+pipe.play()
+g = torch.Generator().manual_seed(0)
+boxes = torch.rand(2, 255, 4, generator=g).sort(-1).values
+pipe.get("in").push_buffer(Buffer([boxes, torch.rand(2, 255, 91, generator=g)]))
+pipe.get("in").end_of_stream()
+msg = pipe.wait(timeout=60)
+pipe.stop()
+assert msg.type.value == "eos", msg
+assert len(got) == 2 and got[0].tensors[0].shape == (64, 64, 4)
+served = ssd_mobilenet.filter_model_u8.make("cpu")
+assert served.dtype is torch.float32
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded
