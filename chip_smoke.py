@@ -124,6 +124,37 @@ phase fails:
     p50 of one frame through ``appsrc ! tensor_filter ! tensor_decoder
     ! tensor_sink``. This path runs no hand-written kernel.
 
+12. the observability plane — (a) phase 4's float32 filter line at
+    ``base`` (3 requests) with every hook on: the tracers ``proctime;
+    framerate;interlatency;queuelevel;chrometrace``, the profiler, the
+    quality taps on every buffer, the memory accountant and request
+    tracing; request 3 inside ``trace.torch_trace`` (its trace in a
+    temporary directory, deleted after it is read). Gates: the tokens
+    equal phase 4's; the launch counters read phase 4's counts; the trace
+    holds as many device events of each hand kernel as request 3 launched;
+    every element has a proctime row and a profiler series counting its
+    buffers; the chrome trace (chiprun_out/obs/) loads with one span per
+    element and buffer; every edge has a health cell without NaN or Inf;
+    the accountant's filter stage holds ``tree_nbytes`` of the model's
+    parameters; ``sample_devices`` reports cuda:0's total memory and live
+    bytes no smaller than the parameters. Each kernel's median device ms
+    in the trace is printed beside phase 3's. (b) phase 10e's two
+    ``tensor_serving`` pipelines (bf16 MobileNet, shared scheduler) with
+    the taps on every buffer and NNS_XFERCHECK's ledger on: the
+    ``serving:<name>`` series sampled every batch, each card reduce equal
+    to the host reduce of the same output pulled afterwards (counts and
+    histogram exact, moments within the CPU tests' float32 tolerance),
+    at most 1 KiB pulled a sample, the profiler's request series counting
+    every request. (c) ``tensor_src ! tensor_aggregator frames-out=64 !
+    queue ! tensor_filter model=...mobilenet_v2:filter_model_u8 !
+    tensor_fault nan-at-buffer=2 ! tensor_sink`` (bf16) with the taps on:
+    one ``quality`` flight event, at the sink's edge, from batch 2;
+    ``worst_score()`` is NONFINITE_SCORE; batches 0-1 carry no NaN. (d)
+    the LM line's tokens/s and the MobileNet host line's frames/s with
+    ``Pad.push``'s trace check removed, as shipped with every hook off,
+    and with every hook on (taps every 8th buffer), each state twice
+    (no limit; the LM line serves phase 4's requests three times a run).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -456,20 +487,23 @@ def check_launches(name: str, launches: dict, layers: int) -> None:
              f"steps for decode_attention)")
 
 
+def lm_filter_line(prompts, custom: str = "") -> str:
+    B, P = prompts[0].shape
+    extra = f" custom={custom}" if custom else ""
+    return ("appsrc name=in caps=other/tensors,format=static,"
+            f"dimensions={P}:{B},types=int32 "
+            "! tensor_filter framework=torch "
+            f"model=nnstreamer_tpu_torch.models.lm_serving:base{extra} name=f "
+            f"! tensor_sink name=out max-stored={len(prompts)}")
+
+
 def serve(custom: str, prompts) -> dict:
     """Drive the launch line on ``prompts``; return outputs, launches and
     times."""
     from nnstreamer_tpu_torch.core import MessageType
     from nnstreamer_tpu_torch.runtime.parse import parse_launch
 
-    B, P = prompts[0].shape
-    extra = f" custom={custom}" if custom else ""
-    pipe = parse_launch(
-        "appsrc name=in caps=other/tensors,format=static,"
-        f"dimensions={P}:{B},types=int32 "
-        "! tensor_filter framework=torch "
-        f"model=nnstreamer_tpu_torch.models.lm_serving:base{extra} name=f "
-        f"! tensor_sink name=out max-stored={len(prompts)}")
+    pipe = parse_launch(lm_filter_line(prompts, custom))
     outs, t_out = [], []
 
     def on_data(buf):
@@ -1782,18 +1816,25 @@ def cs_preempt_restore(eng, prompt, dev) -> dict:
             * held.element_size(), "byte_exact": True}
 
 
-def cs_tensor_serving(dev: torch.device) -> dict:
-    """(e): two pipelines sharing one scheduler, against tensor_filter."""
+TS_CAPS = ("appsrc name=in caps=other/tensors,format=static,"
+           "dimensions=3:224:224:1,types=uint8 ")
+
+
+def ts_frames() -> list:
+    rng = np.random.default_rng(7)
+    return [[rng.integers(0, 256, (1, 224, 224, 3)).astype(np.uint8)
+             for _ in range(TS_FRAMES)] for _ in range(2)]
+
+
+def ts_lockstep(key: str, frames: list) -> list:
+    """Two ``tensor_serving shared-key=<key>`` pipelines fed in lockstep
+    (frame k of both streams, then wait for both outputs); returns each
+    pipeline's output buffers."""
     from nnstreamer_tpu_torch.core import MessageType
     from nnstreamer_tpu_torch.runtime.parse import parse_launch
 
-    caps = ("appsrc name=in caps=other/tensors,format=static,"
-            "dimensions=3:224:224:1,types=uint8 ")
-    line = (caps + f"! tensor_serving framework=torch model={TS_MODEL} "
-            "shared-key=mnet bucket-sizes=1,2,4,8 ! tensor_sink name=out")
-    rng = np.random.default_rng(7)
-    frames = [[rng.integers(0, 256, (1, 224, 224, 3)).astype(np.uint8)
-               for _ in range(TS_FRAMES)] for _ in range(2)]
+    line = (TS_CAPS + f"! tensor_serving framework=torch model={TS_MODEL} "
+            f"shared-key={key} bucket-sizes=1,2,4,8 ! tensor_sink name=out")
     pipes = [parse_launch(line) for _ in range(2)]
     got = [[], []]
     for i, p in enumerate(pipes):
@@ -1817,8 +1858,18 @@ def cs_tensor_serving(dev: torch.device) -> dict:
     finally:
         for p in pipes:
             p.stop()
+    return got
+
+
+def cs_tensor_serving(dev: torch.device) -> dict:
+    """(e): two pipelines sharing one scheduler, against tensor_filter."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    frames = ts_frames()
+    got = ts_lockstep("mnet", frames)
     # the same frames one at a time through tensor_filter
-    ref = parse_launch(caps + f"! tensor_filter framework=torch "
+    ref = parse_launch(TS_CAPS + f"! tensor_filter framework=torch "
                        f"model={TS_MODEL} ! tensor_sink name=out")
     want = []
     ref.get("out").connect(want.append)
@@ -2362,6 +2413,400 @@ def phase_zoo(report: dict, dev: torch.device) -> dict:
     return z
 
 
+# phase 12: the observability plane over the LM and MobileNet lines
+OBS_TRACERS = ("proctime", "framerate", "interlatency", "queuelevel",
+               "chrometrace")
+OBS_DIR = ROOT / "chiprun_out" / "obs"
+# the two hand kernels' CUDA names (csrc/*.cu), matched by substring in
+# the profiler trace
+OBS_KERNELS = {"decode_attention": "decode_split_kernel",
+               "flash_attention": "flash_attention_kernel"}
+# the NaN line: batches of 64 frames through the MobileNet filter into
+# tensor_fault, which poisons 1/16 of each float tensor from batch 2 on
+OBS_NAN_BATCHES, OBS_NAN_AT = 4, 2
+# overhead states, each run twice in the order below (ABCCBA); "on" taps
+# at quality.start's default cadence; the LM line serves OBS_LM_ROUNDS
+# copies of phase 4's requests a run (tokens/s over requests 2..n)
+OBS_STATES = ("no_hook", "checks", "on", "on", "checks", "no_hook")
+OBS_SAMPLE_EVERY = 8
+OBS_LM_ROUNDS = 3
+
+
+def obs_hooks_on(sample_every: int, tracers=OBS_TRACERS) -> None:
+    """Every hook of the obs plane on: the tracers, the profiler, the
+    quality taps (one reduce every ``sample_every`` buffers per edge), the
+    memory accountant and request-scoped tracing."""
+    from nnstreamer_tpu_torch.obs import context, memory, profile, quality
+    from nnstreamer_tpu_torch.utils import trace
+
+    trace.install_tracers(list(tracers))
+    profile.start()
+    quality.start(sample_every=sample_every)
+    memory.start()
+    context.enable_tracing()
+
+
+def obs_hooks_off() -> None:
+    """Back to the one-global-check path; the recorded data is dropped."""
+    from nnstreamer_tpu_torch.obs import context, memory, profile, quality
+    from nnstreamer_tpu_torch.utils import trace
+
+    trace.uninstall_tracers()
+    for mod in (profile, quality, memory):
+        mod.stop()
+        mod.reset()
+    context.disable_tracing()
+    context.reset()
+
+
+def obs_wait(cond, what: str, timeout: float = 600.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"obs: timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def obs_f32_moments_ok(got, want, a: np.ndarray) -> bool:
+    """The CPU tests' float32 tolerance: sum within 1e-5 of the sum of
+    |v|, sum of squares within rtol 1e-5, min and max exact."""
+    fin = np.abs(a[np.isfinite(a)].astype(np.float64)).sum()
+    return (abs(got[0] - want[0]) <= 1e-5 * max(fin, 1e-30)
+            and abs(got[1] - want[1]) <= 1e-5 * max(abs(want[1]), 1e-30)
+            and got[2] == want[2] and got[3] == want[3])
+
+
+def obs_trace_kernels(path: str) -> dict:
+    """Device events of the two hand kernels in a torch.profiler chrome
+    trace: count and median ms each."""
+    doc = json.loads(Path(path).read_text())
+    durs = {k: [] for k in OBS_KERNELS}
+    n_kernel = 0
+    for e in doc.get("traceEvents", []):
+        if e.get("cat") != "kernel":
+            continue
+        n_kernel += 1
+        for k, sub in OBS_KERNELS.items():
+            if sub in e.get("name", ""):
+                durs[k].append(float(e["dur"]) / 1e3)
+    return {"device_kernel_events": n_kernel,
+            **{k: {"events": len(v),
+                   "median_ms": statistics.median(v) if v else None}
+               for k, v in durs.items()}}
+
+
+def obs_lm_line(prompts, want, phase3: dict) -> dict:
+    """(a) the LM filter line at base, f32, every hook on; request 3
+    inside trace.torch_trace."""
+    import inspect
+    import os
+    import shutil
+    import tempfile
+
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.obs import memory as obs_memory
+    from nnstreamer_tpu_torch.obs import profile as obs_profile
+    from nnstreamer_tpu_torch.obs import quality as obs_quality
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.utils import trace
+
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    for old in OBS_DIR.glob("nns_trace-*.json"):
+        old.unlink()
+    os.environ["NNS_TRACE_DIR"] = str(OBS_DIR)
+    obs_hooks_on(sample_every=1)
+    pipe = parse_launch(lm_filter_line(prompts))
+    outs, t_out = [], []
+
+    def on_data(buf):
+        torch.cuda.synchronize()
+        t_out.append(time.perf_counter())
+        outs.append(buf.tensors[0])
+
+    pipe.get("out").connect(on_data)
+    logdir = tempfile.mkdtemp(prefix="nns_torch_trace_")
+    reset_launches()
+    try:
+        pipe.play()
+        src = pipe.get("in")
+        for p in prompts[:-1]:
+            src.push_buffer(p)
+        obs_wait(lambda: len(outs) == REQUESTS - 1, "LM requests 1-2")
+        before = read_launches()
+        with trace.torch_trace(logdir) as prof:
+            src.push_buffer(prompts[-1])
+            obs_wait(lambda: len(outs) == REQUESTS, "LM request 3")
+        traced = {k: v - before[k] for k, v in read_launches().items()}
+        devices = obs_memory.sample_devices()
+        params = inspect.getclosurevars(
+            pipe.get("f").backend._fn).nonlocals["params"]
+        param_bytes = obs_memory.tree_nbytes(params)
+        src.end_of_stream()
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    launches = read_launches()
+    tracer_res = trace.trace_results()
+    prof_snap = obs_profile.snapshot()
+    cells = obs_quality.accountant().stages()
+    mem = obs_memory.accountant().stages()
+    chrome = [t for t in trace._tracers
+              if isinstance(t, trace.ChromeTraceTracer)]
+    chrome_path = chrome[0].save() if chrome else None
+    obs_hooks_off()
+    kern = obs_trace_kernels(prof.trace_path)
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    if msg.type is not MessageType.EOS:
+        fail(f"obs LM line: {msg}")
+    got = [o.cpu().numpy() for o in outs]
+    if len(got) != REQUESTS or any(not np.array_equal(a, b)
+                                   for a, b in zip(got, want)):
+        fail("obs LM line: tokens under every hook differ from phase 4's "
+             "float32 tokens")
+    check_launches("obs LM line", launches, base.cfg.layers)
+    for k, sub in OBS_KERNELS.items():
+        if not traced[k] or kern[k]["events"] != traced[k]:
+            fail(f"obs LM line: the profiler trace holds {kern[k]['events']} "
+                 f"'{sub}' device events for request 3, the launch counter "
+                 f"{traced[k]}")
+    elements = [n for n, el in pipe.elements.items()
+                if el not in pipe.sources]
+    proctime = tracer_res.get("proctime", {})
+    series = prof_snap["durations"].get("element", {})
+    for n in elements:
+        rows = (proctime.get(n, {}).get("buffers"),
+                series.get(f"{pipe.name}:{n}", {}).get("count"))
+        if rows != (REQUESTS, REQUESTS):
+            fail(f"obs LM line: element {n}: proctime buffers / profiler "
+                 f"count {rows}, expected {REQUESTS}")
+    if chrome_path is None:
+        fail("obs LM line: the chrometrace tracer wrote nothing")
+    spans = json.loads(Path(chrome_path).read_text())["traceEvents"]
+    if sorted(e["name"] for e in spans) != sorted(elements * REQUESTS):
+        fail(f"obs LM line: chrome trace spans "
+             f"{sorted(e['name'] for e in spans)}")
+    edges = {f"{pipe.name}:{n}" for n in elements}
+    if set(cells) != edges or any(
+            c["nan"] or c["inf"] or c["buffers"] != REQUESTS
+            for c in cells.values()):
+        fail(f"obs LM line: health cells {cells}")
+    stage = mem.get(f"{pipe.name}:f", {})
+    if stage.get("param_bytes") != param_bytes:
+        fail(f"obs LM line: accountant param_bytes "
+             f"{stage.get('param_bytes')}, tree_nbytes of the model "
+             f"{param_bytes}")
+    free, total = torch.cuda.mem_get_info(0)
+    dev0 = next((d for d in devices if d["device"] == "cuda:0"), None)
+    if (dev0 is None or dev0["budget_bytes"] != total
+            or dev0["bytes_in_use"] < param_bytes):
+        fail(f"obs LM line: sample_devices {devices}, card total {total}, "
+             f"param bytes {param_bytes}")
+    gen_tokens = 8 * STEPS
+    r = {"launches": launches, "request3_launches": traced,
+         "tokens_per_s_requests_1_2": gen_tokens / (t_out[1] - t_out[0]),
+         "trace": kern, "param_bytes": param_bytes, "memory_stage": stage,
+         "device": dev0, "proctime": proctime,
+         "interlatency": tracer_res.get("interlatency"),
+         "chrome_trace": chrome_path,
+         "health": {k: {f: c[f] for f in ("buffers", "elems", "nan", "inf",
+                                          "min", "max")}
+                    for k, c in cells.items()}}
+    for k in OBS_KERNELS:
+        p3 = phase3[k][str(torch.float32)]["ms"]
+        print(f"obs {k}: {kern[k]['events']} device events in request 3 "
+              f"(= launches), median {kern[k]['median_ms']:.6f} ms in the "
+              f"trace vs phase 3's {p3:.6f} ms")
+    print(f"obs LM line: tokens equal phase 4's under every hook; launches "
+          f"{launches}; param_bytes {param_bytes} (measured temp "
+          f"{stage.get('temp_bytes')} B); cuda:0 in use "
+          f"{dev0['bytes_in_use']} of {total} B")
+    return r
+
+
+def obs_serving_line() -> dict:
+    """(b) phase 10e's tensor_serving MobileNet line (bf16) with the taps
+    on: each sampled card reduce (batch outputs and the buffers into the
+    sinks) against the host reduce of the same output pulled afterwards;
+    the tap's transfers; the request series."""
+    from nnstreamer_tpu_torch.analysis import sanitizer as san
+    from nnstreamer_tpu_torch.obs import profile as obs_profile
+    from nnstreamer_tpu_torch.obs import quality as obs_quality
+
+    sampled = []
+    reduce_any = obs_quality._reduce_any
+
+    def capture(t):
+        r = reduce_any(t)
+        if r is not None and isinstance(t, torch.Tensor):
+            sampled.append((t, r))
+        return r
+
+    obs_hooks_on(sample_every=1, tracers=())
+    san.enable_xfercheck()
+    obs_quality._reduce_any = capture
+    try:
+        got = ts_lockstep("mnet-obs", ts_frames())
+    finally:
+        obs_quality._reduce_any = reduce_any
+    xfer = [row for row in san.xfer_transfers()
+            if row["stage"] == "quality:reduce"]
+    san.disable_xfercheck()
+    san.reset_xfercheck()
+    cells = obs_quality.accountant().stages()
+    reqs = {n: ws.snapshot() for n, ws in
+            obs_profile.default_profiler._requests.items()}
+    obs_hooks_off()
+
+    serving = {n: c for n, c in cells.items() if c["kind"] == "serving"}
+    batches = {b.meta["serving"]["batch_id"] for g in got for b in g}
+    if len(serving) != 1:
+        fail(f"obs serving: serving health cells {sorted(serving)}")
+    name, cell = next(iter(serving.items()))
+    # every batch output (the serving tap) and every output buffer (the
+    # pad tap into each sink) was reduced on the card
+    if cell["buffers"] != len(batches) or \
+            len(sampled) != len(batches) + 2 * TS_FRAMES:
+        fail(f"obs serving: {cell['buffers']} sampled batches of "
+             f"{len(batches)}, {len(sampled)} card reduces")
+    if any(not t.is_cuda for t, _ in sampled):
+        fail("obs serving: a sampled output was not on the card")
+    worst = 0.0
+    for t, (elems, ivec, fvec, counts) in sampled:
+        host = t.cpu().numpy()
+        w_elems, w_ivec, w_fvec, w_counts = obs_quality._reduce_np(host)
+        if (elems != w_elems or not np.array_equal(ivec, w_ivec)
+                or not np.array_equal(counts, w_counts)):
+            fail(f"obs serving: the card reduce of a {tuple(t.shape)} "
+                 f"{t.dtype} output differs from the host reduce: "
+                 f"{ivec} vs {w_ivec}")
+        if not obs_f32_moments_ok(fvec, w_fvec, host):
+            fail(f"obs serving: card moments {fvec} vs host {w_fvec}")
+        worst = max(worst, abs(fvec[0] - w_fvec[0]))
+    per_sample = [row["bytes"] / row["count"] for row in xfer]
+    if not per_sample or max(per_sample) > 1024:
+        fail(f"obs serving: the tap's device->host transfers {xfer}")
+    req = reqs.get(name, {})
+    if req.get("count") != 2 * TS_FRAMES or req.get("errors"):
+        fail(f"obs serving: request series {name}: {req}, expected "
+             f"{2 * TS_FRAMES} requests")
+    print(f"obs serving: {len(sampled)} outputs of {name} reduced on the "
+          f"card = the host reduce (counts, histogram exact; sum within "
+          f"{worst:.3e}); {max(per_sample, default=0):.0f} B pulled a "
+          f"sample; request "
+          f"series counts {req['count']}")
+    return {"series": name, "sampled": len(sampled),
+            "dtype": str(sampled[0][0].dtype),
+            "sum_max_abs_diff": worst, "d2h_bytes_per_sample": per_sample,
+            "requests": req, "cell": {f: cell[f] for f in (
+                "buffers", "elems", "nan", "inf", "min", "max")}}
+
+
+def obs_nan_line() -> dict:
+    """(c) NaN detection on the card: the MobileNet filter's bf16 line
+    into tensor_fault nan-at-buffer=2."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.obs import flight
+    from nnstreamer_tpu_torch.obs import quality as obs_quality
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    line = (MB_HEAD.format(n=OBS_NAN_BATCHES * MB_BATCH, b=MB_BATCH)
+            + MB_FILTER + f"! tensor_fault name=flt "
+            f"nan-at-buffer={OBS_NAN_AT} ! tensor_sink name=out "
+            f"max-stored={OBS_NAN_BATCHES}")
+    seq0 = max((e["seq"] for e in flight.dump()), default=-1)
+    obs_quality.start(sample_every=1)
+    pipe = parse_launch(line)
+    outs = []
+    pipe.get("out").connect(lambda b: outs.append(
+        b.as_numpy().tensors[0]))
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=300)
+    finally:
+        pipe.stop()
+    cells = obs_quality.accountant().stages()
+    worst = obs_quality.worst_score()
+    obs_hooks_off()
+    if msg.type is not MessageType.EOS or len(outs) != OBS_NAN_BATCHES:
+        fail(f"obs NaN line: {msg}, {len(outs)} batches")
+    edge = f"{pipe.name}:out"
+    events = [e for e in flight.dump(category="quality")
+              if e["seq"] > seq0 and e["name"] == "nonfinite"]
+    span = MB_BATCH * 1001 // 16
+    if [e["data"]["stage"] for e in events] != [edge] \
+            or events[0]["data"]["nan"] != span:
+        fail(f"obs NaN line: quality flight events {events}, expected one "
+             f"at {edge} with the {span} NaN of one poisoned batch")
+    if worst != obs_quality.NONFINITE_SCORE:
+        fail(f"obs NaN line: worst_score {worst}")
+    clean = [np.isfinite(np.asarray(o, np.float32)).all() for o in outs]
+    if clean != [i < OBS_NAN_AT for i in range(OBS_NAN_BATCHES)]:
+        fail(f"obs NaN line: finite batches {clean}")
+    if cells[f"{pipe.name}:flt"]["nan"] or cells[edge]["nan"] != \
+            span * (OBS_NAN_BATCHES - OBS_NAN_AT):
+        fail(f"obs NaN line: health cells {cells}")
+    print(f"obs NaN line: one quality/nonfinite event at {edge} "
+          f"({span} NaN, batch {OBS_NAN_AT}); batches 0-{OBS_NAN_AT - 1} "
+          f"finite; worst_score {worst}")
+    return {"edge": edge, "event": events[0]["data"], "worst_score": worst,
+            "nan_per_edge": {k: c["nan"] for k, c in cells.items()}}
+
+
+def obs_overhead(prompts) -> dict:
+    """(d) the LM filter line's tokens/s and the MobileNet host line's
+    frames/s with Pad.push's trace check removed (``no_hook``), as
+    shipped with every hook off (``checks``: one module-global check
+    each), and with every hook on (``on``: the five tracers, the
+    profiler, the taps at their default cadence, the accountant and
+    request tracing), in the order of OBS_STATES. No limit."""
+    from nnstreamer_tpu_torch.runtime import pad as pad_mod
+    from nnstreamer_tpu_torch.utils import trace
+
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    shipped = pad_mod.Pad.push
+
+    def push_no_hook(self, buf):
+        assert self.direction is pad_mod.PadDirection.SRC
+        peer = self.peer
+        if peer is None:
+            return
+        peer.element._chain_guarded(peer, buf)
+
+    out = {"lm_tokens_per_s": {}, "mobilenet_host_frames_per_s": {}}
+    for state in OBS_STATES:
+        if state == "no_hook":
+            pad_mod.Pad.push = push_no_hook
+        if state == "on":
+            obs_hooks_on(OBS_SAMPLE_EVERY, tracers=OBS_TRACERS[:-1])
+            trace.install_tracer(trace.ChromeTraceTracer(
+                path=str(OBS_DIR / "overhead_chrometrace.json")))
+        try:
+            lm = serve("", list(prompts) * OBS_LM_ROUNDS)
+            mb = mb_run_line("host", mb_lines()["host"])
+        finally:
+            pad_mod.Pad.push = shipped
+            if state == "on":
+                obs_hooks_off()
+        t = lm["t_out"]
+        tps = (len(t) - 1) * 8 * STEPS / (t[-1] - t[0])
+        out["lm_tokens_per_s"].setdefault(state, []).append(tps)
+        out["mobilenet_host_frames_per_s"].setdefault(state, []).append(
+            mb["frames_per_s"])
+        print(f"obs overhead {state}: LM {tps:.1f} tokens/s, MobileNet host "
+              f"line {mb['frames_per_s']:.1f} frames/s")
+    return out
+
+
+def phase_obs(report: dict, prompts, filter_outs, phase3: dict) -> None:
+    r = {"lm_line": obs_lm_line(prompts, filter_outs, phase3),
+         "serving_line": obs_serving_line(),
+         "nan_line": obs_nan_line(),
+         "overhead": obs_overhead(prompts)}
+    report["obs"] = r
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -2391,6 +2836,8 @@ def main() -> None:
     phase_video_line(report)
     cont = phase_continuous(report, dev)
     phase_zoo(report, dev)
+    phase_obs(report, prompts, filter_outs,
+              {"decode_attention": decode_t, "flash_attention": flash_t})
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

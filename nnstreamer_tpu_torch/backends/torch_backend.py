@@ -22,6 +22,11 @@ Device choice (``_select_device``): ``accelerator=cpu`` runs on the CPU;
 ``custom=device:N`` pins ``cuda:N``; otherwise ``cuda:0``. Without a card,
 opening fails unless the CPU was asked for — there is no quiet fallback.
 
+Memory accounting (``obs/memory.py``): ``measure_next_invoke()`` arms a
+measurement of the next invoke on the card, and ``memory_analysis()``
+returns it as a :class:`~..obs.memory.MeasuredMemory` — the reference's
+XLA query is static, this one is measured. On the CPU there is none.
+
 Shape inference: caps negotiation must not run the model (at the ``base``
 LM width one invoke is a whole 64-step generate). The served callable
 declares a shape rule instead — an ``output_info(in_info)`` attribute
@@ -42,6 +47,7 @@ from ..core import DataType, TensorsInfo
 from ..core.buffer import as_torch
 from ..core.tensors import TensorSpec
 from ..models.lm_serving import with_serve_knobs
+from ..obs.memory import MeasuredMemory, tree_nbytes
 from ..ops.transform_ops import canonicalize, computable
 from ..utils.hw_accel import device_for_accelerator
 from ..utils.log import logger
@@ -253,6 +259,9 @@ class TorchBackend(FilterBackend):
         self._device: Optional[torch.device] = None
         # the module:attr object after the serve knobs were applied
         self.model_entry: Any = None
+        # obs/memory.py: measure the next invoke on the card
+        self._mem_arm = False
+        self._mem_record: Optional[MeasuredMemory] = None
 
     def open(self, props: FilterProperties) -> None:
         super().open(props)
@@ -292,7 +301,39 @@ class TorchBackend(FilterBackend):
     def invoke(self, inputs: List[Any]) -> List[Any]:
         if self._fn is None:
             raise RuntimeError("torch backend: invoke before open")
+        if self._mem_arm:
+            self._mem_arm = False
+            return self._invoke_measured(inputs)
         xs = [as_torch(x).to(self._device) for x in inputs]
         with torch.inference_mode():
             out = self._fn(*xs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def measure_next_invoke(self) -> None:
+        """Measure the bytes of the next invoke (obs/memory.py)."""
+        self._mem_arm = True
+
+    def _invoke_measured(self, inputs: List[Any]) -> List[Any]:
+        """One invoke with the caching allocator's peak tracked around it
+        (the input upload included): temp = peak − bytes allocated
+        before. Nothing is measured on the CPU."""
+        dev = self._device
+        if dev.type != "cuda":
+            self._mem_record = None
+            return self.invoke(inputs)
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs = self.invoke(inputs)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        self._mem_record = MeasuredMemory(
+            temp=max(0, peak - before), output=tree_nbytes(outs),
+            argument=tree_nbytes([as_torch(x) for x in inputs]))
+        return outs
+
+    def memory_analysis(self, inputs) -> Optional[MeasuredMemory]:
+        """The record of the measured invoke (the filter calls this right
+        after it; ``inputs`` is the reference hook's signature). None on
+        the CPU."""
+        return self._mem_record

@@ -35,6 +35,7 @@ from __future__ import annotations
 import json
 import math
 import struct
+import sys as _sys
 from typing import List, Optional
 
 import numpy as np
@@ -218,7 +219,19 @@ def pack_tensors(buf: Buffer, extra_meta: Optional[dict] = None) -> memoryview:
                 + _NBYTES_NNZ.pack(nbytes, idx.size)))
             parts.append(idx.view(np.uint8))
             parts.append(vals.reshape(-1).view(np.uint8))
-    return np.concatenate(parts).data
+    frame = np.concatenate(parts).data
+    _note_wire_bytes("wire:encode", frame.nbytes)
+    return frame
+
+
+def _note_wire_bytes(stage: str, nbytes: int) -> None:
+    """NNS_XFERCHECK byte accounting for the codec choke point. A
+    sys.modules lookup, not an import: core/ must not import the
+    analysis package (cycle risk); one dict-get + attribute check when
+    the sanitizer is off."""
+    _san = _sys.modules.get("nnstreamer_tpu_torch.analysis.sanitizer")
+    if _san is not None and _san.XFER:
+        _san.note_transfer(stage, "host", nbytes)
 
 
 def _bview(b: bytes) -> np.ndarray:
@@ -317,4 +330,5 @@ def unpack_tensors(blob) -> Buffer:
     out.meta.update(meta)
     if specs:
         out.meta[SPARSE_META_KEY] = specs
+    _note_wire_bytes("wire:decode", off)
     return out

@@ -17,17 +17,23 @@ steady-state chain (§3.2) runs: validate → input-combination → invoke (time
   ``registry/models.py``; its ``framework`` entry feeds ``framework=auto``,
   and a ``builtin://`` model picks ``torch``.
 
+* memory accounting (``obs/memory.py``, while ``obs.memory.ACTIVE``): the
+  model's param footprint at backend open and the byte channels the
+  torch backend measures over the first invoke on the card, keyed by the
+  profiler's series name; an OOM-shaped invoke failure lands in the
+  flight recorder with this stage's name.
+
 Not in this package yet (nnstreamer_tpu has them): invoke-dynamic, suspend,
 hot model swap (is-updatable / reload), placement pins, layout and
-tensor-name properties, segment fusion and the memory accounting hooks.
+tensor-name properties and segment fusion.
 """
 from __future__ import annotations
 
-import threading
 from typing import List, Optional
 
 import torch
 
+from ..analysis.sanitizer import named_lock
 from ..backends.base import (
     Accelerator,
     FilterBackend,
@@ -47,6 +53,8 @@ from ..core import (
     clock_now,
     tensors_info_from_caps,
 )
+from ..obs import memory as obs_memory
+from ..obs import profile as obs_profile
 from ..registry.config import get_config
 from ..registry.elements import register_element
 from ..registry.subplugin import SubpluginKind, names as subplugin_names
@@ -152,7 +160,12 @@ class TensorFilter(TransformElement):
         self._throttle_delay_s = 0.0
         self._last_accept_ts = 0.0  # last accepted frame (QoS throttle gate)
         # THE invoke lock: backend open/close and invokes serialize on it
-        self._backend_lock = threading.Lock()
+        # (per-instance name — pipelines run many filters)
+        self._backend_lock = named_lock(
+            f"TensorFilter._backend_lock:{self.name}")
+        # memory accounting (obs/memory.py): armed at backend open while
+        # accounting is on, consumed by the first invoke
+        self._mem_pending = False
 
     SUBPLUGIN_KIND = SubpluginKind.FILTER  # read-only sub-plugins prop
 
@@ -238,6 +251,31 @@ class TensorFilter(TransformElement):
             self._detect_framework(model, hint), fprops,
             self.props["shared_tensor_filter_key"]
         )
+        if obs_memory.ACTIVE:
+            self._record_memory_static()
+
+    def _record_memory_static(self) -> None:
+        """Byte estimate for this filter as a singleton stage: the
+        model's param footprint now, the measured channels of the first
+        invoke (``_mem_pending``). Names match the profiler series so
+        profile artifacts line up."""
+        nb = obs_memory.backend_param_nbytes(self.backend)
+        obs_memory.record_stage(obs_profile.series_name(self), "filter",
+                                param_bytes=nb)
+        if self.props["model"]:
+            obs_memory.record_model_params(self.props["model"], nb)
+        arm = getattr(self.backend, "measure_next_invoke", None)
+        if arm is not None:
+            arm()
+        self._mem_pending = True
+
+    def _record_memory_compiled(self, inputs) -> None:
+        analyze = getattr(self.backend, "memory_analysis", None)
+        compiled = analyze(inputs) if analyze is not None else None
+        if compiled is not None:
+            obs_memory.record_compiled(
+                obs_profile.series_name(self), "filter", compiled,
+                param_bytes=obs_memory.backend_param_nbytes(self.backend))
 
     def _release_backend(self) -> None:
         if self.backend is not None:
@@ -366,8 +404,25 @@ class TensorFilter(TransformElement):
             if backend is None:
                 raise ElementError(f"{self.describe()}: backend not open")
             t0 = clock_now()
-            outputs = backend.invoke(model_inputs)
+            try:
+                outputs = backend.invoke(model_inputs)
+            except Exception as e:
+                # an OOM-shaped failure (torch.cuda.OutOfMemoryError)
+                # lands in the flight ring with THIS stage's name before
+                # the error path loses context (the canonical series
+                # name, so the event joins the stage's estimate)
+                if obs_memory.looks_like_oom(e):
+                    pipe = getattr(self, "pipeline", None)
+                    obs_memory.record_alloc_failure(
+                        obs_profile.series_name(self), e,
+                        pipeline=pipe.name if pipe is not None else None)
+                raise
             t1 = clock_now()
+            record_mem = obs_memory.ACTIVE and self._mem_pending
+            if record_mem:
+                self._mem_pending = False
+        if record_mem:
+            self._record_memory_compiled(model_inputs)
         # dispatch channel gets ONLY the host-side call time, even on
         # sampled frames — waiting time goes to the device channel
         self.stats.record(t1 - t0)

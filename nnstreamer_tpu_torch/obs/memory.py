@@ -1,33 +1,54 @@
-"""Device-memory accounting for the serving plane (L7).
+"""Device-memory accounting plane: per-stage estimates + live bytes (L7).
 
-The part of nnstreamer_tpu's ``obs/memory.py`` that the serving engines
-and schedulers call:
+The port of nnstreamer_tpu's ``obs/memory.py``, the byte-side twin of
+:mod:`.profile`:
 
-* :func:`tree_nbytes` — bytes of a parameter dict or KV cache (nested
-  dicts, lists and tuples of torch tensors or numpy arrays);
-* :func:`track_serving` — serving byte sources (the continuous LM engines'
-  slot caches and page pools, admission guards) register weakly; anything
-  with ``memory_bytes() -> dict`` qualifies;
-* :class:`AdmissionGuard` — the schedulers' projected-bytes gate: a
-  request whose reservation would cross ``watermark × budget`` is shed
-  with a typed ``MemoryPressureError`` at submit time instead of running
-  the card out of memory mid-batch;
-* :func:`sample_devices` — live bytes per CUDA device from
-  ``torch.cuda.memory_stats`` (allocated bytes) and ``torch.cuda.
-  mem_get_info`` (the card's total, the budget), with per-device
-  high-water marks and ``memory`` flight events on watermark crossings;
-* :func:`snapshot` and the ``nns_memory_{device,device_peak,
-  device_used_fraction,serving}_bytes`` gauges they feed.
+* **per-stage estimates** — a ``tensor_filter`` stage reports its
+  model's **param footprint** (tensor bytes reachable from the model
+  callable: closures, ``functools.partial`` arguments, containers,
+  ``nn.Module`` parameters and buffers) when it opens, and the byte
+  channels of its first invoke (:func:`record_compiled`). The reference
+  reads those channels from XLA's static ``compiled.memory_analysis()``;
+  torch has no such query, so the torch backend *measures* them over the
+  first invoke on the card (:class:`MeasuredMemory`: temp bytes are the
+  caching allocator's peak minus the bytes allocated before the invoke,
+  output and argument bytes the tensors' sizes, generated code 0) and
+  reports nothing on the CPU. Estimates land in the
+  :class:`MemoryAccountant` keyed by the same
+  ``<pipeline>:<canonical-stage>`` series names the profiler uses, so
+  ``ProfileArtifact.capture`` persists them under a ``memory`` section of
+  the SAME (topology, caps, model-version) key — merge semantics are
+  **max-watermark** per field (a footprint is a high-water mark, not a
+  sum).
 
-Not in this package yet: the per-stage static estimates, the
-``MemoryAccountant``, queue occupancy bytes, the calibration windows and
-the ``obs top`` section, which come with the profiler and the placement
-planner.
+* **live accounting** — :func:`sample_devices` reads per-device live
+  bytes from ``torch.cuda.memory_stats`` (allocated bytes) and the
+  card's total from ``torch.cuda.mem_get_info`` (the budget), tracks
+  per-device watermarks, and records ``memory`` flight events on
+  watermark crossings; queue occupancy bytes are derived at scrape time
+  from ``QueueElement`` depth × the negotiated caps frame size; serving
+  KV/batch state registers via :func:`track_serving` (the continuous LM
+  engines' slot caches and page pools). Everything renders as
+  ``nns_memory_*`` gauges, as :func:`snapshot` JSON, and as the MEMORY
+  section of ``obs top`` (:func:`render_section`).
+
+* **admission** — :class:`AdmissionGuard` gives the serving schedulers
+  a projected-bytes gate: a request whose tensors would push tracked
+  serving bytes past the watermark is shed with a typed
+  ``MemoryPressureError`` at submit time instead of running the card out
+  of memory mid-batch.
+
+Cost contract: with accounting off every hook is ONE module-global check
+(:data:`ACTIVE`); the first-invoke measurement runs only while
+accounting is on, once per backend open, never on the steady-state
+invoke path.
 """
 from __future__ import annotations
 
+import os
+import threading
 import weakref
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,8 +57,133 @@ from ..analysis.sanitizer import named_lock
 from . import flight as obs_flight
 from . import metrics as obs_metrics
 
+# module-global fast path: the filter-open/invoke hooks check this and
+# only this when accounting is off
+ACTIVE = False
+
+#: env var naming a process-wide device byte budget (bytes), used where
+#: the device reports no total; unset = no budget, used-fraction reads
+#: 0.0 and watermark events never fire
+BUDGET_ENV = "NNS_HBM_BUDGET"
+
 #: fraction of the budget at which a ``memory`` flight event fires
 DEFAULT_WATERMARK = 0.9
+
+# static-estimate byte channels, in artifact/gauge order
+FIELDS = ("temp_bytes", "output_bytes", "argument_bytes",
+          "generated_code_bytes", "param_bytes")
+
+
+# ---------------------------------------------------------------------------
+# byte extraction helpers
+# ---------------------------------------------------------------------------
+
+class MeasuredMemory:
+    """The byte channels of one invoke, measured on the card (the torch
+    backend's ``memory_analysis``): the attribute names of XLA's
+    ``memory_analysis()`` record, so :func:`compiled_bytes` reads either.
+    Measured, not static: ``temp_size_in_bytes`` is the caching
+    allocator's peak during the invoke minus the bytes allocated before
+    it (outputs included), ``output_size_in_bytes`` and
+    ``argument_size_in_bytes`` the tensors' sizes, and
+    ``generated_code_size_in_bytes`` 0 (eager torch generates none)."""
+
+    def __init__(self, temp: int, output: int, argument: int,
+                 generated_code: int = 0):
+        self.temp_size_in_bytes = int(temp)
+        self.output_size_in_bytes = int(output)
+        self.argument_size_in_bytes = int(argument)
+        self.generated_code_size_in_bytes = int(generated_code)
+
+    def memory_analysis(self) -> "MeasuredMemory":
+        return self
+
+
+def compiled_bytes(compiled) -> Optional[dict]:
+    """The byte channels of a stage's ``memory_analysis()`` record (a
+    :class:`MeasuredMemory` in the port): temp scratch, outputs,
+    arguments, and generated code. None when there is no record (the
+    CPU)."""
+    try:
+        ma = compiled.memory_analysis()
+    except Exception:  # noqa: BLE001 - no record for this stage
+        return None
+    if ma is None:
+        return None
+    out = {
+        "temp_bytes": int(getattr(ma, "temp_size_in_bytes", 0) or 0),
+        "output_bytes": int(getattr(ma, "output_size_in_bytes", 0) or 0),
+        "argument_bytes": int(getattr(ma, "argument_size_in_bytes", 0) or 0),
+        "generated_code_bytes": int(
+            getattr(ma, "generated_code_size_in_bytes", 0) or 0),
+    }
+    return out
+
+
+def callable_param_nbytes(fn, max_objects: int = 4096) -> int:
+    """Sum of tensor/array bytes reachable from ``fn`` — the model's
+    parameter footprint for callables that close over their weights
+    (``lm_serving`` entries' ``serve`` closures, builtin models). Bounded
+    BFS over closure cells, ``functools.partial`` args, container values
+    and — where the port's served models are objects rather than
+    closures — bound methods' ``__self__``, ``nn.Module`` parameters and
+    buffers and callable instances' attributes; arrays are recognized by
+    an ``nbytes`` attribute and deduplicated by id so shared leaves count
+    once."""
+    import functools
+
+    seen: set = set()
+    total = 0
+    stack = [fn]
+    while stack and len(seen) < max_objects:
+        obj = stack.pop()
+        if id(obj) in seen or obj is None:
+            continue
+        seen.add(id(obj))
+        nbytes = getattr(obj, "nbytes", None)
+        if isinstance(nbytes, int) and hasattr(obj, "dtype"):
+            total += nbytes
+            continue
+        if isinstance(obj, torch.nn.Module):
+            stack.extend(obj.parameters())
+            stack.extend(obj.buffers())
+        elif isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif isinstance(obj, (list, tuple, set, frozenset)):
+            stack.extend(obj)
+        elif isinstance(obj, functools.partial):
+            stack.append(obj.func)
+            stack.extend(obj.args)
+            stack.extend(obj.keywords.values())
+        elif callable(obj):
+            closure = getattr(obj, "__closure__", None)
+            for cell in closure or ():
+                try:
+                    stack.append(cell.cell_contents)
+                except ValueError:  # empty cell
+                    continue
+            owner = getattr(obj, "__self__", None)
+            if owner is not None and not isinstance(owner, type):
+                stack.append(owner)
+            if not isinstance(obj, type) and closure is None:
+                attrs = getattr(obj, "__dict__", None)
+                if isinstance(attrs, dict):
+                    stack.extend(attrs.values())
+    return total
+
+
+def backend_param_nbytes(backend) -> int:
+    """A filter backend's model parameter footprint: an explicit
+    ``params`` pytree when the backend carries one, else the closure
+    walk over its model callable (the torch backend's ``_fn``)."""
+    if backend is None:
+        return 0
+    params = getattr(backend, "params", None)
+    if params is not None:
+        n = tree_nbytes(params)
+        if n:
+            return n
+    return callable_param_nbytes(getattr(backend, "_fn", None))
 
 
 def tree_nbytes(tree) -> int:
@@ -54,16 +200,176 @@ def tree_nbytes(tree) -> int:
     return nbytes if isinstance(nbytes, int) else 0
 
 
+def caps_frame_nbytes(caps) -> int:
+    """Bytes of ONE negotiated frame: sum over the caps' static tensor
+    specs of prod(shape) × dtype size. 0 for flexible/unknown caps (the
+    queue-occupancy estimate then reports depth only)."""
+    if caps is None:
+        return 0
+    try:
+        from ..core import TensorFormat, tensors_info_from_caps
+
+        info = tensors_info_from_caps(caps)
+        if info.format is not TensorFormat.STATIC:
+            return 0
+        total = 0
+        for spec in info.specs:
+            n = 1
+            for d in spec.shape:
+                n *= int(d)
+            total += n * spec.dtype.itemsize
+        return total
+    except Exception:  # noqa: BLE001 - media caps, partial negotiation
+        return 0
+
+
+# ---------------------------------------------------------------------------
+# the accountant (static per-stage estimates)
+# ---------------------------------------------------------------------------
+
+class MemoryAccountant:
+    """Process-wide static-estimate store. Entries are keyed like the
+    profiler's duration series (``<pipeline>:<canonical-stage>`` for
+    stages, the model URI for registry-slot footprints) and every byte
+    field keeps the MAXIMUM ever recorded — a footprint is a watermark,
+    so re-traces, restarts, and replica merges take the high-water
+    reading, never a sum."""
+
+    def __init__(self):
+        self._lock = named_lock("MemoryAccountant._lock")
+        # {name: {"kind": str, <FIELDS>: int, "total_bytes": int}}
+        self._stages: Dict[str, dict] = {}   # guarded-by: _lock
+        self._models: Dict[str, int] = {}    # guarded-by: _lock
+
+    def record_stage(self, name: str, kind: str, **bytes_fields) -> None:
+        with self._lock:
+            cell = self._stages.get(name)
+            if cell is None:
+                cell = self._stages[name] = {"kind": kind}
+                for f in FIELDS:
+                    cell[f] = 0
+            for f in FIELDS:
+                v = int(bytes_fields.get(f, 0) or 0)
+                if v > cell[f]:
+                    cell[f] = v
+            cell["total_bytes"] = sum(cell[f] for f in FIELDS)
+
+    def record_model(self, name: str, param_bytes: int) -> None:
+        """Model-URI param footprint (backend open reports here):
+        max-watermark like stages."""
+        with self._lock:
+            if param_bytes > self._models.get(name, 0):
+                self._models[name] = int(param_bytes)
+
+    def stage(self, name: str) -> Optional[dict]:
+        with self._lock:
+            cell = self._stages.get(name)
+            return dict(cell) if cell is not None else None
+
+    def stages(self, prefix: str = "") -> Dict[str, dict]:
+        """Stage entries, optionally restricted to one pipeline's prefix
+        (``ProfileArtifact.capture`` strips it, same as durations)."""
+        with self._lock:
+            return {name: dict(cell) for name, cell in self._stages.items()
+                    if name.startswith(prefix)}
+
+    def models(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._models)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._stages.clear()
+            self._models.clear()
+
+
+default_accountant = MemoryAccountant()
+
+
+def accountant() -> MemoryAccountant:
+    return default_accountant
+
+
+# -- hot call sites (each caller checks ACTIVE first) -------------------------
+
+def record_compiled(name: str, kind: str, compiled,
+                    param_bytes: int = 0) -> None:
+    """Record a stage's estimate from its ``memory_analysis()`` record
+    (the torch backend's :class:`MeasuredMemory`)."""
+    fields = compiled_bytes(compiled) or {}
+    fields["param_bytes"] = param_bytes
+    default_accountant.record_stage(name, kind, **fields)
+
+
+def record_stage(name: str, kind: str, **bytes_fields) -> None:
+    default_accountant.record_stage(name, kind, **bytes_fields)
+
+
+def record_model_params(name: str, param_bytes: int) -> None:
+    default_accountant.record_model(name, param_bytes)
+
+
+def record_alloc_failure(stage: str, error: BaseException,
+                         pipeline: Optional[str] = None) -> None:
+    """An allocation/OOM-shaped failure with the owning stage's name —
+    the flight-recorder breadcrumb a postmortem needs (always recorded,
+    like every flight event; the caller re-raises)."""
+    obs_flight.record("memory", "alloc_failure",
+                      {"stage": stage,
+                       "error": f"{type(error).__name__}: {error}"[:200]},
+                      pipeline=pipeline)
+
+
+def looks_like_oom(error: BaseException) -> bool:
+    """Heuristic: is this exception an allocation failure? The same text
+    match as the reference (XLA's RESOURCE_EXHAUSTED; host paths raise
+    MemoryError), which also sees ``torch.cuda.OutOfMemoryError`` ("CUDA
+    out of memory")."""
+    if isinstance(error, MemoryError):
+        return True
+    text = str(error)
+    return ("RESOURCE_EXHAUSTED" in text or "Out of memory" in text
+            or "out of memory" in text)
+
+
+# ---------------------------------------------------------------------------
+# live device sampling + watermarks
+# ---------------------------------------------------------------------------
+
+def default_budget_bytes() -> Optional[int]:
+    """The configured per-device byte budget (``NNS_HBM_BUDGET``), or
+    None. The card's own total (``torch.cuda.mem_get_info``) takes
+    precedence per device in :func:`sample_devices`."""
+    raw = os.environ.get(BUDGET_ENV, "").strip()
+    if not raw:
+        return _configured_budget
+    try:
+        return int(float(raw))
+    except ValueError:
+        return _configured_budget
+
+
+_configured_budget: Optional[int] = None
+
+
+def set_budget(budget_bytes: Optional[int]) -> None:
+    """Programmatic budget override (tests, embedded deployments); the
+    env var wins when both are set."""
+    global _configured_budget
+    _configured_budget = (int(budget_bytes)
+                          if budget_bytes is not None else None)
+
+
 class _DeviceWatermarks:
-    """Per-device high-water marks + crossing state for flight events."""
+    """Per-device high-water marks + crossing-state for flight events."""
 
     def __init__(self):
         self._lock = named_lock("_DeviceWatermarks._lock")
         self._peak: Dict[str, int] = {}      # guarded-by: _lock
         self._crossed: Dict[str, bool] = {}  # guarded-by: _lock
 
-    def update(self, label: str, bytes_in_use: int, budget: int,
-               watermark: float) -> int:
+    def update(self, label: str, bytes_in_use: int,
+               budget: Optional[int], watermark: float) -> int:
         """Fold one sample; returns the device's peak. Watermark
         crossings (both directions) land as ``memory`` flight events."""
         with self._lock:
@@ -71,7 +377,7 @@ class _DeviceWatermarks:
             if bytes_in_use > peak:
                 peak = self._peak[label] = bytes_in_use
             was = self._crossed.get(label, False)
-            now = bytes_in_use > watermark * budget
+            now = bool(budget) and bytes_in_use > watermark * budget
             self._crossed[label] = now
         if now and not was:
             obs_flight.record("memory", "watermark",
@@ -83,6 +389,14 @@ class _DeviceWatermarks:
                                "budget": budget})
         return peak
 
+    def peaks(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._peak)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._peak.clear()
+            self._crossed.clear()
 
 
 _watermarks = _DeviceWatermarks()
@@ -91,40 +405,140 @@ _watermarks = _DeviceWatermarks()
 def sample_devices(watermark: float = DEFAULT_WATERMARK) -> List[dict]:
     """One live sample per CUDA device: ``bytes_in_use`` is the caching
     allocator's allocated bytes (``torch.cuda.memory_stats``), the budget
-    the card's total memory (``torch.cuda.mem_get_info``). Updates the
-    per-device watermarks. No card (or no CUDA build): an empty list."""
-    if not torch.cuda.is_available():
+    the card's total memory (``torch.cuda.mem_get_info``; the configured
+    budget where it reports none). Updates the per-device watermarks
+    (flight events on crossings). No card, or CUDA not initialized in
+    this process: an empty list (sampling never initializes CUDA)."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
         return []
+    fallback_budget = default_budget_bytes()
     rows: List[dict] = []
     for i in range(torch.cuda.device_count()):
         label = f"cuda:{i}"
         stats = torch.cuda.memory_stats(i)
         in_use = int(stats.get("allocated_bytes.all.current", 0))
-        free, budget = torch.cuda.mem_get_info(i)
+        free, total = torch.cuda.mem_get_info(i)
+        budget = int(total) or fallback_budget
         peak = _watermarks.update(label, in_use, budget, watermark)
         rows.append({
             "device": label,
             "bytes_in_use": in_use,
             "peak_bytes": peak,
-            "budget_bytes": int(budget),
+            "budget_bytes": int(budget) if budget else None,
             "free_bytes": int(free),
-            "used_fraction": in_use / budget,
+            "used_fraction": (in_use / budget) if budget else 0.0,
             "source": "torch.cuda",
         })
     return rows
 
 
+def used_fraction() -> float:
+    """Worst per-device used/budget fraction right now (0.0 without a
+    card) — the sample the ``memory``-kind SLO records."""
+    rows = sample_devices()
+    return max((r["used_fraction"] for r in rows), default=0.0)
+
+
+def device_peaks() -> Dict[str, int]:
+    return _watermarks.peaks()
+
+
+class MemorySampler:
+    """Background watermark sampler: one :func:`sample_devices` pass per
+    ``interval_s`` while running. Started by :func:`start` (opt-in —
+    scrapes also sample on demand); joined on stop."""
+
+    def __init__(self, interval_s: float = 1.0,
+                 watermark: float = DEFAULT_WATERMARK):
+        self.interval_s = interval_s
+        self.watermark = watermark
+        self._stop_evt = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "MemorySampler":
+        if self._thread is not None:
+            return self
+        self._stop_evt.clear()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="obs-memory-sampler",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5.0)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while not self._stop_evt.wait(self.interval_s):
+            try:
+                sample_devices(self.watermark)
+            except Exception:  # noqa: BLE001 - sampler must outlive a
+                # backend hiccup (device mid-reset)
+                from ..utils.log import logger
+
+                logger.exception("obs memory: device sample failed")
+
+
+# ---------------------------------------------------------------------------
+# queue / serving live accounting
+# ---------------------------------------------------------------------------
+
+_tracked_pipelines: "weakref.WeakSet" = weakref.WeakSet()
 _tracked_serving: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def track_pipeline(pipeline) -> None:
+    """Queue-occupancy accounting source (``Pipeline.play`` calls this;
+    ``Pipeline.stop`` untracks so a dead pipeline's rows disappear from
+    the scrape immediately, not at GC time)."""
+    _tracked_pipelines.add(pipeline)
+    if _san.LEAK:
+        _san.note_acquire("memory_registration",
+                          f"pipeline:{id(pipeline):x}", idempotent=True,
+                          detail=getattr(pipeline, "name", ""))
+
+
+def untrack_pipeline(pipeline) -> None:
+    _tracked_pipelines.discard(pipeline)
+    if _san.LEAK:
+        _san.note_release("memory_registration", f"pipeline:{id(pipeline):x}")
 
 
 def track_serving(source) -> None:
     """Register a serving byte source: anything with ``memory_bytes()``
-    -> dict. Weakly held — closed sources drop out."""
+    -> dict (the continuous LM engines' slot caches and page pools,
+    admission guards). Weakly held — closed sources drop out."""
     _tracked_serving.add(source)
 
 
+def untrack_serving(source) -> None:
+    _tracked_serving.discard(source)
+
+
+def queue_bytes(pipeline) -> Dict[str, dict]:
+    """{queue-name: {depth, frame_bytes, bytes}} over one pipeline's
+    queue elements — occupancy × negotiated frame size, read entirely
+    from existing state (no hot-path hook)."""
+    out: Dict[str, dict] = {}
+    for el in getattr(pipeline, "elements", {}).values():
+        if getattr(el, "ELEMENT_NAME", "") != "queue":
+            continue
+        caps = None
+        for pad in el.sink_pads:
+            if pad.caps is not None:
+                caps = pad.caps
+        frame = caps_frame_nbytes(caps)
+        depth = el.stats.get("level", 0)
+        out[el.name] = {"depth": depth, "frame_bytes": frame,
+                        "bytes": depth * frame}
+    return out
+
+
 def serving_bytes() -> Dict[str, dict]:
-    """{source name: its ``memory_bytes()``} over every live source."""
     out: Dict[str, dict] = {}
     for src in list(_tracked_serving):
         try:
@@ -138,13 +552,18 @@ def serving_bytes() -> Dict[str, dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# admission guard (serving)
+# ---------------------------------------------------------------------------
+
 class AdmissionGuard:
     """Projected-bytes admission gate for the serving schedulers: every
-    admitted request reserves its bytes (× ``overhead`` for activations and
-    padding) until completion; a reservation that would push the total
-    past ``watermark × budget_bytes`` is refused and the scheduler sheds
-    the request with a typed ``MemoryPressureError``. Thread-safe; shows
-    its state in the memory snapshot via :func:`track_serving`."""
+    admitted request reserves its tensor bytes (× ``overhead`` for
+    activations/padding) until completion; a reservation that would push
+    the total past ``watermark × budget_bytes`` is refused and the
+    scheduler sheds the request with a typed ``MemoryPressureError``
+    BEFORE it can OOM a formed batch. Thread-safe; exposes its state to
+    the memory snapshot via :func:`track_serving`."""
 
     def __init__(self, budget_bytes: int,
                  watermark: float = DEFAULT_WATERMARK,
@@ -169,7 +588,9 @@ class AdmissionGuard:
 
     def reserve(self, nbytes: int) -> bool:   # pairs-with: release
         """Reserve ``nbytes × overhead``; False = would cross the
-        watermark (caller sheds)."""
+        watermark (caller sheds). Reservations above the limit in
+        isolation are refused too — a single impossible request must
+        not wedge admission."""
         need = int(nbytes * self.overhead)
         with self._lock:
             if self._inflight + need > self.limit_bytes:
@@ -208,14 +629,108 @@ class AdmissionGuard:
                     "limit_bytes": self.limit_bytes, "shed": self.shed}
 
 
+# ---------------------------------------------------------------------------
+# module-level control (mirrors obs.profile: session OR calibration)
+# ---------------------------------------------------------------------------
+
+_ctl_lock = threading.Lock()
+_started = False        # guarded-by: _ctl_lock — start()/stop() sessions
+_calibrating = 0        # guarded-by: _ctl_lock — placement calibrations
+_sampler: Optional[MemorySampler] = None
+
+
+def _update_active() -> None:
+    global ACTIVE
+    ACTIVE = _started or _calibrating > 0
+
+
+def start(sample_interval_s: float = 0.0) -> MemoryAccountant:
+    """Switch memory accounting on: filter opens record their param
+    footprint and first-invoke bytes; ``sample_interval_s > 0`` also
+    starts the background device-watermark sampler."""
+    global _started, _sampler
+    with _ctl_lock:
+        _started = True
+        _update_active()
+        if sample_interval_s > 0 and _sampler is None:
+            _sampler = MemorySampler(sample_interval_s)
+            _sampler.start()
+    return default_accountant
+
+
+def stop() -> None:
+    """Back to the one-global-check fast path (estimates are kept;
+    ``reset()`` drops them). A calibration window still open keeps
+    accounting alive until it closes."""
+    global _started, _sampler
+    with _ctl_lock:
+        _started = False
+        _update_active()
+        sampler = _sampler
+        _sampler = None
+    if sampler is not None:
+        sampler.stop()
+
+
+def begin_calibration() -> None:   # pairs-with: end_calibration
+    """Placement-calibration window (refcounted, paired with
+    :func:`end_calibration`) — the reference's planner needs byte
+    estimates captured in the same window that measures stage latency
+    (the port has no planner yet)."""
+    global _calibrating
+    with _ctl_lock:
+        if _san.LEAK:
+            _san.note_acquire("calibration", "obs.memory")
+        _calibrating += 1
+        _update_active()
+
+
+def end_calibration() -> None:
+    global _calibrating
+    with _ctl_lock:
+        if _san.LEAK:
+            _san.note_release("calibration", "obs.memory")
+        _calibrating = max(0, _calibrating - 1)
+        _update_active()
+
+
+def reset() -> None:
+    default_accountant.reset()
+    _watermarks.reset()
+
+
+# ---------------------------------------------------------------------------
+# snapshot + metrics collector + dashboard section
+# ---------------------------------------------------------------------------
+
 def snapshot() -> dict:
-    """Live device samples + watermarks and the serving byte sources."""
+    """The ``GET /memory`` document: static stage estimates, model
+    footprints, live device samples + watermarks, queue occupancy
+    bytes, and serving byte sources."""
+    queues: Dict[str, dict] = {}
+    for pipe in list(_tracked_pipelines):
+        qb = queue_bytes(pipe)
+        if qb:
+            queues[pipe.name] = qb
     return {
+        "active": ACTIVE,
+        "budget_bytes": default_budget_bytes(),
+        "stages": default_accountant.stages(),
+        "models": default_accountant.models(),
         "devices": sample_devices(),
+        "queues": queues,
         "serving": serving_bytes(),
     }
 
 
+_G_STAGE = obs_metrics.gauge(
+    "nns_memory_stage_bytes",
+    "static per-stage byte estimate (temp+output+argument+code+params)",
+    ("stage", "field"))
+_G_MODEL = obs_metrics.gauge(
+    "nns_memory_model_params_bytes",
+    "model parameter footprint (sum of leaf tensor bytes)",
+    ("model",))
 _G_DEVICE = obs_metrics.gauge(
     "nns_memory_device_bytes", "live device buffer bytes", ("device",))
 _G_DEVICE_PEAK = obs_metrics.gauge(
@@ -225,6 +740,10 @@ _G_DEVICE_FRAC = obs_metrics.gauge(
     "nns_memory_device_used_fraction",
     "live bytes over the device budget (0 when no budget known)",
     ("device",))
+_G_QUEUE = obs_metrics.gauge(
+    "nns_memory_queue_bytes",
+    "queue occupancy bytes (depth x negotiated frame size)",
+    ("pipeline", "queue"))
 _G_SERVING = obs_metrics.gauge(
     "nns_memory_serving_bytes",
     "serving-plane byte sources (KV caches, admission reservations)",
@@ -232,14 +751,100 @@ _G_SERVING = obs_metrics.gauge(
 
 
 def _collect_memory(_registry) -> None:
-    for g in (_G_DEVICE, _G_DEVICE_PEAK, _G_DEVICE_FRAC, _G_SERVING):
+    for g in (_G_STAGE, _G_MODEL, _G_DEVICE, _G_DEVICE_PEAK,
+              _G_DEVICE_FRAC, _G_QUEUE, _G_SERVING):
         g.clear()
+    for name, cell in default_accountant.stages().items():
+        _G_STAGE.set(cell.get("total_bytes", 0), stage=name, field="total")
+        _G_STAGE.set(cell.get("param_bytes", 0), stage=name, field="params")
+        _G_STAGE.set(cell.get("temp_bytes", 0), stage=name, field="temp")
+    for name, nbytes in default_accountant.models().items():
+        _G_MODEL.set(nbytes, model=name)
     for row in sample_devices():
         _G_DEVICE.set(row["bytes_in_use"], device=row["device"])
         _G_DEVICE_PEAK.set(row["peak_bytes"], device=row["device"])
         _G_DEVICE_FRAC.set(row["used_fraction"], device=row["device"])
+    for pipe in list(_tracked_pipelines):
+        for qname, q in queue_bytes(pipe).items():
+            _G_QUEUE.set(q["bytes"], pipeline=pipe.name, queue=qname)
     for name, snap in serving_bytes().items():
         _G_SERVING.set(snap.get("bytes", 0), source=name)
 
 
 obs_metrics.register_collector("memory", _collect_memory)
+
+
+def _fmt_bytes(n: Optional[int]) -> str:
+    if not n:
+        return "0"
+    v = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(v) < 1024.0 or unit == "GiB":
+            return f"{v:.0f}{unit}" if unit == "B" else f"{v:.1f}{unit}"
+        v /= 1024.0
+    return f"{v:.1f}GiB"
+
+
+def render_section(mem_snap: dict) -> List[str]:
+    """The MEMORY section of ``obs top`` (appended by
+    ``profile.render_top`` when a memory snapshot is supplied)."""
+    lines: List[str] = []
+    devices = mem_snap.get("devices") or []
+    if devices:
+        lines.append("")
+        lines.append("MEMORY (devices)")
+        lines.append(f"  {'device':<12} {'in_use':>10} {'peak':>10} "
+                     f"{'budget':>10} {'used':>6}")
+        for d in devices:
+            lines.append(
+                f"  {d['device']:<12} {_fmt_bytes(d['bytes_in_use']):>10} "
+                f"{_fmt_bytes(d['peak_bytes']):>10} "
+                f"{_fmt_bytes(d.get('budget_bytes')):>10} "
+                f"{d['used_fraction'] * 100:>5.1f}%")
+    stages = mem_snap.get("stages") or {}
+    if stages:
+        lines.append("")
+        lines.append("MEMORY (stage estimates)")
+        lines.append(f"  {'stage':<40} {'total':>10} {'params':>10} "
+                     f"{'temp':>10}")
+        for name, cell in sorted(stages.items()):
+            lines.append(
+                f"  {name:<40} {_fmt_bytes(cell.get('total_bytes')):>10} "
+                f"{_fmt_bytes(cell.get('param_bytes')):>10} "
+                f"{_fmt_bytes(cell.get('temp_bytes')):>10}")
+    queues = mem_snap.get("queues") or {}
+    rows: List[Tuple[str, dict]] = [
+        (f"{pipe}:{qname}", q)
+        for pipe, qs in sorted(queues.items())
+        for qname, q in sorted(qs.items())]
+    if rows:
+        lines.append("")
+        lines.append("MEMORY (queues)")
+        lines.append(f"  {'queue':<40} {'depth':>6} {'frame':>10} "
+                     f"{'bytes':>10}")
+        for name, q in rows:
+            lines.append(f"  {name:<40} {q['depth']:>6d} "
+                         f"{_fmt_bytes(q['frame_bytes']):>10} "
+                         f"{_fmt_bytes(q['bytes']):>10}")
+    serving = mem_snap.get("serving") or {}
+    if serving:
+        lines.append("")
+        lines.append("MEMORY (serving)")
+        for name, snap in sorted(serving.items()):
+            row = f"  {name:<40} {_fmt_bytes(snap.get('bytes')):>10}"
+            if "peak_bytes" in snap:
+                row += f"  peak {_fmt_bytes(snap['peak_bytes'])}"
+            if "pages_total" in snap:
+                # paged-KV engines: occupancy answers "how close is the
+                # pool to preempting", sharing answers "is prefix COW
+                # earning its keep"
+                total = snap["pages_total"] or 1
+                row += (f"  pages {snap.get('pages_used', 0)}/"
+                        f"{snap['pages_total']}"
+                        f" ({snap.get('pages_used', 0) / total * 100:.0f}%)")
+                if snap.get("pages_shared"):
+                    row += f"  shared {snap['pages_shared']}"
+            if "spec_acceptance_rate" in snap:
+                row += f"  accept {snap['spec_acceptance_rate'] * 100:.0f}%"
+            lines.append(row)
+    return lines

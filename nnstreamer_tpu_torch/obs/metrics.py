@@ -14,11 +14,14 @@ Two publishing styles:
   time: nothing on their hot paths changes, the scrape pays the snapshot
   cost. ``register_collector()`` adds custom sources.
 
-The built-in collector covers serving schedulers (``nns_serving_*``); the
-serving modules add the KV pool's and speculation's gauges, and
-``obs/memory.py`` the ``nns_memory_*`` ones. Not in this package yet: the
-fabric, service, fused-segment, wire and obs-plane collectors, which come
-with the subsystems they read.
+The built-in collectors cover serving schedulers (``nns_serving_*``) and
+the obs plane itself (``nns_flight_events_total``,
+``nns_trace_spans_total``, ``nns_tracing_enabled``); the serving modules
+add the KV pool's and speculation's gauges, ``obs/memory.py`` the
+``nns_memory_*`` ones, ``obs/profile.py``, ``obs/quality.py`` and
+``obs/slo.py`` theirs. Not in this package yet: the fabric, service,
+fused-segment and wire collectors, which come with the subsystems they
+read (ROADMAP A4, A6).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import re
 import threading
 import weakref
 from typing import Callable, Dict, List, Sequence, Tuple
+
+from ..analysis import sanitizer as _san
 
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -298,6 +303,31 @@ def track_pool(pool) -> None:
     _tracked_pools.add(pool)
 
 
+_tracked_pipelines: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def track_pipeline(pipeline) -> None:
+    """Pipelines whose per-pipeline rows a collector reads (the
+    reference's fused-segment collector; the port has no segment fusion
+    yet, ROADMAP A4, so nothing tracks one)."""
+    _tracked_pipelines.add(pipeline)
+    if _san.LEAK:
+        _san.note_acquire("metrics_registration",
+                          f"pipeline:{id(pipeline):x}", idempotent=True,
+                          detail=getattr(pipeline, "name", ""))
+
+
+def untrack_pipeline(pipeline) -> None:
+    """Explicit unregister sweep (``Pipeline.stop()``): the tracked set
+    is weak, but weakness only helps once GC happens to run — until then
+    a stopped pipeline's stale rows would keep rendering at every
+    scrape."""
+    _tracked_pipelines.discard(pipeline)
+    if _san.LEAK:
+        _san.note_release("metrics_registration",
+                          f"pipeline:{id(pipeline):x}")
+
+
 def pools_snapshot() -> Dict[str, dict]:
     """{pool_name: ReplicaPool.snapshot()} over every live pool — the
     fabric half of ``serving.metrics_snapshot()`` (per-replica in-flight,
@@ -376,4 +406,20 @@ def _collect_serving(reg: Registry) -> None:
                 scheduler=name)
 
 
+def _collect_obs(reg: Registry) -> None:
+    from . import context, flight
+
+    reg.counter("nns_flight_events_total",
+                "events recorded by the flight recorder"
+                ).set_total(flight.count())
+    st = context.stats()
+    reg.counter("nns_trace_spans_total",
+                "spans finished since process start"
+                ).set_total(st["finished_total"])
+    reg.gauge("nns_tracing_enabled",
+              "1 when request-scoped tracing is on"
+              ).set(1.0 if st["tracing"] else 0.0)
+
+
 register_collector("serving", _collect_serving)
+register_collector("obs", _collect_obs)

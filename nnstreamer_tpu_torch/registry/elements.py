@@ -38,6 +38,7 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.converter",
     "nnstreamer_tpu_torch.elements.transform",
     "nnstreamer_tpu_torch.elements.serving",
+    "nnstreamer_tpu_torch.elements.fault",
 )
 
 _loaded = False

@@ -15,6 +15,7 @@ import traceback
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from ..analysis.sanitizer import named_lock
 from ..core import Buffer, Caps, Event, EventType, Message, MessageType
 from ..utils.log import logger
 from .pad import Pad, PadDirection, PadPresence, PadTemplate
@@ -67,6 +68,11 @@ class Element:
 
     def __init__(self, name: Optional[str] = None, **props):
         cls = type(self)
+        # the auto-name carries a PROCESS-global counter, so it is not
+        # stable across restarts/replicas — the profiler's canonical
+        # naming (obs/profile.py series_name) substitutes a positional
+        # alias for auto-named elements
+        self.auto_named = name is None
         if name is None:
             with Element._count_lock:
                 Element._instance_count += 1
@@ -75,7 +81,9 @@ class Element:
         self.pipeline = None  # set by Pipeline.add
         self.sink_pads: List[Pad] = []
         self.src_pads: List[Pad] = []
-        self._lock = threading.Lock()
+        # per-instance name: EOS can cascade element-to-element, and two
+        # elements' latches must stay distinct lock-order graph nodes
+        self._lock = named_lock(f"Element._lock:{name}")
         self._eos_sent = False  # guarded-by: _lock
         self.props: Dict[str, Any] = {}
         merged: Dict[str, Prop] = {}

@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from time import monotonic as _monotonic
 from typing import TYPE_CHECKING, Optional
 
 from ..core import Buffer, Caps, Event, EventType
+from ..utils import trace
 
 if TYPE_CHECKING:
     from .element import Element
@@ -83,6 +85,11 @@ class Pad:
         peer = self.peer
         if peer is None:
             return  # unlinked src pad silently drops (reference: not-linked flow)
+        if trace.ACTIVE:  # zero-cost when tracing is off (GstShark analog)
+            t0 = _monotonic()
+            peer.element._chain_guarded(peer, buf)
+            trace.notify_flow(self, buf, _monotonic() - t0)
+            return
         peer.element._chain_guarded(peer, buf)
 
     def push_event(self, event: Event) -> None:

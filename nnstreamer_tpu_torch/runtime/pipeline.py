@@ -11,7 +11,11 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Set
 
+from ..analysis.sanitizer import named_lock, named_rlock
 from ..core import Message, MessageType
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..utils import trace
 from ..utils.log import logger
 from ..utils.threads import ThreadRegistry
 from .element import Element, SinkElement, SourceElement
@@ -53,14 +57,14 @@ class Pipeline:
         self.elements: Dict[str, Element] = {}
         self.bus = Bus()
         self._playing = False
-        self._lock = threading.Lock()
+        self._lock = named_lock("Pipeline._lock")
         self._eos_sinks: Set[str] = set()  # guarded-by: _lock
         # serializes play()/stop()/error-halt so a stale halt (spawned
         # for a run that a supervised restart has since replaced) can
         # never stop the NEW run's sources. Element threads must never
         # take this lock (play/stop join them while holding it) — the
         # error path only READS the epoch and spawns, it does not block.
-        self._state_lock = threading.RLock()
+        self._state_lock = named_rlock("Pipeline._state_lock")
         self._play_epoch = 0  # guarded-by: _state_lock
         self._halt_threads = ThreadRegistry()
         # out-of-band state listeners: cb(kind, source, data) with kind in
@@ -126,6 +130,8 @@ class Pipeline:
         with self._state_lock:
             if self._playing:
                 return self
+            trace.install_from_env()   # NNS_TRACERS (GST_TRACERS analog)
+            trace.dump_dot(self)       # NNS_DOT_DIR (GST_DEBUG_DUMP_DOT_DIR)
             self._validate_links()
             self._playing = True
             self._play_epoch += 1
@@ -133,6 +139,9 @@ class Pipeline:
                 self._eos_sinks.clear()
             for el in self.elements.values():
                 el.reset_flow()
+            # memory accounting (obs/memory.py): queue-occupancy bytes
+            # are read off live pipelines at scrape time
+            obs_memory.track_pipeline(self)
             # start non-sources first so queues/filters are ready before
             # data flows
             for el in self.elements.values():
@@ -157,6 +166,16 @@ class Pipeline:
                     el.stop()
         # joined outside _state_lock — the halt threads acquire it
         self._halt_threads.drain(timeout_per=2.0)
+        # explicit metrics unregister sweep: a stopped pipeline's
+        # queue-bytes rows must leave the scrape NOW, not whenever GC
+        # collects the weak refs (a replay re-tracks at play())
+        obs_metrics.untrack_pipeline(self)
+        obs_memory.untrack_pipeline(self)
+        if trace.ACTIVE:
+            # env-activated chrome traces flush at every stop(), not only
+            # at interpreter exit — a long-lived serve process produces
+            # inspectable traces per run
+            trace.flush_chrome_traces()
         self.bus.post(Message(MessageType.STATE_CHANGED, self.name, {"state": "stopped"}))
         self._notify_state("stopped", self.name, {})
         return self

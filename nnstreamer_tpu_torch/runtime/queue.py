@@ -13,10 +13,13 @@ from __future__ import annotations
 
 import threading
 from collections import deque
+from time import monotonic as _monotonic
 from typing import Optional
 
+from ..analysis.sanitizer import named_condition
 from ..core import Buffer, Event, EventType
 from ..core.caps import any_media_caps
+from ..obs import profile as obs_profile
 from .element import Element, Prop
 from .pad import Pad, PadDirection, PadTemplate
 
@@ -27,10 +30,12 @@ class _Channel:
     """Bounded MPSC channel: buffers obey capacity/leaky policy, events pass
     through in order unconditionally."""
 
-    def __init__(self, capacity: int, leaky: str):
+    def __init__(self, capacity: int, leaky: str, name: str = "?"):
         self.capacity = capacity  # 0 (or less) = unbounded
         self.leaky = leaky
-        self._cond = threading.Condition()
+        # per-instance lock name: chained queues nest naturally (worker of
+        # one pushes into the next) and must stay distinct graph nodes
+        self._cond = named_condition(f"queue[{name}]._cond")
         self._dq: deque = deque()   # guarded-by: _cond
         self._closed = False        # guarded-by: _cond
         # buffers in _dq (events excluded), O(1) hot path
@@ -133,7 +138,8 @@ class QueueElement(Element):
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
-        self._ch = _Channel(self.props["max_size_buffers"], self.props["leaky"])
+        self._ch = _Channel(self.props["max_size_buffers"],
+                            self.props["leaky"], name=self.name)
         self._thread: Optional[threading.Thread] = None
         self._running = threading.Event()
 
@@ -163,6 +169,12 @@ class QueueElement(Element):
 
     # -- producer side ------------------------------------------------------
     def chain(self, pad: Pad, buf: Buffer) -> None:
+        if obs_profile.ACTIVE:
+            # queue-wait attribution: stamp entry, measured at the worker
+            # pop (one module-global check when profiling is off; the
+            # meta stamp races benignly on tee-shared buffers, same
+            # contract as InterLatencyTracer's birth stamp)
+            buf.meta["_prof_q_t0"] = _monotonic()
         self._ch.put_buf(buf)
 
     def handle_sink_event(self, pad: Pad, event: Event) -> None:
@@ -202,6 +214,14 @@ class QueueElement(Element):
             if kind == "stop":
                 return
             if kind == "buf":
+                # pop unconditionally: a stamp from a profiling session
+                # that ended while the buffer was queued must not ride
+                # the meta downstream (and onto the wire) forever
+                t0 = payload.meta.pop("_prof_q_t0", None)
+                if t0 is not None and obs_profile.ACTIVE:
+                    obs_profile.record_queue_wait(
+                        obs_profile.series_name(self),
+                        _monotonic() - t0, self._ch._n_bufs)
                 try:
                     self.srcpad.push(payload)
                 except Exception as e:  # noqa: BLE001

@@ -8,10 +8,6 @@ Per-REQUEST metrics live on the request itself (``Request.metrics``:
 enqueue_time, batch_id, bucket, queue_wait_s, device_time_s, ttft_s,
 total_latency_s). This module aggregates across requests/batches and
 exposes ``serving.metrics_snapshot()`` over every live scheduler.
-
-Not in this package yet: the profiler's request series
-(``obs.profile.record_request`` in ``record_request_done``), which comes
-with ``obs/profile.py``.
 """
 from __future__ import annotations
 
@@ -19,6 +15,7 @@ import threading
 import weakref
 from typing import Dict, Optional
 
+from ..obs import profile as obs_profile
 from ..utils.stats import InvokeStats, LatencyReservoir
 
 _registry: "weakref.WeakValueDictionary[str, object]" = \
@@ -65,9 +62,10 @@ class ServingMetrics:
 
     def __init__(self):
         self._lock = threading.Lock()
-        # request-series name ("serving:<scheduler>") — set by the owning
-        # scheduler after registration; the profiler's request series
-        # reads it once obs/profile.py is ported
+        # profiler request-series name ("serving:<scheduler>") — set by
+        # the owning scheduler after registration; while set and the
+        # profiler is ACTIVE, every finished request lands in the
+        # windowed digests the SLO engine evaluates burn rates from
         self.series: Optional[str] = None
         self.submitted = 0
         self.completed = 0
@@ -130,6 +128,9 @@ class ServingMetrics:
             self.ttft.add(m["ttft_s"])
         if "total_latency_s" in m:
             self.total.add(m["total_latency_s"])
+        if obs_profile.ACTIVE and self.series is not None:
+            obs_profile.record_request(
+                self.series, m.get("total_latency_s", 0.0), ok=not failed)
 
     def record_decode_step(self, active: int, slots: int,
                            device_s: float) -> None:

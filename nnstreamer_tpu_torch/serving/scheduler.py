@@ -13,7 +13,11 @@ same admission/queue/bucketing machinery:
   loop (arxiv 2409.04249).
 
 Both record per-request metrics (queue wait, batch id, bucket, device
-time, ttft, total) and register with ``serving.metrics_snapshot()``.
+time, ttft, total) and register with ``serving.metrics_snapshot()``. The
+batch path also feeds the obs plane: a sampled data-quality tap of each
+batch's outputs (``obs.quality``, the ``serving:<name>`` series) and a
+``batch`` span to the installed tracers (``utils.trace``), each behind
+one module-global check.
 
 The executor's **compile-count hook** keeps its meaning in an eager port:
 nnstreamer_tpu's ``JitExecutor`` counts XLA traces, one per new input
@@ -21,10 +25,6 @@ signature; :class:`SignatureExecutor` counts the distinct input shape
 signatures (shape and dtype of every input) the model has been called
 with — the shapes a captured or compiled program would be built for — and
 steady-state same-bucket traffic must hold it at one.
-
-Not in this package yet: the batch path's data-quality taps
-(``obs.quality``) and chrome-trace serving spans (``utils.trace``), which
-come with those modules.
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ import torch
 from ..core.buffer import as_torch
 from ..obs import context as obs_context
 from ..obs import flight as obs_flight
+from ..obs import quality as obs_quality
+from ..utils import trace
 from ..utils.log import logger
 from .batcher import Batch, BatchFormer
 from .metrics import ServingMetrics, register_scheduler
@@ -339,6 +341,19 @@ class Scheduler:
         device_s = time.monotonic() - t_start
         self.queue.observe_service_time(device_s)
         self.metrics.record_batch(batch.rows, batch.padded_rows, device_s)
+        if obs_quality.ACTIVE:
+            # data-plane health tap: sampled batch-output reduction into
+            # the "serving:<scheduler>" series (one module-global check
+            # when the taps are off)
+            obs_quality.observe_outputs(
+                f"serving:{self.name}",
+                outputs if isinstance(outputs, (list, tuple))
+                else (outputs,))
+        if trace.ACTIVE:
+            trace.notify_serving(
+                "batch", self.name, t_start, device_s,
+                {"batch_id": batch.id, "rows": batch.rows,
+                 "bucket": batch.padded_rows})
         if obs_context.TRACING:
             # one batch span LINKED to every member request's span — the
             # batch has N parents, which links express and strict

@@ -81,6 +81,14 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.models.ssd_mobilenet",
     "nnstreamer_tpu_torch.models.posenet",
     "nnstreamer_tpu_torch.models.deeplab",
+    "nnstreamer_tpu_torch.utils.trace",
+    "nnstreamer_tpu_torch.runtime.pad",
+    "nnstreamer_tpu_torch.runtime.element",
+    "nnstreamer_tpu_torch.runtime.pipeline",
+    "nnstreamer_tpu_torch.obs.profile",
+    "nnstreamer_tpu_torch.obs.quality",
+    "nnstreamer_tpu_torch.obs.slo",
+    "nnstreamer_tpu_torch.elements.fault",
 ]
 
 
@@ -103,7 +111,7 @@ assert {{"appsrc", "tensor_filter", "tensor_generate", "tensor_sink",
          "tensor_decoder", "tee", "videotestsrc", "videoconvert",
          "videoscale", "imagefreeze", "audiotestsrc", "audioconvert",
          "tensor_converter", "tensor_transform",
-         "tensor_serving"}} <= set(element_factories())
+         "tensor_serving", "tensor_fault"}} <= set(element_factories())
 assert get(SubpluginKind.FILTER, "torch") is get(SubpluginKind.FILTER, "pytorch")
 assert get(SubpluginKind.DECODER, "image_labeling").MODE == "image_labeling"
 for mode in ("flexbuf", "protobuf", "flatbuf"):

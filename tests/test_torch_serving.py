@@ -323,8 +323,10 @@ class TestScheduler:
                   "device_time_s", "ttft_s", "total_latency_s")
 
         def run(srv):
+            # not the reference suite's "t-metrics": its registry
+            # uniquifies names per process, and that suite asserts its own
             sched = srv.Scheduler(lambda x: (x,), bucket_sizes=(2,),
-                                  max_wait_s=0.002, name="t-metrics")
+                                  max_wait_s=0.002, name="t-metrics-port")
             try:
                 req = sched.submit((np.ones((1, 3), np.float32),))
                 req.result(30)
