@@ -155,8 +155,44 @@ phase fails:
     and with every hook on (taps every 8th buffer), each state twice
     (no limit; the LM line serves phase 4's requests three times a run).
 
+13. fusion and placement (ROADMAP A4) — (a) ``tensor_src device=true
+    dimensions=16 types=float32 ! `` 1 and 8 × ``tensor_transform
+    mode=arithmetic option=add:1 ! tensor_sink``, fused (one CUDA graph
+    replay a buffer) and with ``fuse=False``, 2000 buffers a run: host µs
+    a buffer and an element, the marginal element, dispatches and
+    captures; the 8-element chain's sink bytes equal in both modes. (b)
+    ``tensor_src device=true pattern=random types=uint8
+    dimensions=3:224:224:64 ! tensor_transform mode=arithmetic
+    option=typecast:float32,add:-127.5,div:127.5 ! tensor_filter
+    model=...mobilenet_v2:filter_model ! queue ! tensor_sink`` (bf16, 3
+    warm-up and 30 measured batches), fused (one segment, transform ..
+    filter) and unfused: frames/s at the sink, host ms to issue a batch,
+    the card's busy share over a profiled window, and the batch-1 p50 of
+    ``appsrc ! tensor_transform ! tensor_filter ! tensor_sink``. Gates:
+    logits bit-equal fused vs unfused, one capture and 33 dispatches,
+    outputs on cuda:0, every stored sink buffer intact after the run.
+    (c) ``place="auto"`` with a ProfileStore in a temporary directory on
+    ``tensor_src ! tensor_aggregator frames-out=64 ! tensor_transform !
+    tensor_filter ! queue ! tensor_sink``: the plan names cuda:0, host
+    batches ride the pinned stager, the calibration window opens at
+    play() and closes after 48 dispatches with an artifact saved, the
+    queue's tuned depth lies in [2, 64], a second run plans from the
+    artifact without calibrating, and its sink bytes equal
+    ``place=False``'s. (d) A fused segment's host→device path: the
+    pinned stager the port uses against the plain path (a blocking
+    pageable ``.to(card)`` of each host frame, patched in here), in the
+    order stager, plain, plain, stager, on (c)'s host line, on ``appsrc
+    ! tensor_transform ! tensor_filter ! queue ! tensor_sink`` fed
+    batches of 64 host frames back to back, and on (b)'s batch-1 p50
+    line: frames/s at the sink, the segment's host ms a dispatch, p50.
+    Gates: the sink's logits are bit-equal on the two paths; every batch
+    of a stager run is staged, none of a plain run. This phase runs no
+    hand-written kernel.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
+``python3 chip_smoke.py --only fusion`` runs phase 13 alone and prints its
+report as the last line (no kernel line, no ``ok`` line).
 """
 from __future__ import annotations
 
@@ -167,6 +203,7 @@ import sys
 import time
 from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1098,7 +1135,8 @@ def mb_run_line(name: str, line: str) -> dict:
             "labels": len(labels), "distinct_labels": len(set(want))}
 
 
-def mb_device_busy(name: str, line: str) -> dict:
+def mb_device_busy(name: str, line: str, per_batch: Optional[int] = None,
+                   fuse: Optional[bool] = None) -> dict:
     """The card's busy share over a steady window of a line: a torch.profiler
     trace (CUDA activity only, so the host is not slowed by op records)
     started before the pipeline plays and stopped after it has stopped, so
@@ -1108,7 +1146,9 @@ def mb_device_busy(name: str, line: str) -> dict:
     and another MB_PROFILED batches later after a synchronize. Busy = the
     union of the kernels' and copies' intervals between the two markers,
     over the time between them. None where the window holds no device
-    activity."""
+    activity. ``per_batch`` counts the sink buffers of one batch (default:
+    1 for the host line, MB_BATCH for the labeling lines); ``fuse`` goes
+    to ``parse_launch``."""
     import re
     import threading
 
@@ -1118,7 +1158,8 @@ def mb_device_busy(name: str, line: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     line = re.sub(r"num-buffers=\d+ ", "num-buffers=-1 ", line)
-    per_batch = 1 if name == "host" else MB_BATCH
+    if per_batch is None:
+        per_batch = 1 if name == "host" else MB_BATCH
     seen = [0]
     cond = threading.Condition()
 
@@ -1135,7 +1176,7 @@ def mb_device_busy(name: str, line: str) -> dict:
             return seen[0] / per_batch
 
     prof = profile(activities=[ProfilerActivity.CUDA])
-    pipe = parse_launch(line)
+    pipe = parse_launch(line, fuse=fuse)
     pipe.get("out").connect(on_data)
     prof.start()
     try:
@@ -2807,6 +2848,555 @@ def phase_obs(report: dict, prompts, filter_outs, phase3: dict) -> None:
     report["obs"] = r
 
 
+# fusion and placement phase (ROADMAP A4): the 8-element device chain of
+# nnstreamer_tpu's tools/microbench_overhead.py, the MobileNet-v2 line
+# with its normalisation and filter in one segment, and place="auto" on
+# the host line
+FU_ADD = "tensor_transform mode=arithmetic option=add:1"
+FU_CHAIN_BUFS, FU_CHAIN_PARITY = 2000, 64
+FU_NORM = "typecast:float32,add:-127.5,div:127.5"
+FU_MB_MODEL = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model"
+FU_MB_LINE = (
+    "tensor_src device=true pattern=random types=uint8 "
+    "dimensions=3:224:224:{b} num-buffers={n} ! tensor_transform "
+    f"mode=arithmetic option={FU_NORM} name=t ! tensor_filter "
+    f"framework=torch model={FU_MB_MODEL} name=f ! queue ! tensor_sink "
+    "name=out max-stored={n}")
+FU_P50_LINE = (
+    "appsrc name=in caps=other/tensors,format=static,"
+    "dimensions=3:224:224:1,types=uint8 ! tensor_transform "
+    f"mode=arithmetic option={FU_NORM} name=t ! tensor_filter "
+    f"framework=torch model={FU_MB_MODEL} name=f ! tensor_sink name=out "
+    "max-stored=1")
+FU_PLACE_LINE = (
+    "tensor_src num-buffers={n} dimensions=3:224:224:1 types=uint8 "
+    "pattern=random ! tensor_aggregator frames-out={b} frames-dim=0 "
+    f"concat=true ! tensor_transform mode=arithmetic option={FU_NORM} "
+    f"name=t ! tensor_filter framework=torch model={FU_MB_MODEL} name=f "
+    "! queue name=q ! tensor_sink name=out max-stored={k}")
+# batches of the calibrating run (more than CALIBRATION_DISPATCHES) and of
+# the two runs whose sink bytes are compared
+FU_PLACE_BATCHES, FU_PLACE_CHECK = 56, 6
+
+
+def fu_run(line: str, fuse, place=None, keep: bool = True,
+           on_play=None):
+    """Run a line to EOS; the sink's buffers (in order) and the pipeline.
+    ``on_play(pipe)`` runs right after ``play()`` returns."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(line, fuse=fuse, place=place)
+    outs = []
+    if keep:
+        pipe.get("out").connect(lambda buf: outs.append(buf.tensors[0]))
+    pipe.play()
+    try:
+        if on_play is not None:
+            on_play(pipe)
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"fusion: {line[:60]}... ended with {msg}")
+    return pipe, outs
+
+
+def fu_chain_line(n_elems: int, n_bufs: int, keep: int) -> str:
+    chain = " ! ".join([FU_ADD] * n_elems)
+    return (f"tensor_src device=true num-buffers={n_bufs} dimensions=16 "
+            f"types=float32 pattern=counter ! {chain} ! tensor_sink "
+            f"name=out max-stored={keep}")
+
+
+def fu_chain_overhead() -> dict:
+    """Host µs per buffer of 1- and 8-element device chains, fused and
+    with fuse=False (FU_CHAIN_BUFS buffers a run, after one warm-up run
+    each), and the 8-element chain's sink bytes in both modes."""
+    res = {}
+    for fuse in (True, False):
+        key = "fused" if fuse else "unfused"
+        us = {}
+        for n_elems in (1, 8):
+            line = fu_chain_line(n_elems, FU_CHAIN_BUFS, 1)
+            fu_run(line, fuse, keep=False)          # warm-up
+            t0 = time.perf_counter()
+            pipe, _ = fu_run(line, fuse, keep=False)
+            us[n_elems] = 1e6 * (time.perf_counter() - t0) / FU_CHAIN_BUFS
+        segs = [dict(s.stats) for s in pipe.fused_segments]
+        res[key] = {
+            "us_per_buffer_1": us[1], "us_per_buffer_8": us[8],
+            "us_per_element_per_buffer_8": us[8] / 8,
+            "marginal_us_per_element": (us[8] - us[1]) / 7,
+            "dispatches": [s["dispatches"] for s in segs],
+            "retraces": [s["retraces"] for s in segs]}
+    line = fu_chain_line(8, FU_CHAIN_PARITY, FU_CHAIN_PARITY)
+    _, fused = fu_run(line, True)
+    _, plain = fu_run(line, False)
+    want = torch.arange(FU_CHAIN_PARITY, dtype=torch.float32) + 8
+    if len(fused) != FU_CHAIN_PARITY or len(plain) != FU_CHAIN_PARITY:
+        fail(f"fusion chain: {len(fused)} / {len(plain)} sink buffers, "
+             f"expected {FU_CHAIN_PARITY}")
+    got = torch.stack([t.cpu() for t in fused])
+    if not torch.equal(got, torch.stack([t.cpu() for t in plain])):
+        fail("fusion chain: fused sink bytes differ from fuse=False")
+    if not torch.equal(got[:, 0], want):
+        fail("fusion chain: sink values are not counter + 8")
+    if res["fused"]["dispatches"] != [FU_CHAIN_BUFS] \
+            or res["fused"]["retraces"] != [1]:
+        fail(f"fusion chain: fused stats {res['fused']}, expected one "
+             f"segment, {FU_CHAIN_BUFS} dispatches and one capture")
+    res["sink_bytes_equal"] = True
+    return res
+
+
+def fu_mb_run(fuse: bool) -> dict:
+    """The MobileNet line: MB_WARM + MB_MEASURED batches. Frames/s at the
+    sink: the sink waits for its own batch's CUDA event (recorded as the
+    filter pushes the batch) and stamps the time. A device-wide
+    synchronize there, as phase 8 does, would also wait for the batches
+    queued behind, and a host that runs ahead of the card by a full
+    queue would then see later batches arrive done and count them as
+    free. Also the host time from the head transform's chain entry to
+    the filter's push of the same batch (the launches it issues, fused
+    or not), and the outputs."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    n = MB_WARM + MB_MEASURED
+    pipe = parse_launch(FU_MB_LINE.format(b=MB_BATCH, n=n), fuse=fuse)
+    head, tail = pipe.get("t"), pipe.get("f")
+    starts, issue, times, outs = [], [], [], []
+    chain, push = head._chain_guarded, tail.push
+
+    def timed_chain(pad, buf):
+        starts.append(time.perf_counter())
+        chain(pad, buf)
+
+    def timed_push(buf, pad=None):
+        issue.append(time.perf_counter() - starts[-1])
+        done = torch.cuda.Event()
+        done.record()
+        buf.meta["fu_done"] = done
+        push(buf, pad)
+
+    head._chain_guarded, tail.push = timed_chain, timed_push
+
+    def on_data(buf):
+        buf.meta["fu_done"].synchronize()
+        times.append(time.perf_counter())
+        outs.append(buf.tensors[0])
+
+    pipe.get("out").connect(on_data)
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"fusion mobilenet (fuse={fuse}): {msg}")
+    if len(outs) != n:
+        fail(f"fusion mobilenet (fuse={fuse}): {len(outs)} sink buffers, "
+             f"expected {n}")
+    stored = []
+    while (b := pipe.get("out").pull(timeout=0.1)) is not None:
+        stored.append(b.tensors[0])
+    fps = MB_MEASURED * MB_BATCH / (times[-1] - times[MB_WARM - 1])
+    return {"pipe": pipe, "outs": outs, "stored": stored,
+            "frames_per_s": fps,
+            "issue_ms_median": 1e3 * statistics.median(issue[MB_WARM:]),
+            "batch_ms_median": 1e3 * statistics.median(
+                b - a for a, b in zip(times[MB_WARM - 1:], times[MB_WARM:]))}
+
+
+def fu_p50(fuse: bool) -> dict:
+    """Push-to-sink p50 of one (1, 224, 224, 3) uint8 frame through
+    FU_P50_LINE (synchronized at the sink), MB_P50_FRAMES frames after
+    MB_P50_WARM warm-up ones; fused segments counted."""
+    import threading
+
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(FU_P50_LINE, fuse=fuse)
+    arrived = threading.Event()
+
+    def on_data(buf):
+        torch.cuda.synchronize()
+        arrived.set()
+
+    pipe.get("out").connect(on_data)
+    frames = mb_host_frames(MB_P50_WARM + MB_P50_FRAMES)
+    lat = []
+    pipe.play()
+    try:
+        for i in range(len(frames)):
+            arrived.clear()
+            t0 = time.perf_counter()
+            pipe.get("in").push_buffer(frames[i:i + 1])
+            if not arrived.wait(timeout=120):
+                fail(f"fusion p50 (fuse={fuse}): frame {i} gave nothing")
+            lat.append(time.perf_counter() - t0)
+        pipe.get("in").end_of_stream()
+        msg = pipe.wait(timeout=60)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"fusion p50 (fuse={fuse}): {msg}")
+    steady = lat[MB_P50_WARM:]
+    return {"p50_ms": 1e3 * statistics.median(steady),
+            "p90_ms": 1e3 * float(np.percentile(steady, 90)),
+            "segments": [dict(s.stats) for s in pipe.fused_segments],
+            "stager_puts": sum(s._stager.snapshot()["puts"]
+                               for s in pipe.fused_segments
+                               if s._stager is not None)}
+
+
+def fu_mobilenet() -> dict:
+    n = MB_WARM + MB_MEASURED
+    runs = {"fused": fu_mb_run(True), "unfused": fu_mb_run(False)}
+    fused, plain = runs["fused"], runs["unfused"]
+    (seg,) = fused["pipe"].fused_segments
+    if plain["pipe"].fused_segments:
+        fail("fusion mobilenet: fuse=False installed a segment")
+    if [el.name for el in seg.elements] != ["t", "f"]:
+        fail(f"fusion mobilenet: segment {seg.name}, expected t..f")
+    if seg.stats["retraces"] != 1 or seg.stats["dispatches"] != n:
+        fail(f"fusion mobilenet: {seg.stats['retraces']} captures and "
+             f"{seg.stats['dispatches']} dispatches, expected 1 and {n}")
+    for t in fused["outs"] + plain["outs"]:
+        if not (t.is_cuda and t.device == torch.device("cuda", 0)
+                and tuple(t.shape) == (MB_BATCH, 1001)
+                and t.dtype is torch.float32):
+            fail(f"fusion mobilenet: output {t.dtype} {tuple(t.shape)} on "
+                 f"{t.device}")
+    unequal = [i for i, (a, b) in enumerate(zip(fused["outs"],
+                                                plain["outs"]))
+               if not torch.equal(a, b)]
+    if unequal:
+        worst = max((fused["outs"][i] - plain["outs"][i]).abs().max().item()
+                    for i in unequal)
+        fail(f"fusion mobilenet: fused logits differ from fuse=False in "
+             f"batches {unequal} (max |err| {worst})")
+    # the sink's stored buffers, read after the run, are still the logits
+    # each batch had: bit-equal to the unfused run's, each in its own
+    # storage (no replay rewrote them)
+    stored = fused["stored"]
+    if len(stored) != n or any(not torch.equal(a, b) for a, b in
+                               zip(stored, plain["stored"])):
+        fail("fusion mobilenet: a stored sink buffer changed after the run")
+    if len({t.data_ptr() for t in stored}) != n:
+        fail("fusion mobilenet: stored sink buffers share storage")
+    line = FU_MB_LINE.format(b=MB_BATCH, n=n)
+    out = {}
+    for key, fuse in (("fused", True), ("unfused", False)):
+        r = runs[key]
+        busy = mb_device_busy(f"fusion {key}", line, per_batch=1, fuse=fuse)
+        out[key] = {k: r[k] for k in ("frames_per_s", "issue_ms_median",
+                                      "batch_ms_median")}
+        out[key]["device"] = busy
+        out[key]["p50"] = fu_p50(fuse)
+    p50_segs = out["fused"]["p50"]["segments"]
+    if len(p50_segs) != 1 or p50_segs[0]["retraces"] != 1:
+        fail(f"fusion p50 line: segments {p50_segs}, expected one capture")
+    out["segment"] = dict(seg.stats)
+    out["logits_bit_equal"] = True
+    return out
+
+
+def fu_placement() -> dict:
+    """place="auto" on the host line with a ProfileStore in a temporary
+    directory: the calibrating run, a second run that plans from the
+    stored artifact, and the sink bytes against place=False."""
+    import os
+    import tempfile
+
+    from nnstreamer_tpu_torch.obs import profile as obs_profile
+    from nnstreamer_tpu_torch.runtime import placement
+
+    b = MB_BATCH
+    res = {"device_count": torch.cuda.device_count()}
+    with tempfile.TemporaryDirectory() as store:
+        saved = os.environ.get(obs_profile.STORE_ENV)
+        os.environ[obs_profile.STORE_ENV] = store
+        try:
+            # the plan each run starts from, read as play() returns (a
+            # calibration window opens inside play(); closing it takes
+            # CALIBRATION_DISPATCHES batches)
+            at_play = []
+
+            def read_plan(p):
+                at_play.append(p._placement_state.snapshot())
+
+            line = FU_PLACE_LINE.format(n=FU_PLACE_BATCHES * b, b=b, k=1)
+            pipe, _ = fu_run(line, True, place="auto", keep=False,
+                             on_play=read_plan)
+            if not at_play[0]["calibrating"] or \
+                    at_play[0]["source"] != "heuristic":
+                fail(f"placement: the first run did not calibrate "
+                     f"({at_play[0]['source']})")
+            snap = pipe._placement_state.snapshot()
+            (seg,) = pipe.fused_segments
+            q = pipe.get("q")
+            res["calibration"] = {
+                "plan": snap, "dispatches": seg.stats["dispatches"],
+                "artifacts": sorted(os.listdir(store)),
+                "stager": seg._stager.snapshot() if seg._stager else None,
+                "queue_capacity": q.stats["capacity"],
+                "queue_retuned": q.stats["retuned"]}
+            if snap["calibrating"] or snap["source"] != "profile" \
+                    or not res["calibration"]["artifacts"]:
+                fail(f"placement: the calibration window did not close and "
+                     f"persist ({snap['source']}, calibrating="
+                     f"{snap['calibrating']}, store {os.listdir(store)})")
+            if seg.stats["dispatches"] < placement.CALIBRATION_DISPATCHES:
+                fail(f"placement: {seg.stats['dispatches']} dispatches, "
+                     "fewer than the calibration window")
+            want_dev = [f"cuda:{i}" for i in range(res["device_count"])]
+            if snap["devices"] != want_dev or any(
+                    st["device"] != 0 for st in snap["stages"]):
+                fail(f"placement: plan devices {snap['devices']}, stages "
+                     f"{[st['device'] for st in snap['stages']]}")
+            if seg.device != torch.device("cuda", 0):
+                fail(f"placement: segment pinned to {seg.device}")
+            if not res["calibration"]["stager"] or \
+                    not res["calibration"]["stager"]["puts"]:
+                fail("placement: host frames did not ride the pinned stager")
+            depth = snap["queues"].get("q", {}).get("depth")
+            if depth is None or not (placement.MIN_QUEUE_DEPTH <= depth
+                                     <= placement.MAX_QUEUE_DEPTH):
+                fail(f"placement: queue depth {depth}")
+            line = FU_PLACE_LINE.format(n=FU_PLACE_CHECK * b, b=b,
+                                        k=FU_PLACE_CHECK)
+            placed, placed_outs = fu_run(line, True, place="auto",
+                                         on_play=read_plan)
+            snap2 = at_play[1]
+            res["second_run"] = {"source": snap2["source"],
+                                 "calibrating": snap2["calibrating"],
+                                 "queue_depth": snap2["queues"].get("q"),
+                                 "artifacts": sorted(os.listdir(store))}
+            if snap2["source"] != "profile" or snap2["calibrating"]:
+                fail(f"placement: the second run did not plan from the "
+                     f"stored artifact ({snap2['source']}, calibrating="
+                     f"{snap2['calibrating']})")
+        finally:
+            if saved is None:
+                os.environ.pop(obs_profile.STORE_ENV, None)
+            else:
+                os.environ[obs_profile.STORE_ENV] = saved
+    _, plain_outs = fu_run(line, True, place=None)
+    if len(placed_outs) != FU_PLACE_CHECK or len(plain_outs) != FU_PLACE_CHECK \
+            or any(not torch.equal(a, b)
+                   for a, b in zip(placed_outs, plain_outs)):
+        fail("placement: place=auto sink bytes differ from place=False")
+    res["sink_bytes_equal"] = True
+    return res
+
+
+FU_H2D_LINE = (
+    "appsrc name=in max-queued=4 caps=other/tensors,format=static,"
+    "dimensions=3:224:224:{b},types=uint8 ! tensor_transform "
+    f"mode=arithmetic option={FU_NORM} name=t ! tensor_filter "
+    f"framework=torch model={FU_MB_MODEL} name=f ! queue ! tensor_sink "
+    "name=out max-stored=1")
+# distinct host batches the appsrc line cycles through; batches of the
+# host line a run
+FU_H2D_DISTINCT, FU_H2D_HOST_BATCHES = 4, 12
+FU_H2D_ORDER = ("stager", "plain", "plain", "stager")
+
+
+class fu_h2d_path:
+    """Within the block, fused segments on the card take host frames by
+    ``path``: "stager" is the port's own (``FusedSegment._inputs``);
+    "plain" is patched in: a blocking pageable ``.to(card)`` of each host
+    tensor, as an unfused transform makes. Records each dispatch's host
+    time (from the head's entry to the return, the push included)."""
+
+    def __init__(self, path: str):
+        self.path, self.dispatch_s = path, []
+
+    def __enter__(self):
+        from nnstreamer_tpu_torch.core.buffer import as_torch
+        from nnstreamer_tpu_torch.runtime.fusion import FusedSegment
+
+        self._saved = FusedSegment._inputs, FusedSegment.dispatch
+        inputs, dispatch = self._saved
+        times = self.dispatch_s
+
+        def plain(seg, tensors, home):
+            if home.type != "cuda":
+                return inputs(seg, tensors, home)
+            return [t if isinstance(t, torch.Tensor) and t.is_cuda
+                    else as_torch(t).to(home) for t in tensors]
+
+        def timed(seg, pad, buf):
+            t0 = time.perf_counter()
+            try:
+                return dispatch(seg, pad, buf)
+            finally:
+                times.append(time.perf_counter() - t0)
+
+        if self.path == "plain":
+            FusedSegment._inputs = plain
+        FusedSegment.dispatch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from nnstreamer_tpu_torch.runtime.fusion import FusedSegment
+
+        FusedSegment._inputs, FusedSegment.dispatch = self._saved
+        return False
+
+
+def fu_sink_clock(pipe, outs: list) -> list:
+    """Stamp, at the sink, the time each buffer's own work finished: the
+    filter records a CUDA event as it pushes, the sink waits on it (see
+    fu_mb_run). Returns the list the stamps go to; ``outs`` gets each
+    buffer's first tensor."""
+    tail, times = pipe.get("f"), []
+    push = tail.push
+
+    def timed_push(buf, pad=None):
+        done = torch.cuda.Event()
+        done.record()
+        buf.meta["fu_done"] = done
+        push(buf, pad)
+
+    def on_data(buf):
+        buf.meta["fu_done"].synchronize()
+        times.append(time.perf_counter())
+        outs.append(buf.tensors[0])
+
+    tail.push = timed_push
+    pipe.get("out").connect(on_data)
+    return times
+
+
+def fu_h2d_run(path: str, line: str, frames=None) -> dict:
+    """One run of ``line`` under ``path`` (fused, default placement):
+    frames/s at the sink over the batches after MB_WARM, the median host
+    ms of a dispatch, and the logits. ``frames``: host batches an appsrc
+    named ``in`` is fed back to back, MB_WARM + MB_MEASURED of them."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    outs = []
+    with fu_h2d_path(path) as rec:
+        pipe = parse_launch(line)
+        times = fu_sink_clock(pipe, outs)
+        pipe.play()
+        try:
+            if frames is not None:
+                src = pipe.get("in")
+                for i in range(MB_WARM + MB_MEASURED):
+                    src.push_buffer(frames[i % len(frames)])
+                src.end_of_stream()
+            msg = pipe.wait(timeout=600)
+        finally:
+            pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"fusion h2d ({path}): {line[:50]}... ended with {msg}")
+    (seg,) = pipe.fused_segments
+    n = len(times)
+    return {"frames_per_s": (n - MB_WARM) * MB_BATCH
+            / (times[-1] - times[MB_WARM - 1]),
+            "dispatch_ms_median": 1e3 * statistics.median(
+                rec.dispatch_s[MB_WARM:]),
+            "stager_puts": seg._stager.snapshot()["puts"]
+            if seg._stager is not None else 0,
+            "batches": n, "outs": outs}
+
+
+def fu_h2d() -> dict:
+    """(d): the stager against the plain path, FU_H2D_ORDER, on three
+    lines; logits bit-equal across the runs of each line."""
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(0, 255, (MB_BATCH, 224, 224, 3), dtype=np.uint8)
+              for _ in range(FU_H2D_DISTINCT)]
+    host = FU_PLACE_LINE.format(n=FU_H2D_HOST_BATCHES * MB_BATCH,
+                                b=MB_BATCH, k=1)
+    appsrc = FU_H2D_LINE.format(b=MB_BATCH)
+    res = {"order": list(FU_H2D_ORDER), "host_line": [],
+           "appsrc_line": [], "p50": []}
+    ref = {}
+    for path in FU_H2D_ORDER:
+        for key, line, fr in (("host_line", host, None),
+                              ("appsrc_line", appsrc, frames)):
+            r = fu_h2d_run(path, line, fr)
+            outs = r.pop("outs")
+            if path == "stager" and r["stager_puts"] != r["batches"]:
+                fail(f"fusion h2d: {key}: {r['stager_puts']} of "
+                     f"{r['batches']} batches rode the stager")
+            if path == "plain" and r["stager_puts"]:
+                fail(f"fusion h2d: {key} rode the stager on the plain path")
+            if key not in ref:
+                ref[key] = outs
+            elif len(outs) != len(ref[key]) or any(
+                    not torch.equal(a, b) for a, b in zip(outs, ref[key])):
+                fail(f"fusion h2d: {key} logits differ between paths")
+            res[key].append(dict(r, path=path))
+        with fu_h2d_path(path):
+            p = fu_p50(True)
+        res["p50"].append({"path": path, "p50_ms": p["p50_ms"],
+                           "p90_ms": p["p90_ms"],
+                           "stager_puts": p["stager_puts"]})
+    res["logits_bit_equal"] = True
+    return res
+
+
+def phase_fusion(report: dict) -> None:
+    from nnstreamer_tpu_torch.runtime import placement
+
+    r = report["fusion"] = {}
+    chain = r["chain"] = fu_chain_overhead()
+    for key in ("fused", "unfused"):
+        c = chain[key]
+        print(f"fusion 8-element device chain {key}: "
+              f"{c['us_per_buffer_8']:.2f} us a buffer "
+              f"({c['us_per_element_per_buffer_8']:.2f} us an element), "
+              f"1 element {c['us_per_buffer_1']:.2f} us, marginal "
+              f"{c['marginal_us_per_element']:.2f} us an element; "
+              f"dispatches {c['dispatches']}, captures {c['retraces']}")
+    print(f"fusion chain: sink bytes equal fused and unfused over "
+          f"{FU_CHAIN_PARITY} buffers")
+    mb = r["mobilenet"] = fu_mobilenet()
+    for key in ("fused", "unfused"):
+        m = mb[key]
+        share = m["device"]["busy_share"]
+        print(f"fusion mobilenet line {key}: {m['frames_per_s']:.1f} "
+              f"frames/s, host {m['issue_ms_median']:.3f} ms to issue a "
+              f"batch, median batch {m['batch_ms_median']:.3f} ms, card "
+              "busy " + ("not measured" if share is None
+                         else f"{100 * share:.1f}%")
+              + f"; batch-1 p50 {m['p50']['p50_ms']:.3f} ms")
+    print(f"fusion mobilenet: logits bit-equal fused vs unfused, "
+          f"{mb['segment']['retraces']} capture, "
+          f"{mb['segment']['dispatches']} dispatches, stored sink buffers "
+          "intact")
+    pl = r["placement"] = fu_placement()
+    cal = pl["calibration"]
+    print(f"placement: {pl['device_count']} card(s), plan "
+          f"{cal['plan']['devices']} -> stages "
+          f"{[st['device'] for st in cal['plan']['stages']]}; calibration "
+          f"closed (window {placement.CALIBRATION_DISPATCHES}) in a run "
+          f"of {cal['dispatches']} dispatches, "
+          f"{len(cal['artifacts'])} artifact saved; queue depth "
+          f"{cal['plan']['queues'].get('q', {}).get('depth')} (retuned "
+          f"{cal['queue_retuned']}); stager puts {cal['stager']['puts']}; "
+          f"second run planned from the {pl['second_run']['source']} "
+          "without calibrating; sink bytes equal place=False")
+    h2d = r["h2d"] = fu_h2d()
+    for key in ("host_line", "appsrc_line"):
+        print(f"fusion h2d {key}: " + "; ".join(
+            f"{x['path']} {x['frames_per_s']:.1f} frames/s, dispatch "
+            f"{x['dispatch_ms_median']:.3f} ms, {x['stager_puts']} of "
+            f"{x['batches']} staged" for x in h2d[key]))
+    print("fusion h2d batch-1 p50: " + "; ".join(
+        f"{x['path']} {x['p50_ms']:.3f} ms ({x['stager_puts']} staged)"
+        for x in h2d["p50"])
+        + "; logits bit-equal on both paths")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -2824,6 +3414,14 @@ def main() -> None:
     report: dict = {}
     dev = torch.device("cuda:0")
     report["device"] = phase_device()
+    if sys.argv[1:] == ["--only", "fusion"]:
+        # phase 13 alone (no kernel is built or checked, no ok line)
+        phase_fusion(report)
+        print(json.dumps(report["fusion"], default=str))
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
+             "--only fusion for phase 13 alone)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -2838,6 +3436,7 @@ def main() -> None:
     phase_zoo(report, dev)
     phase_obs(report, prompts, filter_outs,
               {"decode_attention": decode_t, "flash_attention": flash_t})
+    phase_fusion(report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

@@ -35,6 +35,9 @@ class FilterProperties:
     model: str = ""
     custom: str = ""                      # free-form "key:value,key2:v2" string
     accelerator: Accelerator = Accelerator.AUTO
+    # the placement planner's card for a filter it placed
+    # (runtime/placement.py); a user's custom=device:N wins over it
+    placement_device: Optional[int] = None
 
     def custom_dict(self) -> Dict[str, str]:
         out: Dict[str, str] = {}
@@ -72,6 +75,16 @@ class FilterBackend:
         torch tensors; returning CUDA tensors keeps data on the device for
         the next stage."""
         raise NotImplementedError
+
+    def fusion_callable(self):
+        """A pure per-frame callable for the device-segment fusion
+        compiler (``runtime/fusion.py``) — ``fn(*tensors) -> tuple`` on
+        tensors already on this backend's device, making no host
+        transfer or sync so a CUDA graph can capture it — or None when
+        this backend's invoke cannot inline into a segment (host
+        interpreters, pinned execution). The default is None: only
+        backends whose invoke IS device work opt in."""
+        return None
 
     def get_model_info(self) -> Tuple[Optional[TensorsInfo], Optional[TensorsInfo]]:
         """(input_info, output_info); either may be None if the model cannot

@@ -19,8 +19,14 @@ Model sources accepted by the ``model`` property:
     builds the callable on the backend's device.
 
 Device choice (``_select_device``): ``accelerator=cpu`` runs on the CPU;
-``custom=device:N`` pins ``cuda:N``; otherwise ``cuda:0``. Without a card,
+``custom=device:N`` pins ``cuda:N``; then the placement planner's card;
+otherwise ``cuda:0``. Without a card,
 opening fails unless the CPU was asked for — there is no quiet fallback.
+
+Segment fusion (``runtime/fusion.py``): on a card a model joins a fused
+segment's CUDA graph only when it declares ``capture_safe = True`` (the
+zoo's entries and the builtins but ``sleeper`` do); any other model runs
+its own eager invoke. On the CPU every model fuses.
 
 Memory accounting (``obs/memory.py``): ``measure_next_invoke()`` arms a
 measurement of the next invoke on the card, and ``memory_analysis()``
@@ -200,8 +206,10 @@ class _Builtin:
     dtypes, outputs as a tuple, and a shape rule that runs the model on
     meta tensors."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, capture_safe: bool = True):
         self.fn = fn
+        # a CUDA graph may capture it (runtime/fusion.py)
+        self.capture_safe = capture_safe
 
     def __call__(self, *xs):
         return tuple(self.fn(*(canonicalize(x) for x in xs)))
@@ -228,12 +236,17 @@ def make_builtin(model: str, params: Optional[Dict[str, str]] = None,
     if name not in builtins:
         raise ValueError(
             f"unknown builtin model '{name}' (have: {sorted(builtins)})")
-    return _Builtin(builtins[name](merged, _Weights(weights)))
+    # sleeper's host sleep would run once, at capture, and never again
+    return _Builtin(builtins[name](merged, _Weights(weights)),
+                    capture_safe=name != "sleeper")
 
 
 def _select_device(props: FilterProperties) -> torch.device:
     idx = props.custom_dict().get("device")
     if idx is None:
+        if (props.placement_device is not None
+                and props.accelerator is not Accelerator.CPU):
+            return device_for_accelerator(f"cuda:{props.placement_device}")
         return device_for_accelerator(props.accelerator.value)
     if props.accelerator is Accelerator.CPU:
         raise ValueError(
@@ -308,6 +321,35 @@ class TorchBackend(FilterBackend):
         with torch.inference_mode():
             out = self._fn(*xs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def fusion_callable(self) -> Optional[Callable]:
+        """The model as a fused segment's stage (``runtime/fusion.py``):
+        ``fn(*xs) -> tuple`` under ``torch.inference_mode()``, as
+        ``invoke`` runs it, on inputs the segment already moved to this
+        backend's device. None (the segment defuses) for a filter pinned
+        by ``custom=device:N`` to a card other than the default: pinned
+        stages keep their own dispatch and copies. On a card, also None
+        unless the model declares ``capture_safe = True``: a CUDA graph
+        bakes in what the model reads on the host and cannot hold a host
+        sync, which an eager model may do freely. Never the measured
+        invoke: its synchronize and peak-statistics reset cannot run
+        inside a capture."""
+        fn = self._fn
+        if fn is None:
+            return None
+        idx = self.props.custom_dict().get("device") if self.props else None
+        if idx is not None and int(idx) != 0:
+            return None
+        dev = self._device
+        if dev is not None and dev.type == "cuda" and \
+                not getattr(fn, "capture_safe", False):
+            return None
+
+        def call(*xs):
+            with torch.inference_mode():
+                out = fn(*xs)
+            return tuple(out) if isinstance(out, (list, tuple)) else (out,)
+        return call
 
     def measure_next_invoke(self) -> None:
         """Measure the bytes of the next invoke (obs/memory.py)."""

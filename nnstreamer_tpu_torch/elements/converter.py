@@ -73,6 +73,9 @@ class TensorConverter(TransformElement):
     ELEMENT_NAME = "tensor_converter"
     SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, _IN_CAPS),)
     SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new(TENSORS_MIME)),)
+    DEVICE_AFFINITY = "host"  # media parsing works on host byte layouts
+    # barrier text of the fusion planner (runtime/fusion.py)
+    FUSION_BARRIER = "host media parsing (byte-layout work in host memory)"
     PROPERTIES = {
         "frames_per_tensor": Prop(1, int, "chunk N media frames into one tensor frame"),
         "input_dim": Prop(None, str, "dim string for octet/text input"),

@@ -23,9 +23,14 @@ steady-state chain (§3.2) runs: validate → input-combination → invoke (time
   profiler's series name; an OOM-shaped invoke failure lands in the
   flight recorder with this stage's name.
 
+* segment fusion (``runtime/fusion.py``): a filter inside a fused
+  segment runs as a stage of the segment's one dispatch
+  (``fusion_stage``: input-combination → model → output-combination);
+  sync-invoke and latency profiling make it a barrier. A placement pin
+  (``set_placement_device``) picks the card its backend opens on.
+
 Not in this package yet (nnstreamer_tpu has them): invoke-dynamic, suspend,
-hot model swap (is-updatable / reload), placement pins, layout and
-tensor-name properties and segment fusion.
+hot model swap (is-updatable / reload), layout and tensor-name properties.
 """
 from __future__ import annotations
 
@@ -93,6 +98,7 @@ class TensorFilter(TransformElement):
     ELEMENT_NAME = "tensor_filter"
     SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, Caps.new("other/tensors")),)
     SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new("other/tensors")),)
+    DEVICE_AFFINITY = "device"  # model on the card; outputs stay device-resident
     PROPERTIES = {
         "framework": Prop("auto", str, "backend name or 'auto' (detect from model ext)"),
         "model": Prop("", str, "module:attr of a callable or model entry, "
@@ -166,6 +172,16 @@ class TensorFilter(TransformElement):
         # memory accounting (obs/memory.py): armed at backend open while
         # accounting is on, consumed by the first invoke
         self._mem_pending = False
+        # placement-planner device pin for this filter's stage
+        # (runtime/placement.py): consumed at backend open; an explicit
+        # user custom=device:N always wins
+        self._placement_device_index: Optional[int] = None
+
+    def set_placement_device(self, index: Optional[int]) -> None:
+        """Planner-assigned card for this filter's stage. Applies the
+        next time the backend opens (play(), supervised restart), never
+        mid-invoke; None clears the pin."""
+        self._placement_device_index = index
 
     SUBPLUGIN_KIND = SubpluginKind.FILTER  # read-only sub-plugins prop
 
@@ -246,6 +262,7 @@ class TensorFilter(TransformElement):
             model=model,
             custom=self._custom_with_config_file(),
             accelerator=Accelerator(self.props["accelerator"]),
+            placement_device=self._placement_device_index,
         )
         self.backend = acquire_backend(
             self._detect_framework(model, hint), fprops,
@@ -352,6 +369,68 @@ class TensorFilter(TransformElement):
         if self._out_info is not None:
             return caps_from_tensors_info(self._out_info)
         return caps_from_tensors_info(TensorsInfo((), TensorFormat.FLEXIBLE))
+
+    # -- segment fusion (runtime/fusion.py) ---------------------------------
+    def fusion_barrier(self) -> Optional[str]:
+        base = super().fusion_barrier()
+        if base is not None:
+            return base
+        # per-instance disqualifiers: behaviors that cannot live inside a
+        # composed dispatch without changing semantics (invoke-dynamic and
+        # suspend are barriers too, once the port has those properties)
+        if self.props.get("invoke_dynamic"):
+            return "invoke-dynamic (output shapes decided per invoke)"
+        if (self.props.get("suspend") or 0) > 0:
+            return "suspend (idle framework unload would outlive the trace)"
+        if self.props["sync_invoke"]:
+            return "sync-invoke (per-invoke blocking is the requested behavior)"
+        if self.props["latency"] or self.props["latency_report"]:
+            return "latency profiling (needs per-invoke timing)"
+        return None
+
+    def fusion_stage(self):
+        """Pure per-buffer invoke for segment fusion: input-combination →
+        model → output-combination, all inside the segment's one
+        dispatch. None when the opened backend hands out no stage (a
+        pinned card) — the segment then defuses."""
+        if self.fusion_barrier() is not None or self._in_info is None:
+            return None
+        backend = self.backend
+        if backend is None:
+            return None
+        fn = backend.fusion_callable()
+        if fn is None:
+            return None
+        sel = self.props["input_combination"]
+        out_comb = self.props["output_combination"]
+
+        def stage(xs):
+            inputs = [xs[i] for i in sel] if sel else list(xs)
+            outs = fn(*inputs)
+            if out_comb is not None:
+                outs = tuple(xs[idx] if src == "i" else outs[idx]
+                             for src, idx in out_comb)
+            return outs
+        return stage
+
+    def fusion_device(self):
+        """The backend's card: a segment holding this filter runs there."""
+        return getattr(self.backend, "device", None)
+
+    def fusion_gate(self, buf: Buffer) -> bool:
+        """QoS throttle on the fused path: the SAME acceptance-window gate
+        as the unfused hot loop step 0, run host-side before the dispatch."""
+        return self._throttle_accept()
+
+    def _invalidate_fused(self) -> None:
+        """A model swap changed what this element computes: drop the
+        segment's captured graphs so the next buffer re-captures against
+        the new backend. The hot-swap paths that call this
+        (``commit_model``/``reload_model``) come with ROADMAP A5, the
+        AOT eviction with A7."""
+        seg = self._fusion_member
+        if seg is not None:
+            seg.invalidate(evict_aot=True)
 
     # -- QoS (reference tensor_filter.c:512) --------------------------------
     def handle_src_event(self, pad: Pad, event: Event) -> None:

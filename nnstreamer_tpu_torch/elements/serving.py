@@ -63,6 +63,11 @@ class TensorServing(TransformElement):
     ELEMENT_NAME = "tensor_serving"
     SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, _TENSOR_CAPS),)
     SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, _TENSOR_CAPS),)
+    DEVICE_AFFINITY = "device"  # batches execute on the scheduler's card
+    # fusion opt-out (runtime/fusion.py): cross-buffer batching state —
+    # a buffer's result depends on co-batched traffic from OTHER
+    # streams, which no pure per-buffer stage can express
+    FUSABLE = False
     PROPERTIES = {
         "framework": Prop("torch", str,
                           "backend executing the batches: torch (or auto, "

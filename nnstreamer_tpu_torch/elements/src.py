@@ -119,6 +119,10 @@ class TensorSrc(_PacedSource):
     def get_src_caps(self) -> Caps:
         return caps_from_tensors_info(self._info)
 
+    def device_affinity(self) -> str:
+        # device=true streams are device-resident from birth
+        return "device" if self.props["device"] else "neutral"
+
     def _device_create(self, idx: int) -> list:
         """Every tensor of frame ``idx`` made on the device. Values differ
         from the host path's (and from nnstreamer_tpu's jax.random); the

@@ -18,6 +18,10 @@ _ANY_MEDIA_CAPS = any_media_caps()
 @register_element
 class Tee(Element):
     ELEMENT_NAME = "tee"
+    # fusion barrier (runtime/fusion.py): fan-out shares ONE buffer
+    # across branches; a segment fusing through it could hand a sibling
+    # branch a tensor the segment reuses
+    FUSION_BARRIER = "tee fan-out (buffers shared across branches)"
     SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, _ANY_MEDIA_CAPS),)
     SRC_TEMPLATES = (
         PadTemplate("src_%u", PadDirection.SRC, _ANY_MEDIA_CAPS, PadPresence.REQUEST),

@@ -44,6 +44,7 @@ class TensorTransform(TransformElement):
     ELEMENT_NAME = "tensor_transform"
     SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, Caps.new("other/tensors")),)
     SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new("other/tensors")),)
+    DEVICE_AFFINITY = "device"  # elementwise torch ops on the card
     # reference read-only constant (gsttensor_transform.c
     # transpose-rank-limit): max rank the transpose option string addresses
     TRANSPOSE_RANK_LIMIT = 4
@@ -129,3 +130,24 @@ class TensorTransform(TransformElement):
             raise ElementError(f"{self.describe()}: not negotiated")
         outs = self._run([self._place(x) for x in buf.tensors])
         return Buffer(outs).copy_metadata_from(buf)
+
+    # -- segment fusion (runtime/fusion.py) ---------------------------------
+    def fusion_stage(self):
+        """The raw per-tensor transform, composed into the segment's one
+        dispatch. The ``_place`` copy stays outside: the segment moves
+        its inputs to its device once, before the stages run."""
+        if self._device is None:
+            return None
+        fn = self._fn
+        applies = self._applies
+
+        def stage(xs):
+            xs = [canonicalize(x) for x in xs]
+            return tuple(fn(x) if applies(i) else x
+                         for i, x in enumerate(xs))
+        return stage
+
+    def fusion_host_device(self) -> Optional[torch.device]:
+        """Where a fused segment headed by this transform moves host
+        inputs (``accelerator``); CUDA inputs stay where they lie."""
+        return self._device

@@ -202,7 +202,10 @@ class ServedModel:
     """A zoo model as a filter callable: ``call(x)`` under inference mode;
     a float32 build on the card runs without TF32 (``exact_float32``).
     ``output_info`` is the shape rule caps negotiation uses instead of
-    running the model."""
+    running the model. Pure device work: a fused segment may capture it
+    in a CUDA graph."""
+
+    capture_safe = True
 
     def __init__(self, model: nn.Module, call=None, output_info=None):
         self.model = model
@@ -242,6 +245,8 @@ class U8Entry:
 
 
 class _U8Served:
+    capture_safe = True
+
     def __init__(self, fn, dtype: torch.dtype):
         self.fn, self.dtype = fn, dtype
 

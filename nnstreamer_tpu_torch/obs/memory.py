@@ -674,9 +674,9 @@ def stop() -> None:
 
 def begin_calibration() -> None:   # pairs-with: end_calibration
     """Placement-calibration window (refcounted, paired with
-    :func:`end_calibration`) — the reference's planner needs byte
-    estimates captured in the same window that measures stage latency
-    (the port has no planner yet)."""
+    :func:`end_calibration`) — the placement planner
+    (runtime/placement.py) needs byte estimates captured in the same
+    window that measures stage latency."""
     global _calibrating
     with _ctl_lock:
         if _san.LEAK:

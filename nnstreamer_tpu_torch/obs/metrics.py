@@ -307,9 +307,9 @@ _tracked_pipelines: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def track_pipeline(pipeline) -> None:
-    """Pipelines whose per-pipeline rows a collector reads (the
-    reference's fused-segment collector; the port has no segment fusion
-    yet, ROADMAP A4, so nothing tracks one)."""
+    """Pipelines whose per-pipeline rows a collector reads:
+    ``fusion.install`` tracks every pipeline that fused a segment, and
+    the ``fused`` collector renders each segment's counters."""
     _tracked_pipelines.add(pipeline)
     if _san.LEAK:
         _san.note_acquire("metrics_registration",
@@ -406,6 +406,34 @@ def _collect_serving(reg: Registry) -> None:
                 scheduler=name)
 
 
+def _collect_fused(reg: Registry) -> None:
+    disp = reg.counter("nns_fused_dispatches_total",
+                       "single-dispatch segment executions (graph replays "
+                       "on the card)", ("pipeline", "segment"))
+    retr = reg.counter("nns_fused_retraces_total",
+                       "segment captures (one CUDA graph per input "
+                       "signature)", ("pipeline", "segment"))
+    defu = reg.counter("nns_fused_defused_total",
+                       "runtime fallbacks to per-element dispatch",
+                       ("pipeline", "segment"))
+    probe = reg.gauge("nns_fused_probe_device_seconds",
+                      "last sampled device-complete latency",
+                      ("pipeline", "segment"))
+    for inst in (disp, retr, defu, probe):  # snapshot mirrors
+        inst.clear()
+    for pipe in list(_tracked_pipelines):
+        for seg in getattr(pipe, "fused_segments", []):
+            st = seg.stats
+            disp.set_total(st.get("dispatches", 0), pipeline=pipe.name,
+                           segment=seg.name)
+            retr.set_total(st.get("retraces", 0), pipeline=pipe.name,
+                           segment=seg.name)
+            defu.set_total(st.get("defused", 0), pipeline=pipe.name,
+                           segment=seg.name)
+            probe.set(st.get("probe_device_s", 0.0), pipeline=pipe.name,
+                      segment=seg.name)
+
+
 def _collect_obs(reg: Registry) -> None:
     from . import context, flight
 
@@ -422,4 +450,5 @@ def _collect_obs(reg: Registry) -> None:
 
 
 register_collector("serving", _collect_serving)
+register_collector("fused", _collect_fused)
 register_collector("obs", _collect_obs)

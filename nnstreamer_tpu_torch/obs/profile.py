@@ -19,9 +19,10 @@ Attribution channels, all riding hooks that already exist:
 * **requests** — the serving schedulers record end-to-end request
   latency + outcome into *windowed* series (:class:`WindowedSeries`), the
   substrate the SLO engine (:mod:`.slo`) evaluates burn rates from.
-* **fused segments** — :func:`record_fused` keeps the reference's
-  ``fused`` / ``fused_device`` series; the port has no segment fusion
-  yet (ROADMAP A4), so nothing records into them.
+* **fused segments** — ``FusedSegment.dispatch`` (runtime/fusion.py)
+  records host dispatch time every buffer and the sampled
+  device-complete time every ``PROBE_EVERY``-th (:func:`record_fused`:
+  the ``fused`` / ``fused_device`` series).
 
 Cost contract: with profiling off every hook is ONE module-global check
 (:data:`ACTIVE`); enabled overhead is reported, not gated — turning the
@@ -576,8 +577,7 @@ def begin_calibration() -> None:   # pairs-with: end_calibration
     """Placement-calibration recording (queue/fused hooks, no element
     tracer), REFCOUNTED: each ``begin`` must be paired with one ``end``,
     and concurrent calibrating pipelines keep recording alive until the
-    last one finishes (the reference's runtime/placement.py; the port
-    has no planner yet)."""
+    last one finishes (runtime/placement.py's calibration window)."""
     global _calibrating
     with _ctl_lock:
         if _san.LEAK:
@@ -1062,8 +1062,9 @@ def render_top(profile_snap: dict, slo_status: List[dict],
     a QUALITY section (per-edge tensor health + drift — :mod:`.quality`)
     when a quality snapshot is supplied, and — when a placement plan or
     a transport snapshot is supplied — per-stage device assignment +
-    balance and the wire formats (rendered as the reference does; the
-    port has no planner or transport yet)."""
+    balance (``runtime.placement.snapshot_all()``) and the wire formats
+    (rendered as the reference does; the port has no wire transport
+    yet)."""
     lines = [f"nns obs top — profiling "
              f"{'ON' if profile_snap.get('active') else 'off'}"]
     # the reference's FLEET and AUTOSCALER sections render obs/fleet.py

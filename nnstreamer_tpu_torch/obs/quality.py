@@ -483,9 +483,8 @@ _reduce_failed: set = set()
 
 
 def record_fused_outputs(name: str, outputs) -> None:
-    """Sampled fused-segment output health (the reference's
-    ``FusedSegment.dispatch``; the port has no fusion yet, ROADMAP A4):
-    one device reduce per output tensor. Must never kill
+    """Sampled fused-segment output health (``FusedSegment.dispatch``,
+    runtime/fusion.py): one device reduce per output tensor. Must never kill
     the dispatch — failures are logged once per segment."""
     try:
         default_accountant.observe(name, outputs, kind="fused")

@@ -54,6 +54,22 @@ class Element:
     ELEMENT_NAME: str = ""
     SINK_TEMPLATES: Sequence[PadTemplate] = ()
     SRC_TEMPLATES: Sequence[PadTemplate] = ()
+    # where this element's steady-state compute runs. "device": PyTorch
+    # compute on the element's card, buffers stay device-resident
+    # (tensor_filter/tensor_serving/tensor_transform); "host": must pull
+    # buffers to host memory to do its work (decoders, media
+    # converters); "neutral": works on whatever arrives without forcing
+    # a transfer (queues, tees, sinks)
+    DEVICE_AFFINITY: str = "neutral"
+    # fusion contract (runtime/fusion.py): device-affinity elements are
+    # fused into one-dispatch segments by default; STATEFUL device
+    # elements whose per-buffer behavior cannot be expressed as a pure
+    # per-buffer function (cross-buffer batching, RNG state) set False
+    FUSABLE: bool = True
+    # optional class-level barrier message the fusion planner reports
+    # instead of the generic affinity/FUSABLE reason — e.g. queue's
+    # "queue boundary"
+    FUSION_BARRIER: Optional[str] = None
     # alternate property spellings (reference/GStreamer names) mapped to
     # the canonical key, applied after dash→underscore normalization
     PROP_ALIASES: Dict[str, str] = {}
@@ -85,6 +101,12 @@ class Element:
         # elements' latches must stay distinct lock-order graph nodes
         self._lock = named_lock(f"Element._lock:{name}")
         self._eos_sent = False  # guarded-by: _lock
+        # fusion annotations (runtime/fusion.py, set by fusion.install):
+        # _fusion_head routes this element's incoming buffers through one
+        # fused dispatch; _fusion_member links every segment element for
+        # cache invalidation on caps/model changes
+        self._fusion_head = None
+        self._fusion_member = None
         self.props: Dict[str, Any] = {}
         merged: Dict[str, Prop] = {}
         for klass in reversed(cls.__mro__):
@@ -172,6 +194,51 @@ class Element:
     # (registered subplugin names) is then served here for all of them
     SUBPLUGIN_KIND = None
 
+    def device_affinity(self) -> str:
+        """Effective device affinity of THIS instance (classes whose
+        affinity depends on configuration — e.g. tensor_src device=true —
+        override; everyone else reports DEVICE_AFFINITY)."""
+        return self.DEVICE_AFFINITY
+
+    # -- fusion contract (runtime/fusion.py) --------------------------------
+    def fusion_barrier(self) -> Optional[str]:
+        """Why THIS instance cannot join a fused device segment, or None
+        if it is a candidate. Subclasses with per-instance disqualifiers
+        (tensor_filter sync-invoke/profiling) extend this."""
+        if self.FUSION_BARRIER is not None:
+            return self.FUSION_BARRIER
+        aff = self.device_affinity()
+        if aff != "device":
+            return f"{aff}-affinity element"
+        if not self.FUSABLE:
+            return "FUSABLE=False (stateful element)"
+        return None
+
+    def fusion_stage(self):
+        """Pure per-buffer transform for segment fusion: ``stage(tensors_
+        tuple) -> tensors_tuple`` on tensors already on the segment's
+        device, resolved AFTER caps negotiation. It must make no host
+        transfer and no host sync, so that a CUDA graph can capture it.
+        None = no stage right now (the segment falls back to per-element
+        dispatch until the next invalidation)."""
+        return None
+
+    def fusion_device(self):
+        """The device this member's stage must run on (a filter's
+        backend device), or None when the stage follows its input."""
+        return None
+
+    def fusion_host_device(self):
+        """Where this member, as a segment's first device-bound element,
+        would move host inputs (a transform's ``accelerator``), or None."""
+        return None
+
+    def fusion_gate(self, buf: Buffer) -> bool:
+        """Host-side per-buffer admission for fused dispatch (False =
+        drop the buffer, e.g. QoS throttle). Only overrides are invoked —
+        pure transform chains pay nothing."""
+        return True
+
     def get_property(self, key: str) -> Any:
         key_n = key.replace("-", "_")
         if key_n == "sub_plugins" and self.SUBPLUGIN_KIND is not None:
@@ -240,6 +307,11 @@ class Element:
         element-specific accumulation; always call super()."""
         with self._lock:
             self._eos_sent = False
+        # restart safety: a replay must never dispatch through a fused
+        # segment planned for the PREVIOUS run (play() re-installs fresh
+        # segments after this reset — see runtime/fusion.py)
+        self._fusion_head = None
+        self._fusion_member = None
         for pad in self.sink_pads + self.src_pads:
             pad.got_eos = False
             pad.caps = None
@@ -271,6 +343,12 @@ class Element:
                 self.describe(), pad.name, buf.pts,
                 getattr(buf, "num_tensors", len(buf.tensors)))
         try:
+            # fused-segment head: the whole device chain runs as ONE
+            # dispatch (runtime/fusion.py); a defused segment (a member
+            # without a stage) returns False and the per-element path runs
+            seg = self._fusion_head
+            if seg is not None and seg.dispatch(pad, buf):
+                return
             self.chain(pad, buf)
         except Exception as e:  # noqa: BLE001 - becomes a pipeline ERROR message
             logger.debug("%s", traceback.format_exc())
@@ -301,6 +379,12 @@ class Element:
             pad.caps = caps
             self.set_caps(pad, caps)
             self.maybe_negotiate()
+            # caps (re)negotiation reconfigures this element's transform:
+            # a fused segment holding graphs captured against the OLD
+            # caps must re-resolve on the next buffer
+            seg = self._fusion_member
+            if seg is not None:
+                seg.invalidate()
         elif event.type is EventType.EOS:
             pad.got_eos = True
             if all(p.got_eos for p in self.sink_pads if p.is_linked):

@@ -175,16 +175,20 @@ def launch_chains(description: str) -> List[List[List[str]]]:
     return chains
 
 
-def parse_launch(description: str, pipeline: Optional[Pipeline] = None
-                 ) -> Pipeline:
+def parse_launch(description: str, pipeline: Optional[Pipeline] = None,
+                 fuse: Optional[bool] = None, place=None) -> Pipeline:
     """Build a Pipeline from a launch string (elements linked, not started).
 
     Unknown element names raise with a did-you-mean suggestion from the
-    registry (``registry.elements.suggest_element``).
+    registry (``registry.elements.suggest_element``). ``fuse`` and
+    ``place`` forward to the Pipeline constructor (device-segment fusion,
+    default on / NNS_NO_FUSE; profile-guided placement, default off /
+    ``place="auto"`` / NNS_NO_PLACE); ignored when an existing
+    ``pipeline`` is passed in.
     """
     from ..registry.elements import make_element
 
-    pipe = pipeline or Pipeline()
+    pipe = pipeline or Pipeline(fuse=fuse, place=place)
     chains = launch_chains(description)
 
     links: List[Tuple[Entry, Entry]] = []

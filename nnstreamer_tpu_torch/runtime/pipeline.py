@@ -6,6 +6,7 @@ which in our design is event-driven and needs no separate state).
 """
 from __future__ import annotations
 
+import os
 import queue as _queue
 import threading
 import time
@@ -52,8 +53,27 @@ class Bus:
 class Pipeline:
     """A runnable graph of elements."""
 
-    def __init__(self, name: str = "pipeline"):
+    def __init__(self, name: str = "pipeline", fuse: Optional[bool] = None,
+                 place=None):
         self.name = name
+        # device-segment fusion (runtime/fusion.py): ON by default — each
+        # linear run of device elements becomes one dispatch per buffer
+        # (a CUDA graph replay on the card). fuse=False (or the
+        # NNS_NO_FUSE=1 escape hatch) keeps the per-element path.
+        if fuse is None:
+            fuse = os.environ.get("NNS_NO_FUSE", "") not in ("1", "true", "yes")
+        self.fuse = bool(fuse)
+        self._fused_segments: list = []  # set by fusion.install at play()
+        # profile-guided placement (runtime/placement.py): OFF by default
+        # — place="auto" plans the fused segments across the local cards
+        # from the ProfileStore (calibrating on a miss) and tunes
+        # inter-stage queue depths; a PlacementPlan instance applies a
+        # serialized plan verbatim. NNS_NO_PLACE=1 is the kill switch
+        # (wins over any constructor value).
+        if os.environ.get("NNS_NO_PLACE", "") in ("1", "true", "yes"):
+            place = None
+        self.place = place
+        self._placement_state = None  # set by placement.install at play()
         self.elements: Dict[str, Element] = {}
         self.bus = Bus()
         self._playing = False
@@ -107,7 +127,9 @@ class Pipeline:
     def element_stats(self) -> Dict[str, dict]:
         """Per-element runtime counters for every element exposing a
         ``.stats`` dict (queues: drop/level counters; tensor_fault:
-        injection counters, tensor_filter: invoke statistics)."""
+        injection counters, tensor_filter: invoke statistics), plus one
+        ``fused:<head>..<tail>`` pseudo-element per fused segment that
+        dispatched or defused."""
         out: Dict[str, dict] = {}
         for el in self.elements.values():
             stats = getattr(el, "stats", None)
@@ -115,7 +137,23 @@ class Pipeline:
                 out[el.name] = dict(stats)
             elif hasattr(stats, "snapshot"):  # InvokeStats (tensor_filter)
                 out[el.name] = stats.snapshot()
+        for seg in self._fused_segments:
+            if seg.stats.get("dispatches") or seg.stats.get("defused"):
+                out[f"fused:{seg.name}"] = dict(seg.stats)
         return out
+
+    @property
+    def fused_segments(self) -> list:
+        """The FusedSegments installed by the last play() (empty when
+        fuse=False or nothing fused)."""
+        return list(self._fused_segments)
+
+    @property
+    def placement_plan(self):
+        """The PlacementPlan applied by the last play() (None when
+        placement is off or nothing planned)."""
+        state = self._placement_state
+        return state.plan if state is not None else None
 
     @property
     def sinks(self) -> List[SinkElement]:
@@ -139,6 +177,25 @@ class Pipeline:
                 self._eos_sinks.clear()
             for el in self.elements.values():
                 el.reset_flow()
+            # plan fused device segments AFTER flow reset (a restart must
+            # never reuse the previous run's graphs) and BEFORE elements
+            # start; graphs are captured lazily once caps have negotiated
+            from . import fusion
+
+            if self.fuse:
+                fusion.install(self)
+            else:
+                fusion.uninstall(self)
+            # placement AFTER fusion: the planner assigns the freshly
+            # installed segments, re-planned from scratch on every play
+            if self.place:
+                from . import placement
+
+                placement.install(self)
+            elif self._placement_state is not None:
+                from . import placement
+
+                placement.uninstall(self)
             # memory accounting (obs/memory.py): queue-occupancy bytes
             # are read off live pipelines at scrape time
             obs_memory.track_pipeline(self)
@@ -167,10 +224,17 @@ class Pipeline:
         # joined outside _state_lock — the halt threads acquire it
         self._halt_threads.drain(timeout_per=2.0)
         # explicit metrics unregister sweep: a stopped pipeline's
-        # queue-bytes rows must leave the scrape NOW, not whenever GC
-        # collects the weak refs (a replay re-tracks at play())
+        # nns_fused_* / nns_placement_* / queue-bytes rows must leave the
+        # scrape NOW, not whenever GC collects the weak refs (a replay
+        # re-tracks at play())
         obs_metrics.untrack_pipeline(self)
         obs_memory.untrack_pipeline(self)
+        if self._placement_state is not None:
+            # an open calibration window must not outlive the run that
+            # was feeding it samples (recording refcount balance)
+            from . import placement
+
+            placement.on_stop(self)
         if trace.ACTIVE:
             # env-activated chrome traces flush at every stop(), not only
             # at interpreter exit — a long-lived serve process produces

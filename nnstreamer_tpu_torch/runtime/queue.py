@@ -129,6 +129,10 @@ class _Channel:
 
 class QueueElement(Element):
     ELEMENT_NAME = "queue"
+    # fusion barrier (runtime/fusion.py): the queue IS the thread +
+    # backpressure boundary — fusing across it would delete the
+    # pipeline-stage parallelism it exists to provide
+    FUSION_BARRIER = "queue boundary (thread + backpressure decoupling)"
     SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, any_media_caps()),)
     SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, any_media_caps()),)
     PROPERTIES = {

@@ -419,8 +419,8 @@ def notify_serving(kind: str, name: str, start_s: float, dur_s: float,
 def notify_fused(name: str, start_s: float, dur_s: float, meta: dict) -> None:
     """Fused-segment span (only called when ACTIVE): one span per
     single-dispatch device chain, kind="fused", so traces show where N
-    element hops collapsed into one call. The port has no segment fusion
-    yet (ROADMAP A4), so nothing calls it."""
+    element hops collapsed into one call (``FusedSegment.dispatch``,
+    runtime/fusion.py)."""
     notify_serving("fused", name, start_s, dur_s, meta)
 
 

@@ -53,6 +53,11 @@ def _run(parse, line, replays=1):
     pipe.get("out").connect(got.append)
     for _ in range(replays):
         del got[:]
+        # a run that ended in an ERROR may have posted its EOS behind it
+        # (the source finished before the error halt stopped it): that
+        # message belongs to the finished run, not to the replay's wait
+        while pipe.bus.pop(timeout=0) is not None:
+            pass
         pipe.play()
         msg = pipe.wait(timeout=60)
         pipe.stop()
@@ -106,9 +111,25 @@ def test_host_bfloat16_matches(props):
 
 
 def test_crash_at_buffer_is_one_shot_across_replays():
-    runs = _same("crash-at-buffer=2", replays=2)
-    assert runs[0][0] == "error" and runs[0][1]["crashed"] == 1
-    assert runs[1][0] == "eos" and runs[1][1]["crashed"] == 0
+    """After the crash the source runs on until the pipeline's error halt
+    stops it, so how many more buffers cross the element in the first
+    run (and whether that run's EOS lands on the bus behind its ERROR)
+    is timing in both packages. What the semantics fix is compared
+    exactly: the message, ``crashed``, the buffers before the crash and
+    the whole second replay."""
+    line = LINE.format(n=16, dims="8", types="float32",
+                       props="crash-at-buffer=2")
+    got = _run(parse_launch, line, replays=2)
+    want = _run(jax_parse_launch, line, replays=2)
+
+    def fixed(runs):
+        (msg, stats, bufs), replay = runs
+        return msg, stats["crashed"], bufs[:2], replay
+
+    assert fixed(got) == fixed(want)
+    assert got[0][0] == "error" and got[0][1]["crashed"] == 1
+    assert len(got[0][2]) >= 2
+    assert got[1][0] == "eos" and got[1][1]["crashed"] == 0
 
 
 def test_replay_resets_the_rng():

@@ -59,8 +59,11 @@ def _clean_profile():
 
 
 def _port(line, **kw):
+    # per-element attribution: both packages unfused (the fused series
+    # are held in test_torch_fusion.py)
     return parse_launch(line.format(acc="accelerator=cpu ", fw="torch",
-                                    pkg="nnstreamer_tpu_torch", **kw))
+                                    pkg="nnstreamer_tpu_torch", **kw),
+                        fuse=False)
 
 
 def _ref(line, **kw):

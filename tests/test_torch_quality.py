@@ -272,8 +272,9 @@ def test_psi_and_cells_match():
 def _tap_run(mod, line, sample_every=1, feed=None):
     mod.start(sample_every=sample_every)
     try:
-        pipe = (parse_launch if mod is tquality else
-                lambda s: jax_parse_launch(s, fuse=False))(line)
+        # per-edge taps: both packages unfused
+        pipe = (lambda s: parse_launch(s, fuse=False) if mod is tquality
+                else jax_parse_launch(s, fuse=False))(line)
         pipe.play()
         if feed is not None:
             src = pipe.get("in")
