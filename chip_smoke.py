@@ -189,10 +189,50 @@ phase fails:
     of a stager run is staged, none of a plain run. This phase runs no
     hand-written kernel.
 
+14. streams (ROADMAP A5, first half) — SingleShot, the filter's hot
+    swap and suspend, and the stream-structure elements, MobileNet-v2
+    and PoseNet at batch 64 (bf16, the card's ``auto``). (a) bench.py's
+    flow: ``SingleShot("torch", ...mobilenet_v2:filter_model_u8,
+    share_key="bench")`` on cuda:0 warmed at (64, 224, 224, 3) uint8,
+    frames/s of 8 direct invokes at batch 64, 128 and 256 and the
+    winner; then ``tensor_src ! tensor_aggregator frames-out=64 ! queue !
+    tensor_filter shared-tensor-filter-key=bench ! queue ! tensor_sink``
+    (3 warm-up, 30 measured batches) and its frames/s; the batch-1
+    invoke p50. Gates: one backend instance, opened once, for both; a
+    batch made again from the seed gives single.invoke logits bit-equal
+    to the line's; outputs on cuda:0; a wrong shape and a wrong dtype
+    refused before dispatch; ``builtin://sleeper?ms=200`` with
+    ``timeout_ms=50`` raises TimeoutError and the next invoke returns its
+    own result. (b) ``tensor_src device=true ... num-buffers=33 !
+    tensor_if compared-value=a-value operator=lt supplied-value=64 !
+    tee`` into MobileNet and PoseNet filters, ``tensor_mux !
+    tensor_demux tensorpick=0,1``, labels and pose at two sinks (the
+    source draws [0, 127), so about half the batches pass): the passed
+    set equals the host decision on the regenerated frames, outputs
+    bit-equal to each filter alone, every tensor from source to decoder
+    on cuda:0, labels = argmax; frames/s at each sink and the card's
+    busy share; a short run with ``tensor-average-value gt 60`` (all
+    pass) whose float32 reduce on the card is within 1e-6 of the host's
+    float64 mean. (c) a tee into both pads of ``tensor_merge option=0 !
+    tensor_split axis=0 tensorseg=64,64``: the merged (128, 224, 224, 3)
+    tensor on cuda:0 equals ``torch.cat`` of the parts, both halves equal
+    the input. (d) phase 13b's fused line with ``reload_model`` to
+    ``...mobilenet_v2:filter_model_seed1`` at batch 12's boundary: 33
+    batches out, each bit-equal to exactly one model's fused run alone,
+    one switch at batch 12, 2 captures, the filter's swap log "segment
+    fence" then "released", ``is-updatable=false`` refusing with the
+    reference's texts; then ``suspend=200`` on the fused appsrc form of
+    the line: after 0.5 s idle the backend is closed and
+    ``memory_allocated`` fell by at least the weights' bytes, and the
+    next batch's logits are bit-equal to the same batch's before. Prints
+    the time from ``reload_model`` to the first new-model batch and the
+    reopen time. This phase runs no hand-written kernel.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
-``python3 chip_smoke.py --only fusion`` runs phase 13 alone and prints its
-report as the last line (no kernel line, no ``ok`` line).
+``python3 chip_smoke.py --only fusion`` (``--only streams``) runs phase 13
+(14) alone and prints its report as the last line (no kernel line, no
+``ok`` line).
 """
 from __future__ import annotations
 
@@ -3397,6 +3437,543 @@ def phase_fusion(report: dict) -> None:
         + "; logits bit-equal on both paths")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: SingleShot, hot swap and suspend, stream structure
+# ---------------------------------------------------------------------------
+
+ST_DEV = torch.device("cuda:0")
+ST_POSE = "nnstreamer_tpu_torch.models.posenet:filter_model_u8"
+ST_ALT = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model_seed1"
+ST_SWEEP, ST_SWEEP_INVOKES = (64, 128, 256), 8
+ST_SLEEPER = "builtin://sleeper?ms=200&factor=2"
+ST_TIMEOUT_MS = 50
+# tensor_src pattern=random draws uint8 frames in [0, 127) (as
+# nnstreamer_tpu's does): a first element below 64 passes about half the
+# batches; every batch's mean is about 63, above 60
+ST_IF_LT, ST_AVG_GT, ST_AVG_BUFS = 64, 60, 4
+ST_BRANCH_BUFS = MB_WARM + MB_MEASURED
+ST_MERGE_BUFS = 4
+# hot swap: the reload is issued at this batch's boundary on the
+# streaming thread, so the batches before it are the old model's
+ST_SWAP_AT = 12
+ST_SUSPEND_MS, ST_IDLE_S = 200, 0.5
+ST_SUSPEND_LINE = (
+    "appsrc name=in caps=other/tensors,format=static,"
+    "dimensions=3:224:224:{b},types=uint8 ! tensor_transform "
+    f"mode=arithmetic option={FU_NORM} name=t ! tensor_filter "
+    f"framework=torch model={FU_MB_MODEL} name=f ! queue ! tensor_sink "
+    "name=out max-stored=0")
+
+
+def st_frames(k: int) -> torch.Tensor:
+    """Batch ``k`` of ``tensor_src device=true pattern=random
+    dimensions=3:224:224:<MB_BATCH> types=uint8``, made again by the
+    source's own generator."""
+    from nnstreamer_tpu_torch.elements.src import TensorSrc
+
+    src = TensorSrc(device=True, pattern="random", types="uint8",
+                    dimensions=f"3:224:224:{MB_BATCH}")
+    return src._device_create(k)[0]
+
+
+def st_event_sink(pipe, pad_owner: str, pads, sinks) -> dict:
+    """Per sink, the arrival time of each buffer once the card finished
+    it: an event recorded as ``pad_owner`` pushes it from one of
+    ``pads`` rides the buffer's meta, and the sink waits for it."""
+    el = pipe.get(pad_owner)
+    for pad in (p for p in el.src_pads if p.name in pads):
+        orig = pad.push
+
+        def push(buf, _orig=orig):
+            ev = torch.cuda.Event()
+            ev.record()
+            buf.meta["st_done"] = ev
+            return _orig(buf)
+        pad.push = push
+    times = {s: [] for s in sinks}
+    for s in sinks:
+        def on_data(buf, _t=times[s]):
+            ev = buf.meta.get("st_done")
+            if ev is not None:
+                ev.synchronize()
+            _t.append(time.perf_counter())
+        pipe.get(s).connect(on_data)
+    return times
+
+
+def st_fps(times: list, per_buffer: int, skip: int) -> Optional[float]:
+    """Frames/s between the ``skip``-th arrival and the last."""
+    if len(times) <= skip + 1:
+        return None
+    return (len(times) - 1 - skip) * per_buffer / (times[-1] - times[skip])
+
+
+def st_play(pipe, what: str, on_play=None):
+    from nnstreamer_tpu_torch.core import MessageType
+
+    pipe.play()
+    try:
+        if on_play is not None:
+            on_play(pipe)
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"streams {what}: ended with {msg}")
+
+
+def st_singleshot() -> dict:
+    """(a) bench.py:109-160 on the card: SingleShot warms the shared
+    backend and sweeps batch sizes with direct invokes, then the host
+    line's filter joins it through shared-tensor-filter-key=bench."""
+    from nnstreamer_tpu_torch.backends import base as tbase
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchBackend
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    dev = ST_DEV
+    opens = [0]
+    real_open = TorchBackend.open
+
+    def counting_open(self, props):
+        opens[0] += 1
+        return real_open(self, props)
+
+    TorchBackend.open = counting_open
+    res: dict = {}
+    try:
+        single = SingleShot("torch", MB_MODEL, share_key="bench")
+        try:
+            if single.device != dev:
+                fail(f"streams singleshot: opened on {single.device}")
+            t0 = time.perf_counter()
+            warm = single.invoke(np.zeros((MB_BATCH, 224, 224, 3), np.uint8))
+            torch.cuda.current_stream(dev).synchronize()
+            res["warm_s"] = time.perf_counter() - t0
+            if warm[0].device != dev:
+                fail(f"streams singleshot: output on {warm[0].device}")
+            sweep = {}
+            for b in ST_SWEEP:
+                xb = np.zeros((b, 224, 224, 3), np.uint8)
+                single.invoke(xb)
+                torch.cuda.current_stream(dev).synchronize()
+                t0 = time.perf_counter()
+                outs = [single.invoke(xb) for _ in range(ST_SWEEP_INVOKES)]
+                torch.cuda.current_stream(dev).synchronize()
+                sweep[b] = ST_SWEEP_INVOKES * b / (time.perf_counter() - t0)
+                del outs
+            res["sweep_frames_per_s"] = sweep
+            res["sweep_winner"] = max(sweep, key=sweep.get)
+            # the host line; its filter joins the shared backend
+            n = MB_WARM + MB_MEASURED
+            line = (MB_HEAD.format(n=n * MB_BATCH, b=MB_BATCH)
+                    + f"! tensor_filter framework=torch model={MB_MODEL} "
+                    "shared-tensor-filter-key=bench name=f ! queue ! "
+                    "tensor_sink name=out max-stored=0")
+            pipe = parse_launch(line)
+            times = st_event_sink(pipe, "f", ("src",), ("out",))
+            shared = {}
+
+            def on_play(p):
+                obs_wait(lambda: p.get("f").backend is not None,
+                         "the line's filter to open")
+                shared["same"] = p.get("f").backend is single.backend
+                shared["refcount"] = tbase._shared["bench"].refcount
+            st_play(pipe, "singleshot host line", on_play)
+            logits = []
+            while (b := pipe.get("out").pull(timeout=0.1)) is not None:
+                logits.append(b.tensors[0])
+            if len(logits) != n:
+                fail(f"streams singleshot: {len(logits)} batches at the "
+                     f"line's sink, expected {n}")
+            res["line_frames_per_s"] = st_fps(times["out"], MB_BATCH,
+                                              MB_WARM - 1)
+            if not shared.get("same") or shared.get("refcount") != 2 \
+                    or opens[0] != 1:
+                fail(f"streams singleshot: filter shares the backend "
+                     f"{shared}, opens {opens[0]}; expected one instance, "
+                     "refcount 2, one open")
+            # a batch made again from the seed, through single.invoke
+            k = n - 1
+            batch = mb_host_frames(n * MB_BATCH)[k * MB_BATCH:(k + 1) * MB_BATCH]
+            direct = single.invoke(batch)[0]
+            if direct.device != dev or logits[k].device != dev:
+                fail("streams singleshot: logits not on cuda:0")
+            if not torch.equal(direct, logits[k]):
+                fail("streams singleshot: single.invoke's logits differ "
+                     f"from the line's for batch {k}")
+            # a wrong-shaped / wrong-typed input is refused before dispatch
+            calls = [0]
+            inner = single.backend.invoke
+
+            def counted(inputs):
+                calls[0] += 1
+                return inner(inputs)
+            single.backend.invoke = counted
+            refusals = []
+            for bad, err in ((np.zeros((MB_BATCH, 225, 224, 3), np.uint8),
+                              ValueError),
+                             (np.zeros((MB_BATCH, 224, 224, 3), np.float32),
+                              TypeError)):
+                try:
+                    single.invoke(bad)
+                except err as e:
+                    refusals.append(str(e))
+                else:
+                    fail(f"streams singleshot: {bad.shape} {bad.dtype} "
+                         "was not refused")
+            if calls[0]:
+                fail("streams singleshot: a refused input reached the model")
+            res["refusals"] = refusals
+            # batch-1 p50 of a direct invoke, done on the card
+            x1 = batch[:1]
+            lat = []
+            for i in range(MB_P50_WARM + MB_P50_FRAMES):
+                t0 = time.perf_counter()
+                single.invoke(x1)
+                torch.cuda.current_stream(dev).synchronize()
+                if i >= MB_P50_WARM:
+                    lat.append(1e3 * (time.perf_counter() - t0))
+            res["batch1_p50_ms"] = statistics.median(lat)
+        finally:
+            single.close()
+        if "bench" in tbase._shared:
+            fail("streams singleshot: the shared entry outlived both users")
+        # a wedged invoke times out; the next call gets its own answer
+        with SingleShot("torch", ST_SLEEPER, timeout_ms=ST_TIMEOUT_MS) as s:
+            x = torch.ones(4, device=dev)
+            s.invoke(x, timeout_ms=0)
+            try:
+                s.invoke(x)
+            except TimeoutError as e:
+                res["timeout"] = str(e)
+            else:
+                fail("streams singleshot: the sleeper did not time out")
+            time.sleep(0.3)
+            fresh = s.invoke(x * 3, timeout_ms=5000)[0]
+            if fresh.device != dev or not torch.equal(
+                    fresh, torch.full_like(x, 6.0)):
+                fail(f"streams singleshot: after a timeout the next invoke "
+                     f"returned {fresh}, not its own result")
+    finally:
+        TorchBackend.open = real_open
+    return res
+
+
+def st_branch_line(cv: str, opt: str, op: str, val: int, n: int) -> str:
+    return (
+        f"tensor_src device=true dimensions=3:224:224:{MB_BATCH} "
+        f"types=uint8 pattern=random num-buffers={n} name=src ! tensor_if "
+        f"name=tif compared-value={cv} compared-value-option={opt} "
+        f"operator={op} supplied-value={val} then=passthrough else=skip ! "
+        f"tee name=t t. ! queue ! tensor_filter framework=torch "
+        f"model={MB_MODEL} name=fm ! mux.sink_0 t. ! queue ! tensor_filter "
+        f"framework=torch model={ST_POSE} name=fp ! mux.sink_1 tensor_mux "
+        "name=mux ! tensor_demux name=d tensorpick=0,1 d.src_0 ! "
+        f"tensor_decoder mode=image_labeling frames-in={MB_BATCH} name=dec "
+        "! tensor_sink name=lab max-stored=0 d.src_1 ! tensor_sink name=out "
+        "max-stored=0")
+
+
+def st_branch() -> dict:
+    """(b) tensor_if → tee → MobileNet and PoseNet → tensor_mux →
+    tensor_demux → labels and pose outputs, at batch 64 on the card."""
+    from nnstreamer_tpu_torch.backends.base import (FilterProperties,
+                                                    acquire_backend,
+                                                    release_backend)
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    dev = ST_DEV
+    res: dict = {}
+    pipe = parse_launch(st_branch_line("a-value", "0:0", "lt", ST_IF_LT,
+                                       ST_BRANCH_BUFS))
+    devices, outs = set(), {"d.src_0": [], "d.src_1": []}
+    for el in pipe.elements.values():
+        if el.name in ("dec", "lab", "out"):
+            continue
+        for pad in el.src_pads:
+            orig = pad.push
+
+            def push(buf, _orig=orig, _name=f"{el.name}.{pad.name}"):
+                for t in buf.tensors:
+                    devices.add(str(t.device) if isinstance(t, torch.Tensor)
+                                else "host")
+                if _name in outs:
+                    outs[_name].append((buf.offset, buf.tensors[0]))
+                return _orig(buf)
+            pad.push = push
+    times = st_event_sink(pipe, "d", ("src_0", "src_1"), ("lab", "out"))
+    labels = []
+    pipe.get("lab").connect(lambda b: labels.append(b.meta["label_index"]))
+    st_play(pipe, "branch line")
+    if devices != {"cuda:0"}:
+        fail(f"streams branch: tensors between source and decoder on "
+             f"{sorted(devices)}, expected only cuda:0")
+    frames = [st_frames(k) for k in range(ST_BRANCH_BUFS)]
+    want = [k for k, f in enumerate(frames) if int(f.reshape(-1)[0]) < ST_IF_LT]
+    got = [k for k, _ in outs["d.src_1"]]
+    if got != want or [k for k, _ in outs["d.src_0"]] != want:
+        fail(f"streams branch: batches {got} passed tensor_if, the host "
+             f"decision on the regenerated frames is {want}")
+    res["passed"] = len(want)
+    res["batches"] = ST_BRANCH_BUFS
+    for model, key in ((MB_MODEL, "d.src_0"), (ST_POSE, "d.src_1")):
+        alone = acquire_backend("torch", FilterProperties(model=model))
+        try:
+            for k, t in outs[key]:
+                if not torch.equal(alone.invoke([frames[k]])[0], t):
+                    fail(f"streams branch: {model} output of batch {k} "
+                         "differs from the filter run alone")
+        finally:
+            release_backend(alone)
+    argmax = [int(i) for _, t in outs["d.src_0"]
+              for i in t.float().argmax(-1).cpu()]
+    if labels != argmax:
+        fail("streams branch: labels differ from the argmax of the logits")
+    res["labels"] = len(labels)
+    res["frames_per_s"] = {
+        "lab": st_fps(times["lab"], 1, 2 * MB_BATCH - 1),
+        "out": st_fps(times["out"], MB_BATCH, 1)}
+    del outs, frames
+    busy = mb_device_busy("streams branch", st_branch_line(
+        "a-value", "0:0", "lt", ST_IF_LT, ST_BRANCH_BUFS), per_batch=1)
+    res["device"] = busy
+    # every random batch's mean is ~63: all pass; the card's float32
+    # reduce against the host's float64 mean of the regenerated frames
+    pipe = parse_launch(st_branch_line("tensor-average-value", "0", "gt",
+                                       ST_AVG_GT, ST_AVG_BUFS))
+    tif = pipe.get("tif")
+    seen = []
+    orig_cv = tif._compared_value
+
+    def spy(buf):
+        v = orig_cv(buf)
+        seen.append((buf.offset, v))
+        return v
+    tif._compared_value = spy
+    n_out = []
+    pipe.get("out").connect(n_out.append)
+    st_play(pipe, "branch average line")
+    rel = []
+    for k, (v, approx) in seen:
+        host = st_frames(k).cpu().numpy().astype(np.float64).mean()
+        if not approx:
+            fail("streams branch: the average did not reduce on the card")
+        rel.append(abs(v - host) / abs(host))
+    if len(seen) != ST_AVG_BUFS or len(n_out) != ST_AVG_BUFS \
+            or max(rel) > 1e-6:
+        fail(f"streams branch average: {len(seen)} decisions, {len(n_out)} "
+             f"passed, relative errors {rel}; expected {ST_AVG_BUFS} and "
+             "within 1e-6")
+    res["average_rel_err_max"] = max(rel)
+    return res
+
+
+def st_merge() -> dict:
+    """(c) tee → tensor_merge option=0 → tensor_split tensorseg=64,64 on
+    the card."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    dev = ST_DEV
+    pipe = parse_launch(
+        f"tensor_src device=true dimensions=3:224:224:{MB_BATCH} "
+        f"types=uint8 pattern=random num-buffers={ST_MERGE_BUFS} name=src "
+        "! tee name=t t. ! queue ! m.sink_0 t. ! queue ! m.sink_1 "
+        "tensor_merge name=m mode=linear option=0 ! tensor_split name=s "
+        f"axis=0 tensorseg={MB_BATCH},{MB_BATCH} s.src_0 ! tensor_sink "
+        "name=a max-stored=0 s.src_1 ! tensor_sink name=b max-stored=0")
+    merged = []
+    orig = pipe.get("m").srcpad.push
+
+    def push(buf):
+        merged.append(buf.tensors[0])
+        return orig(buf)
+    pipe.get("m").srcpad.push = push
+    st_play(pipe, "merge line")
+    halves = [[b.tensors[0] for b in iter(
+        lambda s=s: pipe.get(s).pull(timeout=0.1), None)] for s in "ab"]
+    if len(merged) != ST_MERGE_BUFS or any(len(h) != ST_MERGE_BUFS
+                                           for h in halves):
+        fail(f"streams merge: {len(merged)} merged, "
+             f"{[len(h) for h in halves]} split buffers")
+    for k, m in enumerate(merged):
+        f = st_frames(k)
+        if m.device != dev or tuple(m.shape) != (2 * MB_BATCH, 224, 224, 3) \
+                or not torch.equal(m, torch.cat([f, f])):
+            fail(f"streams merge: merged batch {k} is not torch.cat of its "
+                 "parts on cuda:0")
+        for h in halves:
+            if h[k].device != dev or not torch.equal(h[k], f):
+                fail(f"streams merge: split half of batch {k} differs")
+    return {"merged_shape": list(merged[0].shape), "buffers": len(merged)}
+
+
+def st_swap_outputs(model: str, swap_at: Optional[int] = None) -> dict:
+    """Phase 13b's fused device line; with ``swap_at``, ``reload_model``
+    to ST_ALT at that batch's boundary on the streaming thread."""
+    line = FU_MB_LINE.format(b=MB_BATCH, n=ST_BRANCH_BUFS).replace(
+        FU_MB_MODEL, model)
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(line)
+    head, f = pipe.get("t"), pipe.get("f")
+    times = st_event_sink(pipe, "f", ("src",), ("out",))
+    marks = {}
+    if swap_at is not None:
+        chain = head._chain_guarded
+
+        def chain_with_swap(pad, buf):
+            if buf.offset == swap_at:
+                marks["reload_t"] = time.perf_counter()
+                f.reload_model(ST_ALT)
+                marks["reloaded_t"] = time.perf_counter()
+            chain(pad, buf)
+        head._chain_guarded = chain_with_swap
+    st_play(pipe, f"swap line ({model})")
+    outs = []
+    while (b := pipe.get("out").pull(timeout=0.1)) is not None:
+        outs.append(b.tensors[0])
+    return {"pipe": pipe, "f": f, "outs": outs, "times": times["out"],
+            **marks}
+
+
+def st_swap() -> dict:
+    """(d) hot swap on the fused MobileNet device line, then suspend."""
+    from nnstreamer_tpu_torch.obs import memory as obs_memory
+    from nnstreamer_tpu_torch.runtime.element import ElementError
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    dev = ST_DEV
+    res: dict = {}
+    old = st_swap_outputs(FU_MB_MODEL)["outs"]
+    new = st_swap_outputs(ST_ALT)["outs"]
+    run = st_swap_outputs(FU_MB_MODEL, swap_at=ST_SWAP_AT)
+    outs = run["outs"]
+    n = ST_BRANCH_BUFS
+    if not (len(old) == len(new) == len(outs) == n):
+        fail(f"streams swap: {len(outs)} batches out of {n} "
+             f"(alone: {len(old)}, {len(new)})")
+    which = []
+    for k, t in enumerate(outs):
+        a, b = torch.equal(t, old[k]), torch.equal(t, new[k])
+        if a == b:
+            fail(f"streams swap: batch {k} matches "
+                 f"{'both models' if a else 'neither model'}")
+        which.append("old" if a else "new")
+    first_new = which.index("new") if "new" in which else None
+    if first_new != ST_SWAP_AT or "old" in which[first_new:]:
+        fail(f"streams swap: the models by batch are {which}; expected "
+             f"one switch at batch {ST_SWAP_AT}")
+    (seg,) = run["pipe"].fused_segments
+    log = [step for step, _ in run["f"].swap_log]
+    if seg.stats["retraces"] != 2 or seg.stats["dispatches"] != n:
+        fail(f"streams swap: segment stats {seg.stats}; expected 2 "
+             f"captures and {n} dispatches")
+    if log != ["segment fence", "released"]:
+        fail(f"streams swap: the filter's swap log is {log}; expected the "
+             "segment's fence, then the release")
+    if any(t.device != dev for t in outs):
+        fail("streams swap: outputs not on cuda:0")
+    res["switch_at"] = first_new
+    res["captures"] = seg.stats["retraces"]
+    res["swap_log"] = log
+    res["reload_call_s"] = run["reloaded_t"] - run["reload_t"]
+    res["reload_to_first_new_s"] = run["times"][first_new] - run["reload_t"]
+    f = run["f"]
+    f.set_property("is-updatable", False)
+    refused = []
+    for call in (lambda: f.reload_model(FU_MB_MODEL),
+                 lambda: f.prepare_model(FU_MB_MODEL)):
+        try:
+            call()
+        except ElementError as e:
+            refused.append(str(e).split(": ", 1)[-1])
+        else:
+            fail("streams swap: is-updatable=false did not refuse")
+    if refused != ["model reload refused (is-updatable=false)",
+                   "model swap refused (is-updatable=false)"]:
+        fail(f"streams swap: refusals {refused}")
+    res["refusals"] = refused
+    del old, new, outs, run
+    # suspend on the fused appsrc form of the line
+    pipe = parse_launch(ST_SUSPEND_LINE.format(b=MB_BATCH))
+    f, src, out = pipe.get("f"), pipe.get("in"), pipe.get("out")
+    from nnstreamer_tpu_torch.core import Buffer
+
+    x = st_frames(0)
+    pipe.play()
+    try:
+        src.push_buffer(Buffer([x]))
+        before = out.pull(timeout=120)
+        if before is None:
+            fail("streams suspend: no output before the suspend")
+        before = before.tensors[0]
+        (seg,) = pipe.fused_segments
+        weights = obs_memory.backend_param_nbytes(f.backend)
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        f.set_property("suspend", ST_SUSPEND_MS)
+        time.sleep(ST_IDLE_S)
+        torch.cuda.synchronize(dev)
+        freed = held - torch.cuda.memory_allocated(dev)
+        if f.backend is not None or freed < weights:
+            fail(f"streams suspend: after {ST_IDLE_S} s idle the backend "
+                 f"is {'open' if f.backend is not None else 'closed'} and "
+                 f"{freed} bytes were freed (weights {weights})")
+        t0 = time.perf_counter()
+        src.push_buffer(Buffer([x]))
+        after = out.pull(timeout=120)
+        if after is None:
+            fail("streams suspend: no output after the reopen")
+        after = after.tensors[0]
+        torch.cuda.current_stream(dev).synchronize()
+        res["reopen_s"] = time.perf_counter() - t0
+        if not torch.equal(before, after):
+            fail("streams suspend: the reopened model's logits differ")
+        res["suspend"] = {"weights_bytes": weights, "freed_bytes": freed,
+                          "defused": seg.stats["defused"]}
+    finally:
+        src.end_of_stream()
+        pipe.wait(timeout=60)
+        pipe.stop()
+    return res
+
+
+def phase_streams(report: dict) -> None:
+    smi = report["device"]
+    r = report["streams"] = {}
+    a = r["singleshot"] = st_singleshot()
+    sw = ", ".join(f"{b}: {v:.1f}" for b, v in a["sweep_frames_per_s"].items())
+    print(f"streams ({smi}) singleshot: warm {a['warm_s']:.3f} s; sweep "
+          f"frames/s {sw}; winner {a['sweep_winner']}; host line "
+          f"{a['line_frames_per_s']:.1f} frames/s through the shared "
+          f"backend; batch-1 invoke p50 {a['batch1_p50_ms']:.3f} ms; one "
+          "backend opened once, logits bit-equal to the line's, wrong "
+          "shape and dtype refused before dispatch, timeout raised and the "
+          "next invoke got its own result")
+    b = r["branch"] = st_branch()
+    busy = b["device"]["busy_share"]
+    print(f"streams ({smi}) branch: {b['passed']} of {b['batches']} batches "
+          f"passed tensor_if (= the host decision); labels "
+          f"{b['frames_per_s']['lab']:.1f} frames/s, pose "
+          f"{b['frames_per_s']['out']:.1f} frames/s; card busy "
+          + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+          + f"; outputs bit-equal to each filter alone, every tensor on "
+          f"cuda:0, labels = argmax; average reduce within "
+          f"{b['average_rel_err_max']:.3g} of the host's")
+    c = r["merge"] = st_merge()
+    print(f"streams ({smi}) merge: {c['buffers']} merged {c['merged_shape']} "
+          "on cuda:0 = torch.cat of the parts; split halves equal the input")
+    d = r["swap"] = st_swap()
+    print(f"streams ({smi}) swap: switch at batch {d['switch_at']}, "
+          f"{d['captures']} captures, log {d['swap_log']}; reload call "
+          f"{d['reload_call_s']:.3f} s, reload to first new-model batch "
+          f"{d['reload_to_first_new_s']:.3f} s; is-updatable=false refused; "
+          f"suspend freed {d['suspend']['freed_bytes']} bytes (weights "
+          f"{d['suspend']['weights_bytes']}), reopen "
+          f"{d['reopen_s']:.3f} s with bit-equal logits")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -3412,16 +3989,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     report: dict = {}
-    dev = torch.device("cuda:0")
+    dev = ST_DEV
     report["device"] = phase_device()
-    if sys.argv[1:] == ["--only", "fusion"]:
-        # phase 13 alone (no kernel is built or checked, no ok line)
-        phase_fusion(report)
-        print(json.dumps(report["fusion"], default=str))
+    alone = {"fusion": phase_fusion, "streams": phase_streams}
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" \
+            and sys.argv[2] in alone:
+        # phase 13 or 14 alone (no kernel is built or checked, no ok line)
+        alone[sys.argv[2]](report)
+        print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
-             "--only fusion for phase 13 alone)")
+             "--only fusion / --only streams for phase 13 / 14 alone)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -3437,6 +4016,7 @@ def main() -> None:
     phase_obs(report, prompts, filter_outs,
               {"decode_attention": decode_t, "flash_attention": flash_t})
     phase_fusion(report)
+    phase_streams(report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

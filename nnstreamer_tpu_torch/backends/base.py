@@ -2,8 +2,8 @@
 
 Reference analog: ``GstTensorFilterFramework`` V1
 (gst/nnstreamer/include/nnstreamer_plugin_api_filter.h:274 — ``open``,
-``close``, ``invoke``, ``getModelInfo{GET_IN_OUT_INFO,SET_INPUT_INFO}``;
-the ``eventHandler`` is not ported yet) and the shared-model table (:578-617). The reference has 23 such backends wrapping
+``close``, ``invoke``, ``getModelInfo{GET_IN_OUT_INFO,SET_INPUT_INFO}``,
+``eventHandler{RELOAD_MODEL,...}``) and the shared-model table (:578-617). The reference has 23 such backends wrapping
 tflite/TF/torch/TensorRT/EdgeTPU/...; in this package PyTorch on CUDA *is*
 the execution engine (``torch_backend``), behind the same vtable semantics.
 """
@@ -25,6 +25,13 @@ class Accelerator(enum.Enum):
     AUTO = "auto"
     CPU = "cpu"
     GPU = "gpu"
+
+
+class BackendEvent(enum.Enum):
+    """Reference ``event_ops`` for ``eventHandler`` (:470-490); the port
+    raises the one its filter uses."""
+
+    RELOAD_MODEL = "reload-model"
 
 
 @dataclass
@@ -99,6 +106,14 @@ class FilterBackend:
         Negotiation never runs a model here: a full-width generate during
         caps negotiation would cost as much as a request."""
         return None
+
+    def handle_event(self, event: BackendEvent, data: Optional[dict] = None) -> None:
+        """Optional event hook (model reload etc.)."""
+
+    def release_retired(self) -> None:
+        """Drop what a RELOAD_MODEL retired (the old model's weights).
+        The filter calls this once no queued device work can still read
+        them; backends that retire nothing need not override it."""
 
 
 def register_backend(cls):

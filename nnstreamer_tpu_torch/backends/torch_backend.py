@@ -57,7 +57,8 @@ from ..obs.memory import MeasuredMemory, tree_nbytes
 from ..ops.transform_ops import canonicalize, computable
 from ..utils.hw_accel import device_for_accelerator
 from ..utils.log import logger
-from .base import Accelerator, FilterBackend, FilterProperties, register_backend
+from .base import (Accelerator, BackendEvent, FilterBackend, FilterProperties,
+                   register_backend)
 
 
 def _apply_serve_knobs(entry, custom: dict, model: str):
@@ -275,6 +276,13 @@ class TorchBackend(FilterBackend):
         # obs/memory.py: measure the next invoke on the card
         self._mem_arm = False
         self._mem_record: Optional[MeasuredMemory] = None
+        # model info from the last set_input_info (get_model_info serves
+        # it, as nnstreamer_tpu's jax backend does after eval_shape)
+        self._in_info: Optional[TensorsInfo] = None
+        self._out_info: Optional[TensorsInfo] = None
+        # callables a RELOAD_MODEL replaced: held until release_retired,
+        # so queued device work never reads freed weights
+        self._retired: List[Callable] = []
 
     def open(self, props: FilterProperties) -> None:
         super().open(props)
@@ -286,6 +294,8 @@ class TorchBackend(FilterBackend):
     def close(self) -> None:
         self._fn = None
         self.model_entry = None
+        self._retired = []
+        self._in_info = self._out_info = None
         super().close()
 
     @property
@@ -307,9 +317,28 @@ class TorchBackend(FilterBackend):
             f"torch backend cannot load model '{model}' (expected "
             "'<module>:<attr>' or 'builtin://<name>')")
 
+    def get_model_info(self):
+        return self._in_info, self._out_info
+
     def set_input_info(self, in_info: TensorsInfo) -> Optional[TensorsInfo]:
         rule = getattr(self._fn, "output_info", None)
-        return rule(in_info) if rule is not None else None
+        if rule is None:
+            return None
+        self._out_info = rule(in_info)
+        self._in_info = in_info
+        return self._out_info
+
+    def handle_event(self, event: BackendEvent, data: Optional[dict] = None) -> None:
+        if event is BackendEvent.RELOAD_MODEL:
+            # reference RELOAD_MODEL (nnstreamer_plugin_api_filter.h:378-384):
+            # old and new co-resident until the swap completes; the old
+            # callable is retired, not dropped (release_retired)
+            new_fn = self._load_model(self.props.model, self.props)
+            self._retired.append(self._fn)
+            self._fn = new_fn
+
+    def release_retired(self) -> None:
+        self._retired = []
 
     def invoke(self, inputs: List[Any]) -> List[Any]:
         if self._fn is None:

@@ -26,21 +26,38 @@ steady-state chain (§3.2) runs: validate → input-combination → invoke (time
 * segment fusion (``runtime/fusion.py``): a filter inside a fused
   segment runs as a stage of the segment's one dispatch
   (``fusion_stage``: input-combination → model → output-combination);
-  sync-invoke and latency profiling make it a barrier. A placement pin
-  (``set_placement_device``) picks the card its backend opens on.
+  sync-invoke, latency profiling, invoke-dynamic and suspend make it a
+  barrier. A placement pin (``set_placement_device``) picks the card its
+  backend opens on.
 
-Not in this package yet (nnstreamer_tpu has them): invoke-dynamic, suspend,
-hot model swap (is-updatable / reload), layout and tensor-name properties.
+* suspend (``suspend=<ms>``): a watchdog thread releases the backend
+  after that much idle time, so the model's weights go back to the
+  allocator; the next buffer reopens it under the invoke lock.
+
+* hot model swap (``is-updatable``): ``reload_model`` reloads the model
+  in place (the backend's RELOAD_MODEL event), ``prepare_model`` →
+  ``commit_model`` → ``release_prepared`` flips to a separately opened
+  backend. On the card a fused segment's CUDA graphs hold the old
+  weights' addresses, so a swap drops the graphs first, waits on the CUDA
+  event recorded behind the last replay that read the old weights (the
+  segment's fence; for an unfused filter an event behind its last
+  invoke), and only then lets the old weights go. ``swap_log`` records
+  the order. The layout and tensor-name properties are declarative, as
+  in nnstreamer_tpu: the port's models take NHWC and address tensors by
+  position.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import threading
+from collections import deque
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..analysis.sanitizer import named_lock
 from ..backends.base import (
     Accelerator,
+    BackendEvent,
     FilterBackend,
     FilterProperties,
     acquire_backend,
@@ -65,7 +82,19 @@ from ..registry.elements import register_element
 from ..registry.subplugin import SubpluginKind, names as subplugin_names
 from ..runtime.element import ElementError, Prop, TransformElement, prop_bool
 from ..runtime.pad import Pad, PadDirection, PadTemplate
+from ..utils.log import logger
 from ..utils.stats import InvokeStats
+
+
+def _layout_list(v) -> str:
+    """Validate a ','-separated layout declaration (reference accepts
+    any|NHWC|NCHW|none per tensor, tensor_filter_common.c:923-926)."""
+    s = str(v).strip()
+    for part in filter(None, (p.strip() for p in s.split(","))):
+        if part.lower() not in ("any", "nhwc", "nchw", "none"):
+            raise ValueError(
+                f"layout '{part}' not one of any|NHWC|NCHW|none")
+    return s
 
 
 def _parse_combination(v) -> Optional[List[int]]:
@@ -119,6 +148,18 @@ class TensorFilter(TransformElement):
                                  "block on every Nth invoke to sample true "
                                  "device latency (0 = never); dispatch time "
                                  "is recorded every invoke"),
+        # reference tensor_filter_common.c property breadth
+        "invoke_dynamic": Prop(False, prop_bool,
+                               "output shape decided per invoke; src caps "
+                               "become flexible (reference invoke-dynamic, "
+                               "tensor_filter.c:692,900-914)"),
+        "suspend": Prop(0.0, float,
+                        "unload the framework after this many idle ms; "
+                        "reopened transparently on the next buffer "
+                        "(reference suspend prop, 0 = never)"),
+        "is_updatable": Prop(True, prop_bool,
+                             "allow reload_model() hot swaps (reference "
+                             "is-updatable)"),
         "input_dims": Prop("", str,
                            "force model input dims '3:224:224:1[,...]' for "
                            "backends that can't self-describe (reference "
@@ -126,6 +167,19 @@ class TensorFilter(TransformElement):
         "input_types": Prop("", str, "force model input dtypes 'uint8,...'"),
         "output_dims": Prop("", str, "force model output dims (reference output)"),
         "output_types": Prop("", str, "force model output dtypes"),
+        # reference tensor-name props (tensorflow signature tensors);
+        # carried on the element for launch-line compat, consumed by
+        # backends that address tensors by name
+        "inputname": Prop("", str, "input tensor names 'a,b' (reference)"),
+        "outputname": Prop("", str, "output tensor names (reference)"),
+        # reference data-layout declaration (tensor_filter_common.c:923-947:
+        # any|NHWC|NCHW|none per tensor, ','-separated). Declarative here
+        # as there: the port's models are NHWC-native
+        "inputlayout": Prop("", _layout_list,
+                            "declared input data layout per tensor: "
+                            "any|NHWC|NCHW|none, ','-separated"),
+        "outputlayout": Prop("", _layout_list,
+                             "declared output data layout per tensor"),
         # reference tensor_filter.c:366-510: ``latency``/``throughput`` are
         # SETTABLE mode flags (0 off, 1 on) that enable profiling; reading
         # them back returns the measured value (get_property below)
@@ -165,10 +219,24 @@ class TensorFilter(TransformElement):
         self._out_info: Optional[TensorsInfo] = None
         self._throttle_delay_s = 0.0
         self._last_accept_ts = 0.0  # last accepted frame (QoS throttle gate)
-        # THE invoke lock: backend open/close and invokes serialize on it
-        # (per-instance name — pipelines run many filters)
+        self._model_view_info: Optional[TensorsInfo] = None
+        # THE invoke lock: backend open/close, invokes, suspend/resume
+        # unloads and hot-swap flips serialize on it (per-instance name —
+        # pipelines run many filters)
         self._backend_lock = named_lock(
             f"TensorFilter._backend_lock:{self.name}")
+        # last completed invoke (suspend idle clock)
+        self._last_invoke_ts = 0.0  # guarded-by: _backend_lock
+        self._suspend_thread: Optional[threading.Thread] = None
+        self._suspend_stop = threading.Event()
+        # hot swap / suspend: (step, monotonic s) in order — the fence
+        # waited on ("segment fence": behind the segment's last replay,
+        # "stream fence": behind the last invoke on the backend's card,
+        # "no fence": nothing on a card), then "released" once the old
+        # weights were let go
+        self.swap_log: deque = deque(maxlen=64)
+        # fences of retired backends from commit_model, by id
+        self._retire_fences: Dict[int, tuple] = {}
         # memory accounting (obs/memory.py): armed at backend open while
         # accounting is on, consumed by the first invoke
         self._mem_pending = False
@@ -294,12 +362,84 @@ class TensorFilter(TransformElement):
                 obs_profile.series_name(self), "filter", compiled,
                 param_bytes=obs_memory.backend_param_nbytes(self.backend))
 
+    def _ensure_backend(self) -> FilterBackend:
+        """Reopen a suspended framework transparently (reference suspend/
+        resume: the fw is unloaded when idle, reloaded on the next buffer)."""
+        if self.backend is None:
+            self._open_backend()
+            if self._model_view_info is not None:
+                self.backend.set_input_info(self._model_view_info)
+        return self.backend
+
     def _release_backend(self) -> None:
         if self.backend is not None:
             release_backend(self.backend, self.props["shared_tensor_filter_key"])
             self.backend = None
 
+    # -- retiring weights safely (suspend, hot swap) -------------------------
+    def _fence_old(self, device) -> tuple:
+        """Drop the fused segment's graphs and return (event, kind): the
+        event behind the last device work that may read the current
+        weights — the segment's fence, else (unfused, or nothing
+        replayed) an event recorded now on ``device``'s current stream,
+        behind every invoke already enqueued there; None on the CPU."""
+        fence = self._invalidate_fused()
+        if fence is not None:
+            return fence, "segment fence"
+        if device is not None and device.type == "cuda":
+            fence = torch.cuda.Event()
+            fence.record(torch.cuda.current_stream(device))
+            return fence, "stream fence"
+        return None, "no fence"
+
+    def _release_after(self, fenced: tuple,
+                       release: Callable[[], None]) -> None:
+        """Wait on the fence of ``_fence_old`` (that one event, never the
+        whole card), then ``release``; both steps land in ``swap_log``."""
+        fence, kind = fenced
+        if fence is not None:
+            fence.synchronize()
+        self.swap_log.append((kind, clock_now()))
+        release()
+        self.swap_log.append(("released", clock_now()))
+
+    def _suspend_watch(self) -> None:
+        idle_s = self.props["suspend"] / 1e3
+        while not self._suspend_stop.wait(max(idle_s / 2, 0.05)):
+            with self._backend_lock:
+                if (self.backend is not None
+                        and clock_now() - self._last_invoke_ts > idle_s):
+                    logger.info("%s: suspending idle framework", self.name)
+                    self._release_after(self._fence_old(self.backend_device),
+                                        self._release_backend)
+
+    def _start_suspend_watch(self) -> None:
+        if self.props["suspend"] <= 0 or self._suspend_thread is not None:
+            return
+        # baseline the idle clock: 0.0 would read as hours idle and
+        # unload the just-opened backend on the first tick
+        with self._backend_lock:
+            self._last_invoke_ts = clock_now()
+        self._suspend_stop.clear()
+        self._suspend_thread = threading.Thread(
+            target=self._suspend_watch, name=f"{self.name}:suspend",
+            daemon=True)
+        self._suspend_thread.start()
+
+    def set_property(self, key: str, value) -> None:
+        super().set_property(key, value)
+        if (key.replace("-", "_") == "suspend"
+                and getattr(self, "_in_info", None) is not None):
+            # set on a running filter: it leaves its fused segment (suspend
+            # is a barrier; the rebuild defuses) and the watchdog starts
+            self._invalidate_fused()
+            self._start_suspend_watch()
+
     def stop(self) -> None:
+        self._suspend_stop.set()
+        if self._suspend_thread is not None:
+            self._suspend_thread.join(timeout=2.0)
+            self._suspend_thread = None
         with self._backend_lock:
             self._release_backend()
 
@@ -326,7 +466,7 @@ class TensorFilter(TransformElement):
 
     def set_caps(self, pad: Pad, caps: Caps) -> None:
         in_info = tensors_info_from_caps(caps)
-        with self._backend_lock:
+        with self._backend_lock:  # the suspend watchdog must not unload here
             self._open_backend()
             model_in, model_out = self.backend.get_model_info()
             # explicit declarations beat backend self-description (reference:
@@ -348,14 +488,20 @@ class TensorFilter(TransformElement):
                         f"{self.describe()}: stream {model_view_info.describe()} != "
                         f"model input {model_in.describe()}"
                     )
+                self._model_view_info = model_view_info
                 if model_out is None:
                     model_out = self.backend.set_input_info(model_view_info)
         self._in_info = in_info
         self._out_info = self._compute_out_info(in_info, model_out)
+        self._start_suspend_watch()
 
     def _compute_out_info(self, in_info: TensorsInfo,
                           model_out: Optional[TensorsInfo]) -> Optional[TensorsInfo]:
         out_comb = self.props["output_combination"]
+        if self.props["invoke_dynamic"]:
+            # output shape decided per invoke → flexible src caps
+            # (reference invoke-dynamic, tensor_filter.c:692,900-914)
+            return None
         if model_out is None:
             return None  # flexible downstream
         if out_comb is None:
@@ -376,11 +522,10 @@ class TensorFilter(TransformElement):
         if base is not None:
             return base
         # per-instance disqualifiers: behaviors that cannot live inside a
-        # composed dispatch without changing semantics (invoke-dynamic and
-        # suspend are barriers too, once the port has those properties)
-        if self.props.get("invoke_dynamic"):
+        # composed dispatch without changing semantics
+        if self.props["invoke_dynamic"]:
             return "invoke-dynamic (output shapes decided per invoke)"
-        if (self.props.get("suspend") or 0) > 0:
+        if self.props["suspend"] > 0:
             return "suspend (idle framework unload would outlive the trace)"
         if self.props["sync_invoke"]:
             return "sync-invoke (per-invoke blocking is the requested behavior)"
@@ -422,15 +567,17 @@ class TensorFilter(TransformElement):
         as the unfused hot loop step 0, run host-side before the dispatch."""
         return self._throttle_accept()
 
-    def _invalidate_fused(self) -> None:
-        """A model swap changed what this element computes: drop the
-        segment's captured graphs so the next buffer re-captures against
-        the new backend. The hot-swap paths that call this
-        (``commit_model``/``reload_model``) come with ROADMAP A5, the
-        AOT eviction with A7."""
+    def _invalidate_fused(self) -> Optional[torch.cuda.Event]:
+        """A model swap (``commit_model``/``reload_model``) or a suspend
+        changed what this element computes: drop the segment's captured
+        graphs so the next buffer re-captures against the new backend.
+        Returns the segment's fence (the event behind the last replay of
+        the dropped graphs; None when unfused or nothing was replayed on
+        a card). The AOT eviction comes with ROADMAP A7."""
         seg = self._fusion_member
         if seg is not None:
-            seg.invalidate(evict_aot=True)
+            return seg.invalidate(evict_aot=True)
+        return None
 
     # -- QoS (reference tensor_filter.c:512) --------------------------------
     def handle_src_event(self, pad: Pad, event: Event) -> None:
@@ -478,10 +625,10 @@ class TensorFilter(TransformElement):
             and self.stats.total_invokes > 0
             and self.stats.total_invokes % sampling == 0
         )
-        with self._backend_lock:
-            backend = self.backend
-            if backend is None:
-                raise ElementError(f"{self.describe()}: backend not open")
+        with self._backend_lock:  # suspend watchdog must not unload mid-invoke
+            backend = self._ensure_backend()
+            # clock starts AFTER a possible suspend-resume reload — a model
+            # reopen must not read as inference latency
             t0 = clock_now()
             try:
                 outputs = backend.invoke(model_inputs)
@@ -496,7 +643,7 @@ class TensorFilter(TransformElement):
                         obs_profile.series_name(self), e,
                         pipeline=pipe.name if pipe is not None else None)
                 raise
-            t1 = clock_now()
+            t1 = self._last_invoke_ts = clock_now()
             record_mem = obs_memory.ACTIVE and self._mem_pending
             if record_mem:
                 self._mem_pending = False
@@ -568,3 +715,88 @@ class TensorFilter(TransformElement):
     def backend_device(self):
         """The device the opened backend runs on."""
         return getattr(self.backend, "device", None)
+
+    # -- staged hot swap (service control plane) ----------------------------
+    # reload_model() below swaps in place: the old model is gone before the
+    # new one proved it can serve. A zero-downtime rollout needs prepare →
+    # warmup → flip → retire instead, with the OLD backend serving traffic
+    # until the flip.
+
+    def prepare_model(self, new_model: str) -> FilterBackend:
+        """Open a backend for ``new_model`` WITHOUT touching the live one
+        (same resolution path as _open_backend: registry:// URIs, framework
+        detect, aliases). Caller warms it up, then either commit_model()s
+        it in or releases it (rollback)."""
+        if not self.props["is_updatable"]:
+            raise ElementError(
+                f"{self.describe()}: model swap refused (is-updatable=false)")
+        from ..registry.models import resolve
+
+        model_path, hint = resolve(new_model)
+        fw = self._detect_framework(model_path, hint)
+        fprops = FilterProperties(
+            model=model_path,
+            custom=self._custom_with_config_file(),
+            accelerator=Accelerator(self.props["accelerator"]),
+            placement_device=self._placement_device_index,
+        )
+        backend = acquire_backend(fw, fprops, "")  # never shared: private
+        # until commit, so a failed warmup can't poison a share-key entry
+        if self._model_view_info is not None:
+            backend.set_input_info(self._model_view_info)
+        # registry-slot footprint (obs/memory.py): what THIS version's
+        # params weigh, recorded at prepare time
+        obs_memory.record_model_params(
+            new_model, obs_memory.backend_param_nbytes(backend))
+        return backend
+
+    def commit_model(self, backend: FilterBackend,
+                     new_model: str) -> Optional[FilterBackend]:
+        """Atomically flip the live backend to a prepared one; returns the
+        RETIRED backend (caller releases it after in-flight work drains —
+        release_prepared() does that)."""
+        with self._backend_lock:
+            old = self.backend
+            self.backend = backend
+            self.props["model"] = new_model
+        # AFTER the flip (outside the invoke lock): an in-flight fused
+        # dispatch finishes on the old graph — same semantics as an
+        # in-flight unfused invoke — and the next buffer re-captures
+        fenced = self._fence_old(getattr(old, "device", None))
+        if old is not None:
+            self._retire_fences[id(old)] = fenced
+        return old
+
+    def release_prepared(self, backend: Optional[FilterBackend]) -> None:
+        """Release a backend from prepare_model (rollback) or commit_model
+        (retire-old): a retired one only after its fence."""
+        if backend is None:
+            return
+        fenced = self._retire_fences.pop(id(backend), (None, "no fence"))
+        # a retired backend may be the one _open_backend acquired under
+        # the element's share key; release under that key so refcounts
+        # balance (prepare_model never uses a share key), and a second
+        # filter on that key keeps it alive until its own release
+        self._release_after(fenced, lambda: release_backend(
+            backend, self.props["shared_tensor_filter_key"]))
+
+    def reload_model(self, new_model: Optional[str] = None) -> None:
+        """Hot model swap without pipeline restart (reference ``is-updatable``
+        + RELOAD_MODEL event, nnstreamer_plugin_api_filter.h:378-384). The
+        backend loads the new model beside the old one; the old weights
+        go once the last device work that read them has finished."""
+        if not self.props["is_updatable"]:
+            raise ElementError(
+                f"{self.describe()}: model reload refused (is-updatable=false)")
+        with self._backend_lock:  # vs suspend watchdog unloading concurrently
+            if new_model:
+                self.props["model"] = new_model
+                if self.backend is not None and self.backend.props is not None:
+                    # registry:// URIs resolve to the concrete path, same as open
+                    self.backend.props.model, _ = self._resolve_model()
+            backend = self.backend
+            if backend is not None:
+                backend.handle_event(BackendEvent.RELOAD_MODEL)
+        fenced = self._fence_old(getattr(backend, "device", None))
+        if backend is not None:
+            self._release_after(fenced, backend.release_retired)

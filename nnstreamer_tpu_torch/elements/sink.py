@@ -2,14 +2,18 @@
 
 Reference analogs: ``tensor_sink`` (terminal with ``new-data`` signal,
 gst/nnstreamer/elements/gsttensor_sink.c) and GStreamer's ``appsink`` (pull
-interface, used by the reference tests). ``fakesink``, ``filesink`` and
-``multifilesink`` are not in this package yet.
+interface, used by the reference tests), ``fakesink``, and
+``filesink``/``multifilesink`` (golden-file test outputs, SURVEY.md §4).
 """
 from __future__ import annotations
 
+import os
 import queue as _queue
 import threading
 from typing import Callable, List, Optional
+
+import numpy as np
+import torch
 
 from ..core import Buffer
 from ..core.caps import any_media_caps
@@ -97,3 +101,89 @@ class TensorSink(SinkElement):
     def buffer_count(self) -> int:
         with self._lock:
             return self._count
+
+
+def _raw_bytes(t):
+    """A host tensor's raw bytes as a buffer ``write()`` consumes without
+    a per-tensor ``.tobytes()`` copy (bfloat16 through a uint8 view)."""
+    if isinstance(t, torch.Tensor):
+        return t.contiguous().view(torch.uint8).numpy().data
+    return np.ascontiguousarray(t).data
+
+
+@register_element
+class FakeSink(SinkElement):
+    """Discards everything (GStreamer ``fakesink``)."""
+
+    ELEMENT_NAME = "fakesink"
+    SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, _ANY_MEDIA_CAPS),)
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.buffer_count = 0
+
+    def render(self, buf: Buffer) -> None:
+        self.buffer_count += 1
+
+
+@register_element
+class FileSink(SinkElement):
+    """Appends every buffer's raw bytes to one file (``filesink``)."""
+
+    ELEMENT_NAME = "filesink"
+    SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, _ANY_MEDIA_CAPS),)
+    PROPERTIES = {
+        "location": Prop(None, str, "output path"),
+        # GStreamer basesink clock sync / buffering knobs; this runtime
+        # renders as fast as upstream delivers and flushes per buffer, so
+        # both are accepted as no-ops for reference launch-line compat
+        "sync": Prop(False, prop_bool, "accepted for compat (no-op)"),
+        "async": Prop(True, prop_bool, "accepted for compat (no-op)"),
+        "buffer_mode": Prop("default", str, "accepted for compat (no-op)"),
+    }
+
+    def start(self) -> None:
+        loc = self.props["location"]
+        if not loc:
+            raise ValueError(f"{self.describe()}: location not set")
+        self._fh = open(loc, "wb")
+
+    def stop(self) -> None:
+        fh = getattr(self, "_fh", None)
+        if fh is not None:
+            fh.close()
+            self._fh = None
+
+    def render(self, buf: Buffer) -> None:
+        for t in buf.as_numpy().tensors:
+            self._fh.write(_raw_bytes(t))
+        self._fh.flush()
+
+
+@register_element
+class MultiFileSink(SinkElement):
+    """Writes each buffer to ``location % index`` (``multifilesink``) — the
+    reference's golden-file test pattern (SURVEY.md §4 SSAT tests)."""
+
+    ELEMENT_NAME = "multifilesink"
+    SINK_TEMPLATES = (PadTemplate("sink", PadDirection.SINK, _ANY_MEDIA_CAPS),)
+    PROPERTIES = {
+        "location": Prop("out_%03d.raw", str, "printf-style path pattern"),
+        # GStreamer basesink clock/preroll knobs; rendering here is
+        # upstream-paced and per-buffer flushed, so these are no-ops
+        "sync": Prop(False, prop_bool, "accepted for compat (no-op)"),
+        "async": Prop(True, prop_bool, "accepted for compat (no-op)"),
+        "buffer_mode": Prop("default", str, "accepted for compat (no-op)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._index = 0
+
+    def render(self, buf: Buffer) -> None:
+        path = self.props["location"] % self._index
+        self._index += 1
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as fh:
+            for t in buf.as_numpy().tensors:
+                fh.write(_raw_bytes(t))

@@ -3,13 +3,14 @@
 Reference analogs: GStreamer ``videotestsrc``/``appsrc`` (used throughout
 the reference's tests, SURVEY.md §4) plus a tensor-native test source.
 Frames are made on the host, or on the card with ``tensor_src
-device=true``; ``tensor_src_callable`` is not in this package yet.
+device=true``; ``tensor_src_callable`` pulls them from a user callable
+(host arrays or CUDA tensors, pushed as they come).
 """
 from __future__ import annotations
 
 import queue as _queue
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -319,3 +320,44 @@ class AppSrc(SourceElement):
                 return None
             return payload
         return None
+
+
+@register_element
+class TensorSrcCallable(_PacedSource):
+    """Pulls tensor frames from a user callable (sensor-ingestion analog of
+    the reference's ``tensor_src_iio``, gsttensor_srciio.c — the sysfs/IIO
+    device is replaced by an app-supplied sampler function). A sampler
+    that returns CUDA tensors keeps the stream on the card."""
+
+    ELEMENT_NAME = "tensor_src_callable"
+    SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC, Caps.new("other/tensors")),)
+    PROPERTIES = {
+        "dimensions": Prop("1", str),
+        "types": Prop("float32", str),
+    }
+
+    def __init__(self, name=None, sampler: Optional[Callable] = None, **props):
+        super().__init__(name, **props)
+        self.sampler = sampler
+        dims = self.props["dimensions"].split(".")
+        types = self.props["types"].split(".")
+        if len(types) == 1:
+            types = types * len(dims)
+        self._info = TensorsInfo.of(
+            *(TensorSpec.from_dim_string(d, t) for d, t in zip(dims, types))
+        )
+
+    def get_src_caps(self) -> Caps:
+        return caps_from_tensors_info(self._info)
+
+    def create(self) -> Optional[Buffer]:
+        kw = self._pace()
+        if kw is None or self.sampler is None:
+            return None
+        sample = self.sampler(self._frame - 1)
+        if sample is None:
+            return None
+        arrays = [a if isinstance(a, torch.Tensor) else np.asarray(a)
+                  for a in (sample if isinstance(sample, (list, tuple))
+                            else [sample])]
+        return Buffer(arrays, **kw)

@@ -125,3 +125,6 @@ class _FilterEntry:
 
 filter_model = _FilterEntry()
 filter_model_u8 = make_u8_entry(filter_model)
+# the same model info with other random weights: the target of a hot
+# swap (``tensor_filter.reload_model``) on a line serving filter_model
+filter_model_seed1 = _FilterEntry(seed=1)

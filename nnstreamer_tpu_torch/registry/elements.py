@@ -39,6 +39,16 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.transform",
     "nnstreamer_tpu_torch.elements.serving",
     "nnstreamer_tpu_torch.elements.fault",
+    "nnstreamer_tpu_torch.elements.muxdemux",
+    "nnstreamer_tpu_torch.elements.mergesplit",
+    "nnstreamer_tpu_torch.elements.cond",
+    "nnstreamer_tpu_torch.elements.crop",
+    "nnstreamer_tpu_torch.elements.rate",
+    "nnstreamer_tpu_torch.elements.repo",
+    "nnstreamer_tpu_torch.elements.sparse",
+    "nnstreamer_tpu_torch.elements.debug",
+    "nnstreamer_tpu_torch.elements.join",
+    "nnstreamer_tpu_torch.elements.files",
 )
 
 _loaded = False

@@ -70,9 +70,17 @@ sync-invoke or latency profiling).
 Cache invalidation: a CAPS event reaching any member invalidates its
 segment (re-captured on the next buffer), as does ``reset_flow()`` on
 restart (``Pipeline.play()`` re-plans from scratch, so a supervised
-restart never replays a stale graph); ``tensor_filter._invalidate_fused``
-is where hot model swaps (ROADMAP A5) will call in. Escape hatches:
-``Pipeline(fuse=False)`` or ``NNS_NO_FUSE=1``.
+restart never replays a stale graph) and a hot model swap
+(``tensor_filter.commit_model``/``reload_model`` through
+``_invalidate_fused``). A graph holds the device addresses of the
+weights it was captured with, so a swap must not free the old weights
+while a replay that reads them may still run: every dispatch resolves
+its callable and enqueues its replay under the segment's run lock and
+records a CUDA event (the **fence**) behind the replay; ``invalidate()``
+drops the graphs, waits for a dispatch in progress to finish enqueuing,
+and returns the fence of the last replay, which the swap waits on before
+it releases the old backend. Escape hatches: ``Pipeline(fuse=False)`` or
+``NNS_NO_FUSE=1``.
 
 Donation: nnstreamer_tpu donates a segment's input arrays to XLA when
 every upstream element is a single-owner producer
@@ -89,13 +97,14 @@ Not here yet: the AOT compile-cache path (nnstreamer_tpu's
 """
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 
 import torch
 
-from ..analysis.sanitizer import named_lock
+from ..analysis.sanitizer import named_lock, named_rlock
 from ..core import Buffer, clock_now
 from ..core.buffer import as_torch
 from ..obs import context as obs_context
@@ -314,6 +323,13 @@ class FusedSegment:
             f"{obs_profile.canonical_base(self.head)}.."
             f"{obs_profile.canonical_base(self.tail)}")
         self._lock = named_lock(f"FusedSegment._lock:{self.name}")
+        # held from resolving the callable to the fence record of one
+        # dispatch; invalidate() takes it to drain a dispatch in progress
+        # (always taken BEFORE _lock, never while holding it)
+        self._run_lock = named_rlock(f"FusedSegment._run_lock:{self.name}")
+        # CUDA event recorded behind the latest replay (None on the CPU
+        # and before the first replay)
+        self._fence: Optional[torch.cuda.Event] = None  # guarded-by: _run_lock
         self._gen = 0            # guarded-by: _lock
         self._call: Optional[Callable] = None   # guarded-by: _lock (reads racy-ok)
         self._defused = False    # guarded-by: _lock (reads racy-ok)
@@ -355,25 +371,32 @@ class FusedSegment:
         }
 
     # -- cache control -------------------------------------------------------
-    def invalidate(self, evict_aot: bool = False) -> None:
-        """Drop the composed callable and every captured graph (their
-        pools are released once the last replay in flight returns): caps
+    def invalidate(self, evict_aot: bool = False
+                   ) -> Optional[torch.cuda.Event]:
+        """Drop the composed callable and every captured graph: caps
         renegotiation, hot model swaps and restarts call this so the next
         buffer re-resolves against current state. Also re-arms a defused
-        segment. ``evict_aot`` is the model-swap path's flag; the port
-        has no AOT cache yet (ROADMAP A7)."""
+        segment. Returns the fence: the CUDA event recorded behind the
+        last replay of the dropped graphs, after any dispatch in progress
+        has finished enqueuing (None when nothing was replayed on a
+        card). A model swap waits on it before it frees the old weights.
+        ``evict_aot`` is the model-swap path's flag; the port has no AOT
+        cache yet (ROADMAP A7)."""
         with self._lock:
             self._gen += 1
             self._call = None
             self._defused = False
             self._graphs = OrderedDict()
             self._seen = set()
+        with self._run_lock:
+            fence, self._fence = self._fence, None
         # the same events invalidate the placement decision (caps change
         # tensor sizes, a hot swap changes the model's cost)
         pipe = getattr(self.head, "pipeline", None)
         state = getattr(pipe, "_placement_state", None)
         if state is not None:
             state.mark_dirty()
+        return fence
 
     def set_device(self, device) -> None:
         """Pin this segment's dispatch to ``device`` (placement planner).
@@ -510,17 +533,26 @@ class FusedSegment:
         before = torch.cuda.memory_reserved(home)
         cap = torch.cuda.Stream(home)
         cap.wait_stream(cur)
-        with torch.cuda.stream(cap):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                outs = call(xs)
-            except BaseException:
+        # a garbage collection on this thread during the capture could
+        # destroy an unreachable segment's graph, which the capture
+        # forbids (the capture then fails): none runs until it ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(cap):
+                graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()
-                except Exception:  # noqa: BLE001 - the first error is the news
-                    pass
-                raise
-            graph.capture_end()
+                    outs = call(xs)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:  # noqa: BLE001 - the first error is the news
+                        pass
+                    raise
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(cap)
         pool = max(0, torch.cuda.memory_reserved(home) - before)
         return _Graph(graph, static_in, tuple(outs), pool)
@@ -580,30 +612,37 @@ class FusedSegment:
         """Run the whole segment as one dispatch (a graph replay on the
         card) and push the result from the tail's src pad. Returns False
         when defused (the caller chains per-element instead)."""
-        call = self._call
-        if call is None:
-            if self._defused:
-                return False
-            call = self._build()
+        with self._run_lock:
+            call = self._call
             if call is None:
-                return False
-        for gate in self._gates:
-            if not gate(buf):
-                return True  # dropped (QoS throttle), buffer consumed
-        home = self._resolve_home(buf.tensors)
-        args = self._inputs(buf.tensors, home)
-        t0 = clock_now()
-        try:
-            outs, g = self._run(call, args, home)
-        except Exception as e:
-            # an allocation failure must land in the flight ring WITH the
-            # owning stage's name before the error path erases the context
-            if obs_memory.looks_like_oom(e):
-                pipe = getattr(self.head, "pipeline", None)
-                obs_memory.record_alloc_failure(
-                    self._profile_key, e,
-                    pipeline=pipe.name if pipe is not None else None)
-            raise
+                if self._defused:
+                    return False
+                call = self._build()
+                if call is None:
+                    return False
+            for gate in self._gates:
+                if not gate(buf):
+                    return True  # dropped (QoS throttle), buffer consumed
+            home = self._resolve_home(buf.tensors)
+            args = self._inputs(buf.tensors, home)
+            t0 = clock_now()
+            try:
+                outs, g = self._run(call, args, home)
+            except Exception as e:
+                # an allocation failure must land in the flight ring WITH
+                # the owning stage's name before the error path erases
+                # the context
+                if obs_memory.looks_like_oom(e):
+                    pipe = getattr(self.head, "pipeline", None)
+                    obs_memory.record_alloc_failure(
+                        self._profile_key, e,
+                        pipeline=pipe.name if pipe is not None else None)
+                raise
+            if g is not None:
+                fence = torch.cuda.Event()
+                fence.record(torch.cuda.current_stream(home))
+                self._fence = fence
+            del call
         # total_s gets ONLY the host-side dispatch time, even on probed
         # frames (device completion goes to probe_device_s)
         dt = clock_now() - t0

@@ -322,16 +322,23 @@ def test_caps_walk_through_declared_transparent_element():
         def chain(self, pad, buf):
             self.src_pads[0].push(buf)
 
-    pipe = parse_launch(
-        "videotestsrc num-buffers=1 name=src ! test_torch_seethrough ! "
-        "video/x-raw,width=32,height=24,format=RGB,framerate=5/1 ! "
-        "videoconvert ! tensor_converter ! tensor_sink name=out")
-    caps = downstream_filter_caps(pipe.get("src"))
-    fields = dict(caps.first.fields)
-    assert fields["width"] == 32 and fields["height"] == 24
-    got = []
-    pipe.get("out").connect(got.append)
-    pipe.play(); pipe.wait(timeout=30); pipe.stop()
+    from nnstreamer_tpu_torch.registry.elements import _FACTORIES
+
+    try:
+        pipe = parse_launch(
+            "videotestsrc num-buffers=1 name=src ! test_torch_seethrough ! "
+            "video/x-raw,width=32,height=24,format=RGB,framerate=5/1 ! "
+            "videoconvert ! tensor_converter ! tensor_sink name=out")
+        caps = downstream_filter_caps(pipe.get("src"))
+        fields = dict(caps.first.fields)
+        assert fields["width"] == 32 and fields["height"] == 24
+        got = []
+        pipe.get("out").connect(got.append)
+        pipe.play(); pipe.wait(timeout=30); pipe.stop()
+    finally:
+        # a test-only factory must not outlive the test: other files in
+        # the same worker hold the registry against the reference's
+        _FACTORIES.pop("test_torch_seethrough", None)
     assert len(got) == 1
     assert got[0].tensors[0].shape[1:3] == (24, 32)
 

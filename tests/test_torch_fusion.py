@@ -10,10 +10,11 @@ the events in order, EOS last), and the segments' ``dispatches``,
 segment's stages into one call; the CUDA-graph capture is held on the
 card (``tests/test_torch_fusion_cuda.py``).
 
-Cases of nnstreamer_tpu's ``tests/test_fusion.py`` that need elements the
-port lacks (``tensor_if``, ``tensor_mux``/``tensor_demux``, the sparse
-codecs, ``invoke-dynamic``/``suspend``, canary routers and model swaps,
-AOT, lint) wait for the ROADMAP items that bring those elements."""
+The cases of nnstreamer_tpu's ``tests/test_fusion.py`` with ``tensor_if``,
+``tensor_mux``/``tensor_demux``, the sparse codecs and ``invoke-dynamic``/
+``suspend`` are in ``tests/test_torch_fusion_streams.py``, the model-swap
+case in ``tests/test_torch_filter_props.py``; canary routers, AOT and
+lint wait for the ROADMAP items that bring them."""
 import numpy as np
 import pytest
 import torch

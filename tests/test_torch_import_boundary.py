@@ -89,6 +89,17 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.obs.quality",
     "nnstreamer_tpu_torch.obs.slo",
     "nnstreamer_tpu_torch.elements.fault",
+    "nnstreamer_tpu_torch.single",
+    "nnstreamer_tpu_torch.elements.muxdemux",
+    "nnstreamer_tpu_torch.elements.mergesplit",
+    "nnstreamer_tpu_torch.elements.cond",
+    "nnstreamer_tpu_torch.elements.crop",
+    "nnstreamer_tpu_torch.elements.rate",
+    "nnstreamer_tpu_torch.elements.repo",
+    "nnstreamer_tpu_torch.elements.files",
+    "nnstreamer_tpu_torch.elements.join",
+    "nnstreamer_tpu_torch.elements.debug",
+    "nnstreamer_tpu_torch.elements.sparse",
 ]
 
 
@@ -161,6 +172,63 @@ assert msg.type.value == "eos", msg
 assert len(got) == 2 and got[0].tensors[0].shape == (64, 64, 4)
 served = ssd_mobilenet.filter_model_u8.make("cpu")
 assert served.dtype is torch.float32
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_stream_elements_construct_and_run_with_jax_blocked(tmp_path):
+    """A line using each of the stream-structure, file and sink elements
+    constructs, and the mux/if/merge/split line and SingleShot run on the
+    CPU, with no JAX to import."""
+    data = tmp_path / "d.raw"
+    data.write_bytes(bytes(range(16)))
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+import numpy as np
+from nnstreamer_tpu_torch.runtime.parse import parse_launch
+from nnstreamer_tpu_torch.single import SingleShot
+lines = [
+    "tensor_src num-buffers=4 dimensions=3:4:4:2 types=uint8 "
+    "pattern=random ! tensor_if compared-value=a-value operator=lt "
+    "supplied-value=64 then=passthrough else=skip ! tee name=t "
+    "t. ! queue ! m.sink_0 t. ! queue ! m.sink_1 tensor_mux name=m "
+    "! tensor_demux name=d tensorpick=0,1 d.src_0 ! tensor_sink name=a "
+    "d.src_1 ! tensor_debug ! fakesink",
+    "tensor_src num-buffers=2 dimensions=3:4 types=float32 ! tee name=t "
+    "t. ! queue ! m.sink_0 t. ! queue ! m.sink_1 tensor_merge name=m "
+    "option=0 ! tensor_split name=s axis=0 tensorseg=4,4 "
+    "s.src_0 ! tensor_sink name=a s.src_1 ! tensor_rate framerate=0 "
+    "! tensor_sparse_enc ! tensor_sparse_dec ! fakesink",
+    "filesrc location={data} ! tensor_converter input-dim=16 "
+    "input-type=uint8 ! tensor_repo_sink slot-index=3",
+    "multifilesrc location={data} stop-index=0 ! tensor_converter "
+    "input-dim=16 input-type=uint8 ! filesink location={tmp_path}/o.raw",
+    "tensor_reposrc slot-index=3 caps=other/tensors,format=static,"
+    "dimensions=16,types=uint8 ! multifilesink location={tmp_path}/m_%d",
+    "tensor_src_callable dimensions=2 ! join name=j ! tensor_sink "
+    "tensor_crop name=c ! tensor_sink tensor_src ! c.raw "
+    "tensor_src dimensions=4 ! c.info",
+    "filesrc location={data} ! pngdec ! fakesink",
+    "filesrc location={data} ! imagedec ! fakesink",
+    "filesrc location={data} ! pnmdec ! fakesink",
+    "tensor_src ! tensor_reposink slot-index=5",
+]
+for line in lines:
+    parse_launch(line)
+for line in lines[:2]:
+    parse_launch(line).run(timeout=60)
+with SingleShot("torch", "builtin://scaler?factor=2", accelerator="cpu",
+                timeout_ms=5000) as s:
+    assert float(s.invoke(np.ones(2, np.float32))[0][0]) == 2.0
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded
