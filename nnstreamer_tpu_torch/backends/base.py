@@ -66,6 +66,9 @@ class FilterBackend:
 
     NAME = ""
     ALIASES: Sequence[str] = ()
+    # where the backend can run (reference accl_hw support list); host
+    # backends narrow it and refuse the rest (check_accelerator)
+    ACCELERATORS: Sequence[Accelerator] = (Accelerator.CPU, Accelerator.GPU)
 
     def __init__(self):
         self.props: Optional[FilterProperties] = None
@@ -114,6 +117,40 @@ class FilterBackend:
         """Drop what a RELOAD_MODEL retired (the old model's weights).
         The filter calls this once no queued device work can still read
         them; backends that retire nothing need not override it."""
+
+
+def check_accelerator(backend: FilterBackend, props: FilterProperties) -> None:
+    """Refuse an ``accelerator=`` the backend cannot run on (reference
+    ``accl_hw`` support lists): the filter posts the error on the bus
+    instead of running quietly somewhere else. ``auto`` is always
+    accepted."""
+    acc, supported = props.accelerator, backend.ACCELERATORS
+    if acc is not Accelerator.AUTO and acc not in supported:
+        raise ValueError(
+            f"framework={backend.NAME} runs on "
+            f"{', '.join(a.value for a in supported)} only, not "
+            f"accelerator={acc.value}")
+
+
+def probe_output_info(backend: FilterBackend,
+                      in_info: TensorsInfo) -> TensorsInfo:
+    """The output spec of one invoke on host zeros — nnstreamer_tpu's
+    default ``set_input_info`` (the reference's SET_INPUT_INFO probe),
+    for the host backends whose models declare no shape rule. Bfloat16
+    zeros, which numpy lacks, are a CPU ``torch.bfloat16`` tensor."""
+    import numpy as np
+    import torch
+
+    from ..core import DataType
+    from ..core.tensors import TensorSpec
+
+    outs = backend.invoke([
+        torch.zeros(s.shape, dtype=torch.bfloat16)
+        if s.dtype is DataType.BFLOAT16 else np.zeros(s.shape, s.dtype.np_dtype)
+        for s in in_info.specs])
+    return TensorsInfo.of(
+        *(TensorSpec(tuple(o.shape), DataType.from_any(o.dtype))
+          for o in outs))
 
 
 def register_backend(cls):

@@ -44,6 +44,29 @@ def _to_host(a):
     return a if a.dtype is torch.bfloat16 else a.numpy()
 
 
+def is_host_bf16(a) -> bool:
+    """A host bfloat16 tensor: numpy has no bfloat16, so the port keeps
+    one as a CPU ``torch.bfloat16`` tensor and does its host work on it
+    with torch ops."""
+    return (isinstance(a, torch.Tensor) and a.dtype is torch.bfloat16
+            and a.device.type == "cpu")
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A bfloat16 tensor's bit patterns as a host uint16 array (one copy
+    down for a card tensor) — the bytes nnstreamer_tpu's ``ml_dtypes``
+    arrays hold."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def bf16_from_bits(a) -> torch.Tensor:
+    """Host 2-byte bit patterns (a uint16 array or raw bytes viewed as
+    one) as a CPU ``torch.bfloat16`` tensor of the same shape."""
+    a = np.ascontiguousarray(a).view(np.int16)
+    return torch.from_numpy(a.copy()).view(torch.bfloat16)
+
+
 def as_torch(a) -> torch.Tensor:
     """A numpy array (zero-copy; a read-only one is copied, which
     ``torch.from_numpy`` needs) or a torch tensor as a torch tensor."""

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from ..core import Buffer, Caps
-from ..core.buffer import _is_device_array
+from ..core.buffer import (_is_device_array, bf16_bits, bf16_from_bits,
+                           is_host_bf16)
 from ..core.data import parse_number
 from ..registry.elements import register_element
 from ..runtime.element import ElementError, Prop, TransformElement
@@ -55,8 +56,11 @@ _OPERATORS = {
 
 def _host(t) -> np.ndarray:
     """A host view of ``t`` for host-side fills (a CUDA tensor's one
-    copy down happens here, only on the fill-with-file path)."""
+    copy down happens here, only on the fill-with-file path); a bfloat16
+    tensor, which numpy lacks, as its uint16 bit patterns."""
     if isinstance(t, torch.Tensor):
+        if t.dtype is torch.bfloat16:
+            return bf16_bits(t)
         return t.cpu().numpy()
     return np.asarray(t)
 
@@ -65,9 +69,9 @@ def _full_like(t, v):
     """``np.full_like``'s cast of ``v`` into ``t``'s dtype, made on the
     card for a CUDA tensor (through a host scalar of that dtype, so both
     paths cast the same way)."""
+    if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
+        return torch.full_like(t, float(v))  # numpy has no bfloat16
     if _is_device_array(t):
-        if t.dtype is torch.bfloat16:  # numpy has no bfloat16
-            return torch.full_like(t, float(v))
         dt = np.dtype(str(t.dtype).removeprefix("torch."))
         return torch.full_like(t, np.asarray(v).astype(dt).item())
     return np.full_like(_host(t), v)
@@ -246,7 +250,7 @@ class TensorIf(TransformElement):
             return None
         if action == "fill-zero":
             return buf.with_tensors(
-                [torch.zeros_like(t) if _is_device_array(t)
+                [torch.zeros_like(t) if _is_device_array(t) or is_host_bf16(t)
                  else np.zeros_like(_host(t)) for t in buf.tensors]
             ).copy_metadata_from(buf)
         if action == "fill-values":
@@ -277,7 +281,9 @@ class TensorIf(TransformElement):
                     chunk[:len(avail)] = avail
                 off += n
                 filled = chunk.view(a.dtype).reshape(a.shape)
-                if _is_device_array(t):
+                if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
+                    filled = bf16_from_bits(filled).to(t.device)
+                elif _is_device_array(t):
                     filled = torch.from_numpy(filled.copy()).to(t.device)
                 out.append(filled)
             return buf.with_tensors(out).copy_metadata_from(buf)

@@ -9,11 +9,12 @@ subplugins (:1881).
 
 It works on the host, as nnstreamer_tpu's does, and emits host arrays:
 media frames are numpy, and a device tensor reaching it is pulled once.
-The python converter (``mode=custom-script:``) is not in this package
-yet.
+``mode=custom-script:<file.py>`` runs a user python converter
+(``converters/python_converter.py``).
 """
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -40,6 +41,7 @@ from ..registry.elements import register_element
 from ..registry.subplugin import SubpluginKind, get as get_subplugin
 from ..runtime.element import ElementError, Prop, TransformElement, prop_bool
 from ..runtime.pad import Pad, PadDirection, PadTemplate
+from ..utils.log import logger
 
 from ..core.caps import FLATBUF_MIME, FLEXBUF_MIME, PROTOBUF_MIME
 
@@ -85,12 +87,14 @@ class TensorConverter(TransformElement):
                               "stamp untimestamped media with running time "
                               "(reference set-timestamp)"),
         "subplugin_option": Prop(None, str,
-                                 "option string handed to the subplugin"),
-        # reference mode property (gsttensor_converter.c)
+                                 "option string handed to the subplugin "
+                                 "(e.g. python3 converter .py file)"),
+        # reference mode property (gsttensor_converter.c): the corpus
+        # spells python converters ``mode=custom-script:<path>[:opt]``
         "mode": Prop(None, str,
-                     "converter mode: custom-code:<registered name> "
-                     "(custom-script:, the python converter, is not in "
-                     "this package yet)"),
+                     "converter mode: custom-script:<py file>[:option] "
+                     "(reference custom-converter idiom) or "
+                     "custom-code:<registered name>"),
     }
 
     READONLY_PROPS = ("sub-plugins",)
@@ -140,10 +144,23 @@ class TensorConverter(TransformElement):
         if mode and not subplugin:
             kind, _, arg = mode.partition(":")
             if kind == "custom-script":
-                raise ElementError(
-                    f"{self.describe()}: mode=custom-script needs the "
-                    "python converter, which this package does not have "
-                    "yet")
+                if not arg:
+                    raise ElementError(
+                        f"{self.describe()}: mode=custom-script needs a "
+                        "script path (custom-script:<file.py>)")
+                # custom-script:<path>[:option] — a further ':' separates
+                # a trailing option unless the whole arg IS the path.
+                # Neither user API (native Converter / reference
+                # CustomConverter) takes per-instance options, so a
+                # trailing option is accepted-and-logged, not consumed.
+                if ":" in arg and not os.path.exists(arg):
+                    arg, _, script_opt = arg.partition(":")
+                    if script_opt:
+                        logger.info(
+                            "%s: custom-script option '%s' accepted "
+                            "(python converters take no option)",
+                            self.describe(), script_opt)
+                subplugin, opt = "python3", arg
             elif kind == "custom-code":
                 if not arg:
                     raise ElementError(
@@ -153,7 +170,7 @@ class TensorConverter(TransformElement):
             else:
                 raise ElementError(
                     f"{self.describe()}: unknown converter mode '{mode}' "
-                    "(custom-code:<name>)")
+                    "(custom-script:<file.py> | custom-code:<name>)")
         subplugin = subplugin or _IDL_MIMES.get(media)
         if subplugin:
             cls = get_subplugin(SubpluginKind.CONVERTER, subplugin)

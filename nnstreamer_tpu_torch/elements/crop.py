@@ -18,6 +18,7 @@ import threading
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core import (
     Buffer,
@@ -26,6 +27,7 @@ from ..core import (
     TensorsInfo,
     caps_from_tensors_info,
 )
+from ..core.buffer import is_host_bf16
 from ..registry.elements import register_element
 from ..runtime.element import Element, Prop
 from ..runtime.pad import Pad, PadDirection, PadTemplate
@@ -70,7 +72,9 @@ class TensorCrop(Element):
         if (lateness >= 0 and raw.pts is not None and info.pts is not None
                 and abs(raw.pts - info.pts) * 1000.0 > lateness):
             return  # info too far from this frame: drop the pair
-        frame = np.asarray(raw.as_numpy().tensors[0])
+        frame = raw.as_numpy().tensors[0]
+        if not is_host_bf16(frame):  # host bfloat16 is sliced in torch
+            frame = np.asarray(frame)
         regions = np.asarray(info.as_numpy().tensors[0]).reshape(-1, 4).astype(np.int64)
         # crop H/W: frame is (..., H, W, C); leading axes preserved
         h_ax, w_ax = frame.ndim - 3, frame.ndim - 2
@@ -79,6 +83,8 @@ class TensorCrop(Element):
             sl = [slice(None)] * frame.ndim
             sl[h_ax] = slice(max(y, 0), max(y, 0) + max(h, 0))
             sl[w_ax] = slice(max(x, 0), max(x, 0) + max(w, 0))
-            crops.append(np.ascontiguousarray(frame[tuple(sl)]))
+            crop = frame[tuple(sl)]
+            crops.append(crop.contiguous() if isinstance(crop, torch.Tensor)
+                         else np.ascontiguousarray(crop))
         out = Buffer(crops).copy_metadata_from(raw)
         self.push(out)

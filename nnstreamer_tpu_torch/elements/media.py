@@ -1,7 +1,8 @@
 """GStreamer media-element shims: videoconvert / videoscale / imagefreeze /
-audiotestsrc / audioconvert. They work on host numpy frames, as in
-nnstreamer_tpu; ``videomixer``/``compositor`` and the file decoders
-(``pngdec``) are not in this package yet.
+videomixer / compositor / audiotestsrc / audioconvert (+ pngdec/pnmdec
+aliases in files.py). They work on host numpy frames, as in
+nnstreamer_tpu: the mixer's blend is host float32 numpy, so its bytes
+are nnstreamer_tpu's.
 
 The reference's launch lines lean on these GStreamer elements around the
 tensor boundary (tests/*/runTest.sh: ``videotestsrc ! videoconvert !
@@ -18,6 +19,7 @@ its constraints — which is exactly how the reference pipelines use them
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -26,8 +28,8 @@ from ..core import Buffer, Caps
 from ..core.caps import AUDIO_MIME, VIDEO_MIME, Structure
 from ..registry.elements import register_element
 from ..utils.log import logger
-from ..runtime.element import ElementError, Prop, TransformElement
-from ..runtime.pad import Pad, PadDirection, PadTemplate
+from ..runtime.element import Element, ElementError, Prop, TransformElement
+from ..runtime.pad import Pad, PadDirection, PadPresence, PadTemplate
 
 # elements safe to look THROUGH when searching for the constraining
 # capsfilter (passthrough-ish shims + queue). Custom elements can opt in
@@ -235,6 +237,138 @@ class ImageFreeze(TransformElement):
 
     def transform(self, buf: Buffer) -> Optional[Buffer]:
         return buf
+
+
+@register_element
+class VideoMixer(Element):
+    """Alpha compositor (GStreamer ``videomixer``/``compositor`` role):
+    N video inputs blended in pad order (sink_0 = bottom layer) — the
+    counterpart of the bounding-box/pose decoders' transparent RGBA
+    overlays (the reference pipelines end ``decoder ! mix.sink_1``).
+    Frames pair with tensor_mux's slowest sync (``collect_sync``, which
+    queues each pad's frames without bound, so a decoder branch that
+    emits a batch of overlays at once never blocks the base branch);
+    sizes must match."""
+
+    ELEMENT_NAME = "videomixer"
+    # GStreamer child-proxy per-pad props ("sink_1::alpha=0.5") scale the
+    # layer's alpha in the blend below
+    ACCEPT_CHILD_PROPS = True
+    SINK_TEMPLATES = (PadTemplate("sink_%u", PadDirection.SINK,
+                                  Caps.new(VIDEO_MIME), PadPresence.REQUEST),)
+    SRC_TEMPLATES = (PadTemplate("src", PadDirection.SRC,
+                                 Caps.new(VIDEO_MIME)),)
+    PROPERTIES = {
+        "sync_mode": Prop("slowest", str, "slowest | nosync (pairing policy)"),
+        "sync_option": Prop(None, str, "unused (tensor_mux signature compat)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._queues = {}
+        self._latest = {}
+        self._mix_lock = threading.Lock()
+
+    def reset_flow(self) -> None:
+        super().reset_flow()
+        with self._mix_lock:
+            self._queues.clear()
+            self._latest.clear()
+
+    def _zordered(self):
+        """Linked sink pads bottom-to-top: child-proxy ``sink_N::zorder``
+        overrides when set, else PAD-INDEX order (sink_0 = bottom),
+        regardless of the order the launch string linked them."""
+
+        def key(pad):
+            _, _, n = pad.name.rpartition("_")
+            idx = int(n) if n.isdigit() else 0
+            z = self.props.get(f"{pad.name}::zorder")
+            return (float(z) if z is not None else idx, idx)
+
+        return sorted((p for p in self.sink_pads if p.is_linked), key=key)
+
+    def transform_caps(self, src_pad: Pad) -> Caps:
+        # output geometry/format follow the bottom layer (sink_0)
+        for pad in self._zordered():
+            if pad.caps is not None:
+                return pad.caps
+        return Caps.new(VIDEO_MIME)
+
+    @staticmethod
+    def _rgb_alpha(a: np.ndarray):
+        """Any 1/3/4-channel uint8 frame → (rgb float32, alpha|None)."""
+        if a.ndim == 2:
+            a = a[..., None]
+        c = a.shape[-1]
+        if c == 1:
+            return np.repeat(a, 3, axis=-1).astype(np.float32), None
+        if c == 3:
+            return a.astype(np.float32), None
+        if c == 4:
+            return (a[..., :3].astype(np.float32),
+                    a[..., 3:4].astype(np.float32) / 255.0)
+        raise ElementError(f"videomixer: {c}-channel frame unsupported")
+
+    def chain(self, pad: Pad, buf: Buffer) -> None:
+        from .muxdemux import collect_sync
+
+        with self._mix_lock:
+            parts = collect_sync(self, pad, buf)
+            if parts is None:
+                return
+            # collect_sync returns parts aligned with sink_pads LINK order;
+            # re-pair into pad-index z-order (sink_0 bottom)
+            linked = [p for p in self.sink_pads if p.is_linked]
+        by_pad = dict(zip((p.name for p in linked), parts))
+        zpads = self._zordered()  # ONE snapshot pairs pads and frames
+        parts = [by_pad[p.name] for p in zpads]
+        frames = [np.asarray(p.as_numpy().tensors[0]) for p in parts]
+        base_raw = frames[0]
+        if base_raw.ndim == 2:
+            base_raw = base_raw[..., None]
+        base_channels = base_raw.shape[-1]
+        out, _base_alpha = self._rgb_alpha(base_raw)
+        # base-layer child alpha blends against the (black) background,
+        # like GStreamer's videomixer bottom layer
+        base_factor = float(self.props.get(f"{zpads[0].name}::alpha", 1.0))
+        if base_factor < 1.0:
+            out = out * base_factor
+        for lpad, layer in zip(zpads[1:], frames[1:]):
+            if layer.shape[:2] != base_raw.shape[:2]:
+                raise ElementError(
+                    f"{self.describe()}: layer size {layer.shape[:2]} != "
+                    f"base {base_raw.shape[:2]} (scale upstream)")
+            rgb, alpha = self._rgb_alpha(layer)
+            # child-proxy per-pad alpha ("sink_1::alpha=0.5") scales the
+            # layer's own alpha (opaque layers become uniformly factored)
+            factor = float(self.props.get(f"{lpad.name}::alpha", 1.0))
+            if alpha is None:
+                if factor >= 1.0:  # opaque layer replaces
+                    out = rgb
+                    continue
+                alpha = np.full(layer.shape[:2] + (1,), 1.0, np.float32)
+            alpha = alpha * factor
+            out = out * (1.0 - alpha) + rgb * alpha
+        blended = np.clip(out, 0, 255).astype(np.uint8)
+        if base_channels == 1:  # keep the negotiated grayscale format
+            blended = np.clip(
+                0.299 * blended[..., 0] + 0.587 * blended[..., 1]
+                + 0.114 * blended[..., 2], 0, 255).astype(np.uint8)[..., None]
+        elif base_channels == 4:  # reattach the base's alpha plane
+            blended = np.concatenate(
+                [blended, base_raw[..., 3:4]], axis=-1)
+        result = Buffer([blended]).copy_metadata_from(parts[0])
+        result.pts = max((p.pts for p in parts if p.pts is not None),
+                         default=None)
+        self.push(result)
+
+
+@register_element
+class Compositor(VideoMixer):
+    """GStreamer 1.x name for :class:`VideoMixer`."""
+
+    ELEMENT_NAME = "compositor"
 
 
 # -- audio ------------------------------------------------------------------

@@ -19,6 +19,7 @@ from typing import Deque, Dict, Optional
 from ..core import (
     Buffer,
     Caps,
+    DataType,
     TensorsInfo,
     caps_from_tensors_info,
     parse_caps_string,
@@ -166,6 +167,7 @@ class TensorRepoSrc(SourceElement):
         """Zeros shaped from the declared caps (the reference's
         gen_dummy_buffer: memset-0 memories per tensor)."""
         import numpy as np
+        import torch
 
         info = tensors_info_from_caps(parse_caps_string(self.props["caps"]))
         if not info.specs or any(None in s.shape or not s.shape
@@ -173,7 +175,10 @@ class TensorRepoSrc(SourceElement):
             raise ValueError(
                 f"{self.describe()}: initial-dummy requires fully-fixated "
                 "static caps to shape the zero buffer")
-        return Buffer([np.zeros(tuple(s.shape), s.dtype.np_dtype)
+        # numpy has no bfloat16: its zeros are a CPU torch tensor
+        return Buffer([torch.zeros(tuple(s.shape), dtype=torch.bfloat16)
+                       if s.dtype is DataType.BFLOAT16
+                       else np.zeros(tuple(s.shape), s.dtype.np_dtype)
                        for s in info.specs])
 
     def create(self) -> Optional[Buffer]:

@@ -7,22 +7,27 @@ tensor, two arrays (indices int32, values) plus the dense spec in
 ``buf.meta["sparse_specs"]``.
 
 The counterpart of nnstreamer_tpu's ``elements/sparse.py`` (host COO
-packing; a CUDA stream is pulled to the host once per buffer).
+packing; a CUDA stream is pulled to the host once per buffer). Host
+bfloat16, which numpy lacks, packs and unpacks with torch ops on the CPU;
+its index tensor is int32 like every other dtype's.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..core import (
     Buffer,
     Caps,
+    DataType,
     TensorFormat,
     TensorsInfo,
     caps_from_tensors_info,
     tensors_info_from_caps,
 )
+from ..core.buffer import as_torch, is_host_bf16
 from ..core.tensors import TensorSpec
 from ..registry.elements import register_element
 from ..runtime.element import ElementError, Prop, TransformElement
@@ -46,6 +51,13 @@ class TensorSparseEnc(TransformElement):
         tensors: List[np.ndarray] = []
         specs = []
         for t in buf.as_numpy().tensors:
+            if is_host_bf16(t):
+                # numpy has no bfloat16: the same COO packing in torch ops
+                flat = t.reshape(-1)
+                nz = torch.nonzero(flat).reshape(-1)
+                tensors.extend([nz.to(torch.int32).numpy(), flat[nz]])
+                specs.append(TensorSpec(tuple(t.shape), t.dtype))
+                continue
             a = np.asarray(t)
             flat = a.reshape(-1)
             idx = np.flatnonzero(flat).astype(np.int32)
@@ -74,6 +86,13 @@ class TensorSparseDec(TransformElement):
         out_tensors = []
         arrays = buf.as_numpy().tensors
         for i, spec in enumerate(specs):
+            if spec.dtype is DataType.BFLOAT16:
+                idx = torch.from_numpy(np.asarray(arrays[2 * i], np.int64))
+                flat = torch.zeros(int(np.prod(spec.shape)),
+                                   dtype=torch.bfloat16)
+                flat[idx] = as_torch(arrays[2 * i + 1])
+                out_tensors.append(flat.reshape(spec.shape))
+                continue
             idx, vals = np.asarray(arrays[2 * i]), np.asarray(arrays[2 * i + 1])
             flat = np.zeros(int(np.prod(spec.shape)), dtype=spec.dtype.np_dtype)
             flat[idx] = vals

@@ -10,8 +10,9 @@ falling back to ``/etc/nnstreamer_tpu.ini``.
 The port reads the same ini file and environment as nnstreamer_tpu.
 Notable keys:
   * ``[filter] framework_priority_<ext>`` — auto framework detection by model
-    file extension (reference ``framework_priority_tflite`` etc.; the port
-    sets no default, its one backend is named explicitly);
+    file extension (reference ``framework_priority_tflite`` etc.; the port's
+    defaults are ``py`` → python and ``so`` → custom, its backends that
+    load a model file);
   * ``[common] subplugin_modules_<kind>`` — extra python modules scanned for
     subplugins (reference subplugin dirs);
   * ``[filter-aliases]`` and ``[element-restriction]``.
@@ -28,6 +29,11 @@ from ..utils.log import logger
 _DEFAULTS: Dict[str, Dict[str, str]] = {
     "common": {
         "enable_envvar": "true",
+    },
+    "filter": {
+        # model-extension -> backend priority (comma-separated, first wins)
+        "framework_priority_py": "python",
+        "framework_priority_so": "custom",
     },
 }
 

@@ -49,6 +49,8 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.debug",
     "nnstreamer_tpu_torch.elements.join",
     "nnstreamer_tpu_torch.elements.files",
+    "nnstreamer_tpu_torch.elements.datarepo",
+    "nnstreamer_tpu_torch.elements.iio",
 )
 
 _loaded = False

@@ -33,7 +33,12 @@ _lock = threading.RLock()
 # scan-all-subplugin-dirs mode, nnstreamer_subplugin.c:108). The port's
 # table names only its own modules.
 _BUILTIN_MODULES: Dict[SubpluginKind, tuple] = {
-    SubpluginKind.FILTER: ("nnstreamer_tpu_torch.backends.torch_backend",),
+    SubpluginKind.FILTER: (
+        "nnstreamer_tpu_torch.backends.torch_backend",
+        "nnstreamer_tpu_torch.backends.python_backend",
+        "nnstreamer_tpu_torch.backends.custom_easy",
+        "nnstreamer_tpu_torch.backends.custom_c",
+    ),
     SubpluginKind.DECODER: ("nnstreamer_tpu_torch.decoders",),
     SubpluginKind.CONVERTER: ("nnstreamer_tpu_torch.converters",),
 }

@@ -73,6 +73,10 @@ class Element:
     # alternate property spellings (reference/GStreamer names) mapped to
     # the canonical key, applied after dash→underscore normalization
     PROP_ALIASES: Dict[str, str] = {}
+    # GStreamer child-proxy syntax ("sink_0::alpha=0.4"): classes that
+    # consume per-pad child properties set True; the raw value is stored
+    # under the full key for the element to interpret
+    ACCEPT_CHILD_PROPS: bool = False
     PROPERTIES: Dict[str, Prop] = {
         # reference: every tensor element carries `silent` (verbose
         # per-buffer logging when false, e.g. gsttensor_converter.c:263)
@@ -127,6 +131,9 @@ class Element:
     def set_property(self, key: str, value: Any) -> None:
         key = key.replace("-", "_")
         key = self.PROP_ALIASES.get(key, key)
+        if "::" in key and self.ACCEPT_CHILD_PROPS:
+            self.props[key] = value  # per-pad child property, raw
+            return
         if key == "name":
             self.name = str(value)
             return

@@ -446,7 +446,14 @@ def torch_trace(logdir: str, cuda: Optional[bool] = None):
     initialized in this process). Yields the profiler; its
     ``trace_path`` attribute names the file once the block has ended.
     Kernels launched through ``ctypes`` (the hand kernels of ``ops/``)
-    appear under their CUDA names, like any other kernel."""
+    appear under their CUDA names, like any other kernel.
+
+    CUPTI can fail to deliver kernel records (on an H100 most long traces
+    lose some and a few lose all, whatever the timing around start and
+    stop), so the profiler's ``lost_kernel_records`` attribute counts
+    the launches whose device record is missing (see
+    :func:`lost_kernel_records`), and a warning names the file when it is
+    not 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -470,6 +477,44 @@ def torch_trace(logdir: str, cuda: Optional[bool] = None):
             logdir, f"torch_trace-{os.getpid()}-{_torch_trace_n}.json")
         prof.export_chrome_trace(path)
         prof.trace_path = path
+        prof.lost_kernel_records = lost_kernel_records(path) if cuda else 0
+        if prof.lost_kernel_records:
+            from .log import logger
+            logger.warning(
+                "torch_trace %s: CUPTI delivered no device record for %d "
+                "kernel launches; their kernels are missing from the "
+                "trace", path, prof.lost_kernel_records)
+
+
+# runtime and driver API calls that launch kernels; each launch record
+# shares its correlation id with the device records of what it launched
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+                 "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cuLaunchCooperativeKernel", "cuGraphLaunch")
+
+
+def lost_kernel_records(path: str) -> int:
+    """Kernel launches in a chrome trace written by ``torch_trace`` whose
+    device record is missing: launch records (``cuda_runtime`` or
+    ``cuda_driver``) whose correlation id no ``kernel`` event carries.
+    A graph launch counts as delivered when any one of its kernels is."""
+    import json
+
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    launched, delivered = set(), set()
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is None:
+            continue
+        cat = e.get("cat")
+        if cat == "kernel":
+            delivered.add(corr)
+        elif (cat in ("cuda_runtime", "cuda_driver")
+              and e.get("name") in _LAUNCH_CALLS):
+            launched.add(corr)
+    return len(launched - delivered)
 
 
 _torch_trace_n = 0

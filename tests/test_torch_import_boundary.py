@@ -100,6 +100,15 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.elements.join",
     "nnstreamer_tpu_torch.elements.debug",
     "nnstreamer_tpu_torch.elements.sparse",
+    "nnstreamer_tpu_torch.compat",
+    "nnstreamer_tpu_torch.compat.nnstreamer_python",
+    "nnstreamer_tpu_torch.backends.python_backend",
+    "nnstreamer_tpu_torch.backends.custom_easy",
+    "nnstreamer_tpu_torch.backends.custom_c",
+    "nnstreamer_tpu_torch.converters.python_converter",
+    "nnstreamer_tpu_torch.decoders.python_decoder",
+    "nnstreamer_tpu_torch.elements.datarepo",
+    "nnstreamer_tpu_torch.elements.iio",
 ]
 
 
@@ -131,6 +140,16 @@ for mode in ("flexbuf", "protobuf", "flatbuf"):
 for mode in ("bounding_boxes", "pose_estimation", "image_segment",
              "tensor_region", "font"):
     assert get(SubpluginKind.DECODER, mode).MODE == mode
+from nnstreamer_tpu_torch.registry.subplugin import names
+assert names(SubpluginKind.FILTER) == ["custom", "custom-easy", "python",
+                                       "torch"]
+assert get(SubpluginKind.FILTER, "python3") is get(SubpluginKind.FILTER,
+                                                   "python")
+assert get(SubpluginKind.DECODER, "python3").MODE == "python3"
+assert get(SubpluginKind.CONVERTER, "python3").NAME == "python3"
+assert {{"videomixer", "compositor", "datareposrc", "datareposink",
+         "tensor_src_iio"}} <= set(element_factories())
+assert len(element_factories()) == 48
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded
@@ -229,6 +248,57 @@ for line in lines[:2]:
 with SingleShot("torch", "builtin://scaler?factor=2", accelerator="cpu",
                 timeout_ms=5000) as s:
     assert float(s.invoke(np.ones(2, np.float32))[0][0]) == 2.0
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_plugin_lines_run_with_jax_blocked(tmp_path):
+    """A python filter, a reference-style python3 decoder, custom-easy, a
+    compositor and a datarepo round trip run on the CPU with no JAX to
+    import."""
+    script = tmp_path / "f.py"
+    script.write_text("import numpy as np\n"
+                      "class Filter:\n"
+                      "    def invoke(self, inputs):\n"
+                      "        return [np.asarray(inputs[0]) * 2]\n")
+    dec = tmp_path / "d.py"
+    dec.write_text("import nnstreamer_python\n"
+                   "class CustomDecoder(object):\n"
+                   "    def getOutCaps(self):\n"
+                   "        return b'application/octet-stream'\n"
+                   "    def decode(self, raw, info, n, d):\n"
+                   "        return raw[0]\n")
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+import numpy as np
+from nnstreamer_tpu_torch.backends.custom_easy import register_custom_easy
+from nnstreamer_tpu_torch.runtime.parse import parse_launch
+register_custom_easy("neg", lambda ts: [-np.asarray(ts[0])])
+lines = [
+    "tensor_src num-buffers=2 dimensions=4 types=float32 pattern=ones ! "
+    "tensor_filter framework=python model={script} ! tensor_filter "
+    "framework=custom-easy model=neg ! tensor_decoder mode=python3 "
+    "option1={dec} ! tensor_sink name=out",
+    "videotestsrc num-buffers=2 ! videoconvert ! videoscale ! "
+    "video/x-raw,width=8,height=8,format=RGB ! tee name=t t. ! queue ! "
+    "mix.sink_0 t. ! queue ! mix.sink_1 compositor name=mix ! "
+    "tensor_sink name=out",
+    "tensor_src num-buffers=2 dimensions=4 types=bfloat16 ! datareposink "
+    "location={tmp_path}/d.raw json={tmp_path}/d.json",
+    "datareposrc location={tmp_path}/d.raw json={tmp_path}/d.json ! "
+    "tensor_sink name=out",
+]
+for line in lines:
+    parse_launch(line).run(timeout=60)
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded

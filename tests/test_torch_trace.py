@@ -224,6 +224,38 @@ def test_torch_trace_writes_a_loadable_chrome_trace(tmp_path):
     assert doc["traceEvents"], "empty trace"
 
 
+def test_torch_trace_on_the_cpu_loses_no_kernel_records(tmp_path):
+    with trace.torch_trace(str(tmp_path), cuda=False) as prof:
+        parse_launch(LINE.format(acc="accelerator=cpu ")).run(timeout=30)
+    assert prof.lost_kernel_records == 0
+
+
+def test_lost_kernel_records_counts_launches_without_a_kernel(tmp_path):
+    def ev(cat, name, corr):
+        return {"ph": "X", "cat": cat, "name": name, "ts": 0, "dur": 1,
+                "args": {"correlation": corr}}
+
+    events = [
+        ev("cuda_runtime", "cudaLaunchKernel", 1), ev("kernel", "k1", 1),
+        ev("cuda_runtime", "cudaLaunchKernel", 2),           # lost
+        ev("cuda_driver", "cuLaunchKernel", 3),              # lost
+        ev("cuda_driver", "cuLaunchKernel", 4), ev("kernel", "k2", 4),
+        # a graph launch: delivered once any of its kernels is
+        ev("cuda_runtime", "cudaGraphLaunch", 5), ev("kernel", "g1", 5),
+        ev("cuda_runtime", "cudaGraphLaunch", 6),            # lost
+        # no launch: a copy and a memset have no kernel record
+        ev("cuda_runtime", "cudaMemcpyAsync", 7),
+        ev("gpu_memcpy", "Memcpy HtoD", 7),
+        ev("cuda_runtime", "cudaMemsetAsync", 8),
+        {"ph": "i", "cat": "cpu_op", "name": "aten::add", "ts": 0},
+    ]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert trace.lost_kernel_records(str(path)) == 3
+    path.write_text(json.dumps({"traceEvents": events[:2]}))
+    assert trace.lost_kernel_records(str(path)) == 0
+
+
 def test_flush_keeps_recording_save_finalizes(tmp_path):
     tracer = trace.ChromeTraceTracer(path=str(tmp_path / "f.json"))
     tracer.buffer_flow(
