@@ -278,11 +278,34 @@ phase fails:
     failed build, load or gate fails the run. tensor_src_iio has no
     phase: the card's machine has no IIO device. This phase runs no
     hand-written kernel.
+16. ``.tflite`` models (also ``--only tflite``): the committed full-width
+    int8 MobileNet-v2 fixture (``tests/fixtures/
+    mobilenet_v2_1.0_224_int8.tflite``) at batch 64, 2 warm-up and 8
+    measured batches. (a) g++ builds the native host runtime and the q8
+    engine from the checkout; both must load. (b) ``tensor_src
+    device=true types=int8 ! tensor_filter framework=torch
+    model=<fixture> custom=quantized_exec:<mode>,batch:64 !
+    tensor_decoder mode=image_labeling`` runs fake-quant, float and int8
+    on cuda:0, the host line (``tensor_src ! tensor_aggregator ! queue !
+    tensor_filter``) int8-native. Gates: int8 on the card equals
+    int8-native's bytes on every frame of both lines; fake-quant and
+    float within 2 LSB of the port's CPU run on 4 frames; every label its
+    frame's argmax; the tiny fixture the CPU run's bytes in all four
+    modes; the TF32 switches the same after the phase. Frames/s, forward
+    ms (CUDA events), the card's busy share, int8-native's host ms a
+    batch. (c) a uint8 → int8 ``tensor_transform`` before the int8
+    filter, fused and not: one capture, equal sink bytes; host ms to issue
+    a batch. (d) ``framework=tflite`` and ``framework=auto`` on the
+    fixture post a bus ERROR naming tensorflow (the machine has none;
+    nothing reaches the sink). (e) ``datareposrc`` (shuffled, 2 epochs)
+    feeds the int8 filter with ``use-native`` true and false: the same
+    samples in the same order, the same outputs; frames/s. This phase
+    runs no hand-written kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
-plugins``) runs phase 13 (14, 15) alone and prints its report as the last
+plugins``, ``--only tflite``) runs phase 13 (14, 15, 16) alone and prints its report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
@@ -4788,6 +4811,387 @@ def phase_plugins(report: dict) -> None:
           f"run; random round trip {f['sparse_random_round_trip']} exact")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: .tflite models on the card (models/tflite_import.py and its
+# executors, native/, the tflite and tensorflow backends)
+
+TF_MODEL = ROOT / "tests" / "fixtures" / "mobilenet_v2_1.0_224_int8.tflite"
+TF_TINY = ROOT / "tests" / "fixtures" / "tiny_int8_perchannel.tflite"
+TF_BATCH = 64
+TF_WARM, TF_MEASURED = 2, 8
+TF_CPU_FRAMES = 4
+TF_LSB = 2                      # fake-quant / float: card vs the CPU run
+TF_DEVICE_MODES = ("fake-quant", "float", "int8")
+TF_FILTER = ("! tensor_filter framework=torch model={model} "
+             "custom=quantized_exec:{mode},batch:{b} name=f ")
+TF_TAIL = ("! tee name=t t. ! queue max-size-buffers=4 ! tensor_decoder "
+           "mode=image_labeling frames-in={b} ! tensor_sink name=out "
+           "max-stored=1 t. ! queue max-size-buffers=4 ! tensor_sink "
+           "name=raw max-stored=1")
+TF_FUSED_LINE = (
+    "tensor_src device=true pattern=random types=uint8 "
+    "dimensions=3:224:224:{b} num-buffers={n} ! tensor_transform "
+    "mode=arithmetic option=typecast:int16,add:-128,typecast:int8 name=t "
+    "! tensor_filter framework=torch model={model} "
+    "custom=quantized_exec:int8,batch:{b} name=f ! tensor_sink name=out "
+    "max-stored=1")
+
+
+def tf_lines(mode: str) -> str:
+    n = TF_WARM + TF_MEASURED
+    filt = TF_FILTER.format(model=TF_MODEL, mode=mode, b=TF_BATCH)
+    tail = TF_TAIL.format(b=TF_BATCH)
+    if mode == "int8-native":   # the host line
+        return (f"tensor_src num-buffers={n * TF_BATCH} dimensions=3:224:224:1 "
+                "types=int8 pattern=random ! tensor_aggregator "
+                f"frames-out={TF_BATCH} frames-dim=0 concat=true ! queue "
+                f"max-size-buffers=4 {filt}{tail}")
+    return (f"tensor_src device=true num-buffers={n} "
+            f"dimensions=3:224:224:{TF_BATCH} types=int8 pattern=random "
+            f"{filt}{tail}")
+
+
+def tf_device_frames(k: int) -> torch.Tensor:
+    """Batch ``k`` of the device line, made again as tensor_src made it
+    (seed 0: frame k's generator is seeded with k)."""
+    gen = torch.Generator(device=ST_DEV)
+    gen.manual_seed(k)
+    return torch.randint(0, 127, (TF_BATCH, 224, 224, 3), generator=gen,
+                         device=ST_DEV, dtype=torch.int8)
+
+
+def tf_host_frames(n_batches: int) -> list:
+    """The host line's batches, made again as tensor_src made them."""
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 127, (1, 224, 224, 3)).astype(np.int8)
+              for _ in range(n_batches * TF_BATCH)]
+    return [np.concatenate(frames[i:i + TF_BATCH])
+            for i in range(0, len(frames), TF_BATCH)]
+
+
+def tf_run(mode: str) -> dict:
+    """Drive one mode's line: the filter's raw outputs, the decoder's
+    labels, frames/s at the raw sink (each batch stamped once the card
+    finished it)."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(tf_lines(mode))
+    times = st_event_sink(pipe, "f", ("src",), ("raw",))
+    raw, labels = [], []
+    pipe.get("raw").connect(lambda b: raw.append(b.tensors[0]))
+    pipe.get("out").connect(lambda b: labels.append(b.meta["label_index"]))
+    st_play(pipe, f"tflite {mode}")
+    n = TF_WARM + TF_MEASURED
+    if len(raw) != n or len(labels) != n * TF_BATCH:
+        fail(f"tflite {mode}: {len(raw)} output batches and {len(labels)} "
+             f"labels, expected {n} and {n * TF_BATCH}")
+    want_dev = "cpu" if mode == "int8-native" else str(ST_DEV)
+    if any(str(r.device) != want_dev for r in raw):
+        fail(f"tflite {mode}: outputs on {sorted({str(r.device) for r in raw})}"
+             f", expected {want_dev}")
+    am = torch.cat([torch.argmax(r.cpu().to(torch.int32), -1) for r in raw])
+    if am.tolist() != labels:
+        fail(f"tflite {mode}: a label is not the argmax of its frame's "
+             "outputs")
+    return {"raw": raw, "labels": labels,
+            "frames_per_s": st_fps(times["raw"], TF_BATCH, TF_WARM - 1)}
+
+
+def tf_tiny(native_fn_of) -> dict:
+    """All four modes on the tiny per-channel fixture give the port's CPU
+    bytes (the three torch modes on the card, int8-native on the host)."""
+    from nnstreamer_tpu_torch.models.tflite_import import load_tflite
+
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        -128, 127, (4, 16, 16, 3)).astype(np.int8))
+    res = {}
+    for mode in TF_DEVICE_MODES + ("int8-native",):
+        opts = {"quantized_exec": mode, "batch": "4"}
+        cpu, _, _ = load_tflite(str(TF_TINY), opts, device="cpu")
+        want = cpu(x)[0]
+        if mode == "int8-native":
+            got = torch.from_numpy(native_fn_of(str(TF_TINY))(x)[0])
+        else:
+            card, _, _ = load_tflite(str(TF_TINY), opts, device=ST_DEV)
+            got = card(x.to(ST_DEV))[0]
+            if str(got.device) != str(ST_DEV):
+                fail(f"tflite tiny {mode}: output on {got.device}")
+        want = torch.as_tensor(want)
+        if not torch.equal(got.cpu(), want):
+            fail(f"tflite tiny {mode}: the card's bytes differ from the CPU "
+                 "run's")
+        res[mode] = "equal"
+    return res
+
+
+def tf_fused(fuse: bool) -> dict:
+    """The uint8 → int8 transform and the int8 filter, fused or not: sink
+    outputs, frames/s, and the host ms from the transform's chain entry
+    to the filter's push of the same batch (the launches it issues)."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    n = TF_WARM + TF_MEASURED
+    pipe = parse_launch(TF_FUSED_LINE.format(b=TF_BATCH, n=n,
+                                             model=TF_MODEL), fuse=fuse)
+    head, tail = pipe.get("t"), pipe.get("f")
+    starts, issue, times, outs = [], [], [], []
+    chain, push = head._chain_guarded, tail.push
+
+    def timed_chain(pad, buf):
+        starts.append(time.perf_counter())
+        chain(pad, buf)
+
+    def timed_push(buf, pad=None):
+        issue.append(time.perf_counter() - starts[-1])
+        done = torch.cuda.Event()
+        done.record()
+        buf.meta["tf_done"] = done
+        push(buf, pad)
+
+    head._chain_guarded, tail.push = timed_chain, timed_push
+
+    def on_data(buf):
+        buf.meta["tf_done"].synchronize()
+        times.append(time.perf_counter())
+        outs.append(buf.tensors[0])
+
+    pipe.get("out").connect(on_data)
+    pipe.play()
+    try:
+        msg = pipe.wait(timeout=600)
+    finally:
+        pipe.stop()
+    if msg.type is not MessageType.EOS:
+        fail(f"tflite fused (fuse={fuse}): {msg}")
+    if len(outs) != n:
+        fail(f"tflite fused (fuse={fuse}): {len(outs)} sink buffers, "
+             f"expected {n}")
+    segs = pipe.fused_segments
+    if fuse and ([[el.name for el in s.elements] for s in segs] != [["t", "f"]]
+                 or segs[0].stats["retraces"] != 1):
+        fail(f"tflite fused: segments {[dict(s.stats) for s in segs]}, "
+             "expected one segment t..f captured once")
+    if not fuse and segs:
+        fail("tflite fused: fuse=False installed a segment")
+    return {"outs": outs,
+            "frames_per_s": TF_MEASURED * TF_BATCH / (
+                times[-1] - times[TF_WARM - 1]),
+            "issue_ms_median": 1e3 * statistics.median(issue[TF_WARM:]),
+            "captures": segs[0].stats["retraces"] if segs else 0}
+
+
+def tf_no_fallback() -> dict:
+    """framework=tflite and framework=auto on the fixture: the card's
+    machine has no TensorFlow, so each posts a bus ERROR naming it and
+    nothing reaches the sink (no quiet switch to the importer)."""
+    import importlib.util
+
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    if importlib.util.find_spec("tensorflow") is not None:
+        fail("tflite no-fallback: tensorflow is installed on this machine")
+    res = {}
+    for fw in ("tflite", "auto"):
+        pipe = parse_launch(
+            "tensor_src num-buffers=1 dimensions=3:224:224:1 types=int8 ! "
+            f"tensor_filter framework={fw} model={TF_MODEL} ! tensor_sink "
+            "name=out")
+        got = []
+        pipe.get("out").connect(got.append)
+        pipe.play()
+        try:
+            msg = pipe.wait(timeout=120)
+        finally:
+            pipe.stop()
+        text = str(msg)
+        if msg.type is not MessageType.ERROR or "tensorflow" not in text \
+                or "FrameworkUnavailable" not in text or got:
+            fail(f"tflite no-fallback framework={fw}: {text} "
+                 f"({len(got)} buffers at the sink)")
+        res[fw] = text[:300]
+    return res
+
+
+def tf_datarepo(tmp: Path) -> dict:
+    """datareposrc (shuffled, 2 epochs) feeding the int8 filter on the
+    card, with use-native=true (the C++ prefetcher) and false (memmap):
+    the same samples in the same order, the same outputs; frames/s."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    data, meta = tmp / "frames.raw", tmp / "frames.json"
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,dimensions="
+        f"3:224:224:{TF_BATCH},types=int8 ! datareposink location={data} "
+        f"json={meta}")
+    pipe.play()
+    try:
+        for fr in tf_host_frames(TF_WARM + TF_MEASURED // 2):
+            pipe.get("in").push_buffer(fr)
+        pipe.get("in").end_of_stream()
+        pipe.wait(timeout=120)
+    finally:
+        pipe.stop()
+    res = {}
+    for native in (True, False):
+        pipe = parse_launch(
+            f"datareposrc location={data} json={meta} epochs=2 "
+            f"is-shuffle=true seed=3 use-native={str(native).lower()} "
+            "name=src ! queue max-size-buffers=4 "
+            + TF_FILTER.format(model=TF_MODEL, mode="int8", b=TF_BATCH)
+            + "! tensor_sink name=out max-stored=1")
+        times = st_event_sink(pipe, "f", ("src",), ("out",))
+        order, outs, used = [], [], []
+        src = pipe.get("src")
+
+        def on_data(b, _src=src, _order=order, _outs=outs, _used=used):
+            _used.append(_src._native_reader is not None)
+            _order.append(b.offset)
+            _outs.append(b.tensors[0])
+
+        pipe.get("out").connect(on_data)
+        st_play(pipe, f"tflite datarepo use-native={native}")
+        res[native] = {"order": order, "outs": outs, "native_used": used,
+                       "frames_per_s": st_fps(times["out"], TF_BATCH, 1)}
+    a, b = res[True], res[False]
+    if not a["native_used"] or not all(a["native_used"]) or \
+            any(b["native_used"]):
+        fail(f"tflite datarepo: native reader used {a['native_used']} / "
+             f"{b['native_used']}, expected only with use-native=true")
+    if a["order"] != b["order"] or len(a["order"]) != 2 * (
+            TF_WARM + TF_MEASURED // 2) or not all(
+            torch.equal(x, y) for x, y in zip(a["outs"], b["outs"])):
+        fail(f"tflite datarepo: samples {a['order']} (native) vs "
+             f"{b['order']} (memmap) or their outputs differ")
+    return {"order": a["order"],
+            "native_frames_per_s": a["frames_per_s"],
+            "memmap_frames_per_s": b["frames_per_s"]}
+
+
+def phase_tflite(report: dict) -> None:
+    import tempfile
+
+    from nnstreamer_tpu_torch import native
+    from nnstreamer_tpu_torch.models.tflite_import import load_tflite
+    from nnstreamer_tpu_torch.native import _build, q8
+
+    smi = report["device"]
+    r = report["tflite"] = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    # (a) the native host runtime and the q8 engine, built by g++ here
+    t0 = time.perf_counter()
+    if not (native.available() and q8.available()):
+        fail(f"tflite build: native {native.available()}, q8 "
+             f"{q8.available()}: {_build.build_logs}")
+    r["build"] = {"s": time.perf_counter() - t0, "q8_simd": q8.simd_level()}
+    print(f"tflite ({smi}) build: native and q8 built by g++ in "
+          f"{r['build']['s']:.2f} s; q8 SIMD level {q8.simd_level()} "
+          "(1 = AVX512-VNNI, 0 = scalar)")
+    natives = {}
+
+    def native_fn_of(path: str, batch: int = 4):
+        key = (path, batch)
+        if key not in natives:
+            natives[key] = load_tflite(path, {
+                "quantized_exec": "int8-native", "batch": str(batch)})[0]
+        return natives[key]
+
+    # (b) the four modes
+    modes = r["modes"] = {}
+    runs = {}
+    for mode in TF_DEVICE_MODES + ("int8-native",):
+        runs[mode] = run = tf_run(mode)
+        modes[mode] = {"frames_per_s": run["frames_per_s"]}
+    nat = native_fn_of(str(TF_MODEL), TF_BATCH)
+    for k, out in enumerate(runs["int8"]["raw"]):
+        want = nat(tf_device_frames(k).cpu())[0]
+        if not np.array_equal(out.cpu().numpy(), want):
+            fail(f"tflite int8: batch {k} on the card differs from "
+                 "int8-native's bytes")
+    fns = {m: load_tflite(str(TF_MODEL), {"quantized_exec": m,
+                                         "batch": str(TF_BATCH)},
+                          device=ST_DEV)[0] for m in TF_DEVICE_MODES}
+    host = tf_host_frames(TF_WARM + TF_MEASURED)
+    for k, out in enumerate(runs["int8-native"]["raw"]):
+        got = fns["int8"](torch.from_numpy(host[k]).to(ST_DEV))[0]
+        if not torch.equal(got.cpu(), out):
+            fail(f"tflite int8-native: host batch {k} differs from int8 on "
+                 "the card")
+    x4 = tf_device_frames(0)[:TF_CPU_FRAMES].cpu()
+    for mode in ("fake-quant", "float"):
+        cpu = load_tflite(str(TF_MODEL), {"quantized_exec": mode,
+                                          "batch": str(TF_CPU_FRAMES)},
+                          device="cpu")[0]
+        d = (cpu(x4)[0].to(torch.int32)
+             - runs[mode]["raw"][0][:TF_CPU_FRAMES].cpu().to(torch.int32))
+        modes[mode]["max_lsb_vs_cpu"] = int(d.abs().max())
+        if modes[mode]["max_lsb_vs_cpu"] > TF_LSB:
+            fail(f"tflite {mode}: {modes[mode]['max_lsb_vs_cpu']} LSB from "
+                 f"the CPU run on {TF_CPU_FRAMES} frames (limit {TF_LSB})")
+    for mode in TF_DEVICE_MODES:
+        xs = [(tf_device_frames(k),) for k in range(3)]
+        modes[mode]["forward_ms"] = time_ms(fns[mode], xs, reps=5, inner=4)
+        busy = mb_device_busy(f"tflite {mode}", tf_lines(mode),
+                              per_batch=TF_BATCH)["busy_share"]
+        modes[mode]["busy_share"] = busy
+    x = host[0]
+    nat(x)
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nat(x)
+        samples.append(1e3 * (time.perf_counter() - t0))
+    modes["int8-native"]["host_ms_per_batch_median"] = statistics.median(
+        samples)
+    r["tiny"] = tf_tiny(native_fn_of)
+    if (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) != tf32:
+        fail("tflite: the TF32 switches changed during the phase")
+    for mode, m in modes.items():
+        extra = ""
+        if "forward_ms" in m:
+            busy = m["busy_share"]
+            extra = (f"; forward {m['forward_ms']:.3f} ms at batch "
+                     f"{TF_BATCH} (CUDA events); card busy "
+                     + ("not measured" if busy is None else
+                        f"{100 * busy:.1f}%"))
+        if "max_lsb_vs_cpu" in m:
+            extra += f"; {m['max_lsb_vs_cpu']} LSB from the CPU run"
+        if "host_ms_per_batch_median" in m:
+            extra += (f"; {m['host_ms_per_batch_median']:.1f} ms a batch on "
+                      "the host")
+        print(f"tflite ({smi}) {mode}: {m['frames_per_s']:.1f} frames/s"
+              + extra)
+    print(f"tflite ({smi}) int8 on the card = int8-native bytes on "
+          f"{(TF_WARM + TF_MEASURED) * TF_BATCH} frames of each line; labels "
+          "= argmax; tiny fixture: all four modes = the CPU run's bytes; TF32 "
+          "switches unchanged")
+    # (c) fused and not
+    fused, plain = tf_fused(True), tf_fused(False)
+    if not all(torch.equal(a, b) for a, b in zip(fused["outs"],
+                                                  plain["outs"])):
+        fail("tflite fused: sink bytes differ between fuse on and off")
+    r["fused"] = {k: {kk: v for kk, v in d.items() if kk != "outs"}
+                  for k, d in (("on", fused), ("off", plain))}
+    print(f"tflite ({smi}) fused int8 line: one capture; sink bytes equal "
+          f"fused and not; host ms to issue a batch {fused['issue_ms_median']:.3f}"
+          f" fused, {plain['issue_ms_median']:.3f} not; "
+          f"{fused['frames_per_s']:.1f} / {plain['frames_per_s']:.1f} frames/s")
+    # (d) no hidden fallback
+    r["no_fallback"] = tf_no_fallback()
+    print(f"tflite ({smi}) framework=tflite and framework=auto: a bus ERROR "
+          "naming tensorflow (FrameworkUnavailable), nothing at the sink")
+    # (e) datareposrc feeding the card
+    with tempfile.TemporaryDirectory() as tmp:
+        e = r["datarepo"] = tf_datarepo(Path(tmp))
+    print(f"tflite ({smi}) datareposrc: the same {len(e['order'])} samples in "
+          f"the same order either way; use-native=true "
+          f"{e['native_frames_per_s']:.1f} frames/s, false "
+          f"{e['memmap_frames_per_s']:.1f} frames/s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -4806,18 +5210,19 @@ def main() -> None:
     dev = ST_DEV
     report["device"] = phase_device()
     alone = {"fusion": phase_fusion, "streams": phase_streams,
-             "plugins": phase_plugins, "trace-loss": phase_trace_loss}
+             "plugins": phase_plugins, "tflite": phase_tflite,
+             "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14 or 15 alone (no kernel is built or checked, no ok
-        # line), or the trace-loss count
+        # phase 13, 14, 15 or 16 alone (no kernel is built or checked, no
+        # ok line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
-             "--only fusion / streams / plugins for phase 13 / 14 / 15 "
-             "alone, or --only trace-loss)")
+             "--only fusion / streams / plugins / tflite for phase 13 / 14 "
+             "/ 15 / 16 alone, or --only trace-loss)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -4835,6 +5240,7 @@ def main() -> None:
     phase_fusion(report)
     phase_streams(report)
     phase_plugins(report)
+    phase_tflite(report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

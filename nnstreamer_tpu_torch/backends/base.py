@@ -119,6 +119,26 @@ class FilterBackend:
         them; backends that retire nothing need not override it."""
 
 
+class FrameworkUnavailable(RuntimeError):
+    """A backend's framework is not installed on this host (the tflite
+    and tensorflow backends without TensorFlow). Raised from ``open``, so
+    a pipeline posts it as a bus ERROR instead of running the model some
+    other way."""
+
+
+def import_tensorflow(backend_name: str):
+    """``import tensorflow`` for a backend's ``open``, or
+    :class:`FrameworkUnavailable` naming it."""
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        raise FrameworkUnavailable(
+            f"framework={backend_name} needs tensorflow, which is not "
+            f"installed here ({e}); framework=torch runs a .tflite file "
+            "through the package's own importer") from e
+    return tf
+
+
 def check_accelerator(backend: FilterBackend, props: FilterProperties) -> None:
     """Refuse an ``accelerator=`` the backend cannot run on (reference
     ``accl_hw`` support lists): the filter posts the error on the bus

@@ -16,7 +16,14 @@ Model sources accepted by the ``model`` property:
     from JAX's distribution (standard normal), the same on every device;
   * ``<module>:<attr>`` — an import path to a callable, or to an entry
     object with ``make(device)`` (e.g. ``models/lm_serving.py``), which
-    builds the callable on the backend's device.
+    builds the callable on the backend's device;
+  * ``<file>.tflite`` — the flatbuffer rebuilt as torch ops on the
+    backend's device (``models/tflite_import.py``), with nnstreamer_tpu's
+    ``custom=`` options: ``quantized_exec:fake-quant|float|int8|
+    int8-native``, ``batch:N``, ``precision:`` and ``float_output:``.
+    ``int8-native`` runs the C++ engine on the host: its inputs cross to
+    the host once per batch, its outputs stay there, its input shapes are
+    fixed at load, and it never joins a fused segment.
 
 Device choice (``_select_device``): ``accelerator=cpu`` runs on the CPU;
 ``custom=device:N`` pins ``cuda:N``; then the placement planner's card;
@@ -242,6 +249,33 @@ def make_builtin(model: str, params: Optional[Dict[str, str]] = None,
                     capture_safe=name != "sleeper")
 
 
+class _HostNative:
+    """A host-native model (``quantized_exec:int8-native``) as the backend
+    serves it: card inputs are pulled to the host once per batch,
+    explicitly; outputs are host tensors; the input contract is the one
+    recorded at load (nnstreamer_tpu's jax backend refuses any other)."""
+
+    host_native = True
+    capture_safe = False
+
+    def __init__(self, fn: Callable, in_info: TensorsInfo,
+                 out_info: TensorsInfo):
+        self.fn = fn
+        self.in_info = in_info
+        self.out_info = out_info
+
+    def __call__(self, *xs):
+        return tuple(torch.from_numpy(o) for o in self.fn(*xs))
+
+    def output_info(self, in_info: TensorsInfo) -> TensorsInfo:
+        if [(tuple(s.shape), s.dtype) for s in in_info.specs] == [
+                (tuple(s.shape), s.dtype) for s in self.in_info.specs]:
+            return self.out_info
+        raise ValueError(
+            "host-native model: input info is fixed at load "
+            f"({self.in_info}); cannot retarget to {in_info}")
+
+
 def _select_device(props: FilterProperties) -> torch.device:
     idx = props.custom_dict().get("device")
     if idx is None:
@@ -313,9 +347,17 @@ class TorchBackend(FilterBackend):
             self.model_entry = entry
             maker = getattr(entry, "make", None)
             return maker(device=self._device) if maker else entry
+        if model.endswith(".tflite") and os.path.exists(model):
+            from ..models.tflite_import import load_tflite
+
+            fn, self._in_info, self._out_info = load_tflite(
+                model, props.custom_dict(), device=self._device)
+            if getattr(fn, "host_native", False):
+                return _HostNative(fn, self._in_info, self._out_info)
+            return fn
         raise ValueError(
             f"torch backend cannot load model '{model}' (expected "
-            "'<module>:<attr>' or 'builtin://<name>')")
+            "'<module>:<attr>', 'builtin://<name>' or a .tflite file)")
 
     def get_model_info(self):
         return self._in_info, self._out_info
@@ -346,7 +388,10 @@ class TorchBackend(FilterBackend):
         if self._mem_arm:
             self._mem_arm = False
             return self._invoke_measured(inputs)
-        xs = [as_torch(x).to(self._device) for x in inputs]
+        if getattr(self._fn, "host_native", False):
+            xs = [as_torch(x) for x in inputs]  # it pulls them itself
+        else:
+            xs = [as_torch(x).to(self._device) for x in inputs]
         with torch.inference_mode():
             out = self._fn(*xs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
@@ -364,7 +409,7 @@ class TorchBackend(FilterBackend):
         invoke: its synchronize and peak-statistics reset cannot run
         inside a capture."""
         fn = self._fn
-        if fn is None:
+        if fn is None or getattr(fn, "host_native", False):
             return None
         idx = self.props.custom_dict().get("device") if self.props else None
         if idx is not None and int(idx) != 0:

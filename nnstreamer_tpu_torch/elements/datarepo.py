@@ -9,9 +9,12 @@ training data order (gstdatareposrc.h:82-88), through nnstreamer_tpu's
 The files are nnstreamer_tpu's: a file either package writes reads back
 byte-exact in the other. A bfloat16 tensor is written and read as its
 bit patterns (numpy has no bfloat16; it arrives and leaves as a CPU
-``torch.bfloat16`` tensor, one copy down for a card tensor). The reader
-is numpy's memmap: the port has no C++ prefetcher, so ``use-native`` is
-accepted and reads the same order through the same seeded shuffle.
+``torch.bfloat16`` tensor, one copy down for a card tensor). With
+``use-native=true`` (the default) the samples come from the C++ prefetcher
+(``native.RepoReader``, a background thread of ``pread`` into pooled
+blocks) when the native runtime is built; otherwise, or with
+``use-native=false``, from numpy's memmap. Both read the same order
+through the same seeded shuffle.
 """
 from __future__ import annotations
 
@@ -101,8 +104,7 @@ class DataRepoSrc(SourceElement):
         "is_shuffle": Prop(False, prop_bool, "shuffle sample order per epoch"),
         "seed": Prop(0, int, "shuffle RNG seed (reproducibility)"),
         "use_native": Prop(True, prop_bool,
-                           "prefetch samples with the C++ reader when built "
-                           "(the port has none: numpy reads the same order)"),
+                           "prefetch samples with the C++ reader when built"),
         "tensors_sequence": Prop(None, str,
                                  "read only these tensor indices of each "
                                  "sample, in order (reference prop)"),
@@ -118,6 +120,7 @@ class DataRepoSrc(SourceElement):
         self._info: Optional[TensorsInfo] = None
         self._sequence: Optional[List[int]] = None
         self._data: Optional[np.memmap] = None
+        self._native_reader = None
         self._order: List[int] = []
         self._pos = 0
         self._epoch = 0
@@ -155,7 +158,7 @@ class DataRepoSrc(SourceElement):
             raise ElementError(f"{self.describe()}: start {start} > stop {stop}")
         self._indices = list(range(start, stop + 1))
         self._data = np.memmap(self.props["location"], dtype=np.uint8, mode="r")
-        # epochs<=0 behaves as one epoch
+        # epochs<=0 behaves as one epoch on both paths (native clamps the same)
         self._epochs = max(self.props["epochs"], 1)
         resume = min(max(self.props["start_epoch"], 0), self._epochs)
         # advance the shuffle stream past the completed epochs so the resumed
@@ -167,15 +170,57 @@ class DataRepoSrc(SourceElement):
             self._order = []
         else:
             self._begin_epoch()
+        if self.props["use_native"]:
+            self._open_native()
         return caps
+
+    # keep the materialized multi-epoch order bounded; past this the python
+    # per-epoch path is the right trade (O(N) memory)
+    _NATIVE_MAX_ORDER = 1 << 24
+
+    def _open_native(self) -> None:
+        """Hand the full multi-epoch sample order to the C++ prefetcher so
+        disk reads overlap pipeline compute (including across epochs)."""
+        from .. import native
+
+        if self._native_reader is not None:
+            self._native_reader.close()
+            self._native_reader = None
+        if not native.available():
+            return
+        epochs = max(self.props["epochs"], 1)
+        resume = min(max(self.props["start_epoch"], 0), epochs)
+        if (epochs - resume) * len(self._indices) > self._NATIVE_MAX_ORDER:
+            return
+        idx = np.asarray(self._indices, np.uint64)
+        rng = np.random.default_rng(self.props["seed"])
+        parts = []
+        for n in range(epochs):
+            e = idx.copy()
+            if self.props["is_shuffle"]:
+                rng.shuffle(e)  # same Generator draws as the python path
+            if n >= resume:  # skipped epochs still consume the rng stream
+                parts.append(e)
+        if not parts:
+            return
+        full_order = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        try:
+            self._native_reader = native.RepoReader(
+                self.props["location"], self._sample_size, full_order,
+            )
+        except (OSError, RuntimeError):
+            self._native_reader = None
 
     def reset_flow(self) -> None:
         super().reset_flow()
         self._epoch = 0
         self._pos = 0
-        # replay determinism: a fresh run re-seeds the shuffle stream, so
-        # every play() emits the same order
+        # replay determinism: a fresh run re-seeds the shuffle stream, so the
+        # python and native paths emit identical orders on every play()
         self._rng = np.random.default_rng(self.props["seed"])
+        if self._native_reader is not None:
+            self._native_reader.close()
+            self._native_reader = None
 
     def _begin_epoch(self) -> None:
         self._order = list(self._indices)
@@ -184,6 +229,9 @@ class DataRepoSrc(SourceElement):
         self._pos = 0
 
     def create(self) -> Optional[Buffer]:
+        reader = self._native_reader  # local ref: stop() may null it
+        if reader is not None:
+            return self._create_native(reader)
         if self._pos >= len(self._order):
             self._epoch += 1
             if self._epoch >= self._epochs:
@@ -195,13 +243,29 @@ class DataRepoSrc(SourceElement):
         raw = np.asarray(self._data[base:base + self._sample_size])
         return self._unpack(raw, idx)
 
+    def _create_native(self, reader) -> Optional[Buffer]:
+        try:
+            got = reader.next()
+        except StopIteration:
+            return None
+        except OSError as e:
+            raise ElementError(f"{self.describe()}: native read failed: {e}")
+        if got is None:  # no timeout requested, should not happen
+            return None
+        view, idx, block = got
+        try:
+            return self._unpack(view, int(idx))
+        finally:
+            reader.release(block)
+
     def _unpack(self, raw: np.ndarray, idx: int) -> Buffer:
         tensors = []
         off = 0
         for spec in self._info.specs:
             chunk = raw[off:off + spec.nbytes]
             if spec.dtype is DataType.BFLOAT16:
-                tensors.append(bf16_from_bits(chunk.view(np.uint16))
+                # a copy: a native block is reused once released
+                tensors.append(bf16_from_bits(chunk.view(np.uint16).copy())
                                .reshape(spec.shape))
             else:
                 tensors.append(chunk.view(spec.dtype.np_dtype)
@@ -210,3 +274,16 @@ class DataRepoSrc(SourceElement):
         if self._sequence is not None:
             tensors = [tensors[p] for p in self._sequence]
         return Buffer(tensors, offset=idx)
+
+    def stop(self) -> None:
+        # teardown order matters: drop the run flag (so the woken task thread
+        # can't emit a fake EOS), unblock a consumer stuck in next(), join the
+        # task thread, and only then free native state
+        self._running.clear()
+        reader = self._native_reader
+        if reader is not None:
+            reader.cancel()
+        super().stop()
+        if reader is not None:
+            reader.close()
+            self._native_reader = None

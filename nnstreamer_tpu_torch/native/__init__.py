@@ -1,0 +1,296 @@
+"""Native (C++) host-runtime bindings.
+
+The counterpart of nnstreamer_tpu's ``native/__init__.py``. The reference
+implements its allocator, queues, and dataset reader in C
+(gst/nnstreamer/tensor_allocator.c, GStreamer queue, gst/datarepo/). Our
+equivalents live in ``csrc/nns_core.cc`` (the same source as
+nnstreamer_tpu's) — built on demand with g++ into ``build/native/``
+(``_build.py``) and consumed through ctypes. Every consumer has a pure
+Python fallback: ``available()`` gates the fast path, for hosts without
+a compiler.
+
+Exposed wrappers:
+  * :class:`BufferPool` — aligned, reusing host block pool (staging buffers).
+  * :class:`Ring` — bounded SPSC ring of (pointer, size, tag) records.
+  * :class:`RepoReader` — background pread prefetcher over a sample file.
+  * :func:`gather` / :func:`scatter` — multi-part memcpy without Python joins.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from ._build import load_once
+
+_lib = None
+_lib_lock = threading.Lock()
+_build_failed = False
+
+ABI_VERSION = 1
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _build_failed
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        if _build_failed:
+            return None
+        lib = load_once("nns_core", ABI_VERSION, "nns_abi_version", _bind,
+                        extra_args=("-lpthread",))
+        if lib is None:
+            _build_failed = True
+            return None
+        _lib = lib
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    u64, i64, vp = ctypes.c_uint64, ctypes.c_int64, ctypes.c_void_p
+    lib.nns_pool_create.restype = vp
+    lib.nns_pool_create.argtypes = [u64, u64, u64]
+    lib.nns_pool_acquire.restype = vp
+    lib.nns_pool_acquire.argtypes = [vp]
+    lib.nns_pool_release.argtypes = [vp, vp]
+    lib.nns_pool_stats.restype = u64
+    lib.nns_pool_stats.argtypes = [vp, ctypes.POINTER(u64)]
+    lib.nns_pool_destroy.argtypes = [vp]
+
+    lib.nns_ring_create.restype = vp
+    lib.nns_ring_create.argtypes = [u64]
+    lib.nns_ring_push.restype = ctypes.c_int
+    lib.nns_ring_push.argtypes = [vp, vp, u64, u64, i64]
+    lib.nns_ring_pop.restype = ctypes.c_int
+    lib.nns_ring_pop.argtypes = [
+        vp, ctypes.POINTER(vp), ctypes.POINTER(u64), ctypes.POINTER(u64), i64,
+    ]
+    lib.nns_ring_close.argtypes = [vp]
+    lib.nns_ring_destroy.argtypes = [vp]
+
+    lib.nns_memcpy_gather.argtypes = [
+        vp, ctypes.POINTER(vp), ctypes.POINTER(u64), u64,
+    ]
+    lib.nns_memcpy_scatter.argtypes = [
+        vp, ctypes.POINTER(vp), ctypes.POINTER(u64), u64,
+    ]
+
+    lib.nns_repo_open.restype = vp
+    lib.nns_repo_open.argtypes = [
+        ctypes.c_char_p, u64, ctypes.POINTER(u64), u64, vp, u64,
+    ]
+    lib.nns_repo_next.restype = ctypes.c_int
+    lib.nns_repo_next.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(u64), i64]
+    lib.nns_repo_release.argtypes = [vp, vp]
+    lib.nns_repo_error.restype = ctypes.c_int
+    lib.nns_repo_error.argtypes = [vp]
+    lib.nns_repo_cancel.argtypes = [vp]
+    lib.nns_repo_close.argtypes = [vp]
+    lib.nns_abi_version.restype = u64
+
+
+def available() -> bool:
+    """True when the native library is (buildable and) loaded."""
+    if os.environ.get("NNS_DISABLE_NATIVE"):
+        return False
+    return _load() is not None
+
+
+def _as_numpy(ptr: int, nbytes: int) -> np.ndarray:
+    """Zero-copy uint8 view over a native block (caller controls lifetime)."""
+    buf = (ctypes.c_uint8 * nbytes).from_address(ptr)
+    return np.frombuffer(buf, dtype=np.uint8)
+
+
+class BufferPool:
+    """Aligned reusing block pool (tensor_allocator.c analog)."""
+
+    def __init__(self, block_size: int, alignment: int = 64, max_blocks: int = 0):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable")
+        self._lib = lib
+        self.block_size = block_size
+        self._h = lib.nns_pool_create(block_size, alignment, max_blocks)
+
+    def acquire(self) -> Optional[int]:
+        p = self._lib.nns_pool_acquire(self._h)
+        return p or None
+
+    def acquire_array(self):
+        """Returns ``(uint8 view, block_ptr)`` or None; pass ``block_ptr``
+        back to :meth:`release` when done."""
+        p = self.acquire()
+        if p is None:
+            return None
+        return _as_numpy(p, self.block_size), p
+
+    def release(self, block: int) -> None:
+        self._lib.nns_pool_release(self._h, block)
+
+    def stats(self) -> dict:
+        reuses = ctypes.c_uint64()
+        acquires = self._lib.nns_pool_stats(self._h, ctypes.byref(reuses))
+        return {"acquires": int(acquires), "reuses": int(reuses.value)}
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.nns_pool_destroy(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover - interpreter teardown
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class Ring:
+    """Bounded SPSC ring of (pointer, size, tag) records."""
+
+    def __init__(self, capacity: int):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable")
+        self._lib = lib
+        self._h = lib.nns_ring_create(capacity)
+
+    def push(self, ptr: int, size: int, tag: int = 0,
+             timeout_ms: int = -1) -> bool:
+        return bool(self._lib.nns_ring_push(self._h, ptr, size, tag, timeout_ms))
+
+    def pop(self, timeout_ms: int = -1):
+        """Returns (ptr, size, tag) or None on timeout; raises EOFError when
+        the ring is closed and drained."""
+        data = ctypes.c_void_p()
+        size = ctypes.c_uint64()
+        tag = ctypes.c_uint64()
+        r = self._lib.nns_ring_pop(
+            self._h, ctypes.byref(data), ctypes.byref(size),
+            ctypes.byref(tag), timeout_ms,
+        )
+        if r == 1:
+            return data.value, size.value, tag.value
+        if r == -1:
+            raise EOFError("ring closed")
+        return None
+
+    def close_ring(self) -> None:
+        self._lib.nns_ring_close(self._h)
+
+    def destroy(self) -> None:
+        if self._h:
+            self._lib.nns_ring_destroy(self._h)
+            self._h = None
+
+
+class RepoReader:
+    """Background prefetching sample reader (gstdatareposrc.c redesign).
+
+    A native thread preads samples (in the given order) into pooled aligned
+    blocks; :meth:`next` hands back zero-copy numpy views. Call
+    :meth:`release` when a sample's bytes have been consumed.
+    """
+
+    def __init__(self, path: str, sample_size: int, order: Sequence[int],
+                 prefetch_depth: int = 8):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable")
+        self._lib = lib
+        self.sample_size = sample_size
+        # pool sized so the prefetcher can fill the ring while the consumer
+        # holds a couple of blocks
+        self._pool = BufferPool(sample_size, max_blocks=prefetch_depth + 4)
+        order_arr = np.ascontiguousarray(order, dtype=np.uint64)
+        self._h = lib.nns_repo_open(
+            path.encode(), sample_size,
+            order_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            len(order_arr), self._pool._h, prefetch_depth,
+        )
+        if not self._h:
+            self._pool.close()
+            raise OSError(f"cannot open {path}")
+
+    def next(self, timeout_ms: int = -1):
+        """Returns (numpy uint8 view, sample_index, block_ptr) or None on
+        timeout; raises StopIteration at end of order; OSError on read error."""
+        data = ctypes.c_void_p()
+        idx = ctypes.c_uint64()
+        r = self._lib.nns_repo_next(
+            self._h, ctypes.byref(data), ctypes.byref(idx), timeout_ms,
+        )
+        if r == 1:
+            return _as_numpy(data.value, self.sample_size), idx.value, data.value
+        if r == -1:
+            if self._lib.nns_repo_error(self._h):
+                raise OSError("repo read error")
+            raise StopIteration
+        return None
+
+    def release(self, block_ptr: int) -> None:
+        self._lib.nns_repo_release(self._h, block_ptr)
+
+    def cancel(self) -> None:
+        """Unblock a consumer stuck in :meth:`next` (it sees StopIteration)
+        without freeing native state; call before joining that consumer."""
+        if self._h:
+            self._lib.nns_repo_cancel(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.nns_repo_close(self._h)
+            self._h = None
+            self._pool.close()
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def gather(parts: List[np.ndarray], out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Concatenate byte views via one native memcpy pass (honors the
+    ``NNS_DISABLE_NATIVE`` kill switch via :func:`available`)."""
+    sizes = [p.nbytes for p in parts]
+    total = sum(sizes)
+    if out is None:
+        out = np.empty(total, np.uint8)
+    elif out.nbytes < total:
+        raise ValueError(f"gather out buffer too small ({out.nbytes} < {total})")
+    if not available():
+        off = 0
+        for p, s in zip(parts, sizes):
+            out[off:off + s] = np.frombuffer(
+                np.ascontiguousarray(p).data, np.uint8, s)
+            off += s
+        return out
+    n = len(parts)
+    contig = [np.ascontiguousarray(p) for p in parts]
+    ptrs = (ctypes.c_void_p * n)(*(p.ctypes.data for p in contig))
+    szs = (ctypes.c_uint64 * n)(*sizes)
+    _lib.nns_memcpy_gather(out.ctypes.data, ptrs, szs, n)
+    return out
+
+
+def scatter(src: np.ndarray, outs: List[np.ndarray]) -> None:
+    """Split a contiguous byte buffer into the given arrays natively."""
+    src = np.ascontiguousarray(src)
+    need = sum(o.nbytes for o in outs)
+    if need > src.nbytes:
+        raise ValueError(f"scatter source too small ({src.nbytes} < {need})")
+    if not available():
+        off = 0
+        for o in outs:
+            flat = o.reshape(-1).view(np.uint8)
+            flat[:] = src[off:off + o.nbytes]
+            off += o.nbytes
+        return
+    n = len(outs)
+    ptrs = (ctypes.c_void_p * n)(*(o.ctypes.data for o in outs))
+    szs = (ctypes.c_uint64 * n)(*(o.nbytes for o in outs))
+    _lib.nns_memcpy_scatter(src.ctypes.data, ptrs, szs, n)

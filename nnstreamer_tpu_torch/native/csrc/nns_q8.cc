@@ -1,0 +1,809 @@
+// Native int8 inference engine for quantized tflite imports.
+//
+// Role in the framework: the CPU-side analog of the reference's native
+// int8 interpreter path (ext/nnstreamer/tensor_filter/
+// tensor_filter_tensorflow_lite.cc runs XNNPACK's int8 kernels). Our
+// XLA int8 executor (models/tflite_int8.py) already beats the
+// interpreter's GEMMs, but XLA-CPU cannot fuse the requantize epilogue
+// into the GEMM library call — each layer pays an extra int32
+// materialization + elementwise pass (measured ~0.3-0.8 ms/layer on the
+// big early-network activations; PERF_PROFILE_r05.md). This engine
+// closes exactly that gap: the requantize (per-channel scale, round,
+// zero-point add, clamp, int8 pack) happens in registers inside the
+// GEMM epilogue, so each activation is written once, as int8.
+//
+// Arithmetic contract (identical to models/tflite_int8.py, so the two
+// paths cross-check byte-for-byte):
+//   * activations are carried in an unsigned-u8 stored domain (int8
+//     tensors are biased +128 by the caller; zero points likewise),
+//   * weights are signed-s8 (uint8 weights biased -128) — the
+//     AVX512-VNNI vpdpbusd instruction multiplies u8 x s8 into i32,
+//   * conv = im2col + GEMM with exact int32 accumulators; zero-point
+//     cross terms folded into a per-channel constant plus (when the
+//     weight zero point is nonzero) a per-row activation-sum term,
+//   * depthwise runs as f32 FMAs over zero-point-folded weights —
+//     integer-exact (all products < 2^24),
+//   * requantize: f32 multiply by (s_in*s_w/s_out), round-to-nearest-
+//     EVEN (matches jnp.round and _mm512_cvtps_epi32's default mode),
+//     add output zero point, clamp to the fused-activation range.
+//
+// SIMD dispatch is at runtime (function target attributes +
+// __builtin_cpu_supports), with plain-C++ fallbacks: the .so loads and
+// runs on any x86-64; VNNI is used when the host has it. Threading:
+// none — the engine is single-threaded by design; parallelism belongs
+// to the pipeline layer (one element = one streaming thread), exactly
+// as in the reference's design.
+#include <immintrin.h>
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+constexpr uint64_t kAbi = 1;
+
+struct Buf {
+  std::vector<uint8_t> data;
+  int alias_of = -1;
+  int64_t nbytes = 0;
+};
+
+enum class OpK { Conv, Dw, Add, AvgPool, Softmax };
+
+struct Op {
+  OpK k;
+  int in = 0, in2 = 0, out = 0;
+  // geometry (conv/dw/pool): input n,h,w,c -> oh,ow,oc
+  int n = 1, h = 0, w = 0, c = 0, oh = 0, ow = 0, oc = 0;
+  int kh = 1, kw = 1, sh = 1, sw = 1, pt = 0, pl = 0, pb = 0, pr = 0;
+  int K = 0, K4 = 0, ocp = 0;  // GEMM dims (K4 = K rounded to 4, ocp to 16)
+  bool direct_a = false;       // 1x1 stride-1 conv: A = input, no im2col
+  int need_rowsum = 0;
+  std::vector<int8_t> wpack;   // GEMM B, packed [oc16-block][K4/4][16][4]
+  std::vector<float> wf;       // dw weights, zero-point folded [kh*kw][c16]
+  std::vector<int32_t> bias_eff;  // conv: per-channel constant (ocp)
+  std::vector<float> biasf;       // dw: folded bias (c16)
+  std::vector<float> mult;        // requant multiplier (ocp / c16)
+  std::vector<int32_t> wzp;       // s8-domain weight zero points (ocp)
+  int xzp = 0, yzp = 0, lo = 0, hi = 255;  // u8 stored domain
+  // add
+  int64_t elems = 0;
+  float ka = 0.f, kb = 0.f, c0 = 0.f;
+  // avgpool
+  float ratio = 1.f;
+  // softmax
+  int rows = 0, cols = 0;
+  float s_in = 0.f, inv_s_out = 0.f, beta = 1.f;
+};
+
+struct Prog {
+  std::vector<Buf> bufs;
+  std::vector<Op> ops;
+  std::vector<int> ins, outs;
+  std::vector<uint8_t> scratch_a;   // im2col patch matrix
+  std::vector<uint8_t> scratch_pad; // padded input (dw)
+  std::vector<int32_t> rowsum;
+  int simd = -1;  // resolved at first run
+};
+
+uint8_t *bptr(Prog *p, int idx) {
+  int i = idx;
+  while (p->bufs[i].alias_of >= 0) i = p->bufs[i].alias_of;
+  return p->bufs[i].data.data();
+}
+
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+int detect_simd() {
+#if defined(__x86_64__) || defined(_M_X64)
+  __builtin_cpu_init();
+  if (__builtin_cpu_supports("avx512f") &&
+      __builtin_cpu_supports("avx512bw") &&
+      __builtin_cpu_supports("avx512vl") &&
+      __builtin_cpu_supports("avx512vnni"))
+    return 1;
+#endif
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// scalar reference kernels (portable fallback; also the documentation of
+// the exact arithmetic — the SIMD kernels must match these bit-for-bit)
+// ---------------------------------------------------------------------------
+
+inline uint8_t requant_scalar(float acc, float mult, int yzp, int lo, int hi) {
+  // lrintf honours the current rounding mode; processes run in the
+  // default round-to-nearest-even, matching _mm512_cvtps_epi32
+  int v = static_cast<int>(lrintf(acc * mult)) + yzp;
+  v = std::min(std::max(v, lo), hi);
+  return static_cast<uint8_t>(v);
+}
+
+void gemm_scalar(const uint8_t *A, int M, const Op &op, uint8_t *out,
+                 const int32_t *rowsum) {
+  const int K4 = op.K4, ocp = op.ocp, oc = op.oc;
+  for (int m = 0; m < M; ++m) {
+    const uint8_t *a = A + static_cast<int64_t>(m) * K4;
+    for (int nb = 0; nb < ocp; nb += 16) {
+      int32_t acc[16];
+      for (int j = 0; j < 16; ++j) acc[j] = 0;
+      for (int g = 0; g < K4 / 4; ++g) {
+        // packed block layout: [oc16-block][K4/4][16][4]
+        const int8_t *bq = op.wpack.data() +
+                           (static_cast<int64_t>(nb / 16) * (K4 / 4) + g) * 64;
+        for (int j = 0; j < 16; ++j)
+          for (int t = 0; t < 4; ++t)
+            acc[j] += static_cast<int32_t>(a[g * 4 + t]) *
+                      static_cast<int32_t>(bq[j * 4 + t]);
+      }
+      for (int j = 0; j < 16; ++j) {
+        int nch = nb + j;
+        if (nch >= oc) break;
+        int32_t v = acc[j] + op.bias_eff[nch];
+        if (op.need_rowsum) v -= op.wzp[nch] * rowsum[m];
+        out[static_cast<int64_t>(m) * oc + nch] = requant_scalar(
+            static_cast<float>(v), op.mult[nch], op.yzp, op.lo, op.hi);
+      }
+    }
+  }
+}
+
+void dw_scalar(const uint8_t *xpad, const Op &op, uint8_t *out) {
+  const int wp = op.w + op.pl + op.pr;
+  const int c = op.c, c16 = round_up(c, 16);
+  for (int y = 0; y < op.oh; ++y)
+    for (int x = 0; x < op.ow; ++x)
+      for (int ch = 0; ch < c; ++ch) {
+        float acc = op.biasf[ch];
+        for (int ky = 0; ky < op.kh; ++ky)
+          for (int kx = 0; kx < op.kw; ++kx) {
+            int iy = y * op.sh + ky, ix = x * op.sw + kx;
+            float xv = static_cast<float>(
+                xpad[(static_cast<int64_t>(iy) * wp + ix) * c + ch]);
+            acc += xv * op.wf[(static_cast<int64_t>(ky) * op.kw + kx) * c16 + ch];
+          }
+        out[(static_cast<int64_t>(y) * op.ow + x) * c + ch] =
+            requant_scalar(acc, op.mult[ch], op.yzp, op.lo, op.hi);
+      }
+}
+
+void add_scalar(const uint8_t *a, const uint8_t *b, const Op &op, uint8_t *out) {
+  for (int64_t i = 0; i < op.elems; ++i) {
+    float y = static_cast<float>(a[i]) * op.ka +
+              static_cast<float>(b[i]) * op.kb + op.c0;
+    int v = static_cast<int>(lrintf(y));
+    out[i] = static_cast<uint8_t>(std::min(std::max(v, op.lo), op.hi));
+  }
+}
+
+void avgpool_scalar(const uint8_t *x, const Op &op, uint8_t *out) {
+  for (int y = 0; y < op.oh; ++y)
+    for (int xo = 0; xo < op.ow; ++xo) {
+      int y0 = std::max(0, y * op.sh - op.pt);
+      int x0 = std::max(0, xo * op.sw - op.pl);
+      int y1 = std::min(op.h, y * op.sh - op.pt + op.kh);
+      int x1 = std::min(op.w, xo * op.sw - op.pl + op.kw);
+      int count = (y1 - y0) * (x1 - x0);
+      float f = op.ratio / static_cast<float>(count);
+      for (int ch = 0; ch < op.c; ++ch) {
+        int32_t total = 0;
+        for (int iy = y0; iy < y1; ++iy)
+          for (int ix = x0; ix < x1; ++ix)
+            total += x[(static_cast<int64_t>(iy) * op.w + ix) * op.c + ch];
+        total -= count * op.xzp;
+        int v = static_cast<int>(lrintf(static_cast<float>(total) * f)) + op.yzp;
+        out[(static_cast<int64_t>(y) * op.ow + xo) * op.c + ch] =
+            static_cast<uint8_t>(std::min(std::max(v, op.lo), op.hi));
+      }
+    }
+}
+
+void softmax_scalar(const uint8_t *x, const Op &op, uint8_t *out) {
+  std::vector<float> f(op.cols);
+  for (int r = 0; r < op.rows; ++r) {
+    const uint8_t *xr = x + static_cast<int64_t>(r) * op.cols;
+    uint8_t *yr = out + static_cast<int64_t>(r) * op.cols;
+    float mx = -1e30f;
+    for (int j = 0; j < op.cols; ++j) {
+      f[j] = (static_cast<float>(xr[j]) - op.xzp) * op.s_in * op.beta;
+      mx = std::max(mx, f[j]);
+    }
+    float sum = 0.f;
+    for (int j = 0; j < op.cols; ++j) {
+      f[j] = expf(f[j] - mx);
+      sum += f[j];
+    }
+    for (int j = 0; j < op.cols; ++j) {
+      float y = f[j] / sum;
+      int v = static_cast<int>(lrintf(y * op.inv_s_out)) + op.yzp;
+      yr[j] = static_cast<uint8_t>(std::min(std::max(v, 0), 255));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// AVX512-VNNI kernels
+// ---------------------------------------------------------------------------
+#if defined(__x86_64__) || defined(_M_X64)
+
+__attribute__((target("avx512f,avx512bw,avx512vl,avx512vnni")))
+void rowsum_vnni(const uint8_t *A, int M, int K4, int32_t *rowsum) {
+  for (int m = 0; m < M; ++m) {
+    const uint8_t *a = A + static_cast<int64_t>(m) * K4;
+    __m512i acc = _mm512_setzero_si512();
+    int k = 0;
+    for (; k + 64 <= K4; k += 64) {
+      __m512i v = _mm512_loadu_si512(a + k);
+      acc = _mm512_add_epi64(acc, _mm512_sad_epu8(v, _mm512_setzero_si512()));
+    }
+    if (k < K4) {
+      __mmask64 mask = (~0ULL) >> (64 - (K4 - k));
+      __m512i v = _mm512_maskz_loadu_epi8(mask, a + k);
+      acc = _mm512_add_epi64(acc, _mm512_sad_epu8(v, _mm512_setzero_si512()));
+    }
+    rowsum[m] = static_cast<int32_t>(_mm512_reduce_add_epi64(acc));
+  }
+}
+
+// requant 16 int32 lanes -> up to 16 u8 bytes (masked store)
+__attribute__((target("avx512f,avx512bw,avx512vl,avx512vnni")))
+inline void requant_store16(__m512i acc, const float *mult, int yzp, int lo,
+                            int hi, uint8_t *dst, __mmask16 mask) {
+  __m512 f = _mm512_mul_ps(_mm512_cvtepi32_ps(acc), _mm512_loadu_ps(mult));
+  __m512i i = _mm512_add_epi32(_mm512_cvtps_epi32(f), _mm512_set1_epi32(yzp));
+  i = _mm512_max_epi32(i, _mm512_set1_epi32(lo));
+  i = _mm512_min_epi32(i, _mm512_set1_epi32(hi));
+  _mm_mask_storeu_epi8(dst, mask, _mm512_cvtepi32_epi8(i));
+}
+
+__attribute__((target("avx512f,avx512bw,avx512vl,avx512vnni")))
+void gemm_vnni(const uint8_t *A, int M, const Op &op, uint8_t *out,
+               const int32_t *rowsum) {
+  const int K4 = op.K4, ocp = op.ocp, oc = op.oc, groups = K4 / 4;
+  const int nblocks = ocp / 16;
+  for (int m0 = 0; m0 < M; m0 += 4) {
+    const int mr = std::min(4, M - m0);
+    // tail rows recompute row m0 (stores are gated on mr)
+    const uint8_t *a0 = A + static_cast<int64_t>(m0) * K4;
+    const uint8_t *a1 = A + static_cast<int64_t>(m0 + (mr > 1 ? 1 : 0)) * K4;
+    const uint8_t *a2 = A + static_cast<int64_t>(m0 + (mr > 2 ? 2 : 0)) * K4;
+    const uint8_t *a3 = A + static_cast<int64_t>(m0 + (mr > 3 ? 3 : 0)) * K4;
+    for (int nb = 0; nb < nblocks; ++nb) {
+      const int8_t *bq = op.wpack.data() +
+                         static_cast<int64_t>(nb) * groups * 64;
+      __m512i acc0 = _mm512_setzero_si512();
+      __m512i acc1 = _mm512_setzero_si512();
+      __m512i acc2 = _mm512_setzero_si512();
+      __m512i acc3 = _mm512_setzero_si512();
+      for (int g = 0; g < groups; ++g) {
+        const __m512i b = _mm512_loadu_si512(bq + static_cast<int64_t>(g) * 64);
+        int32_t v0, v1, v2, v3;
+        std::memcpy(&v0, a0 + g * 4, 4);
+        std::memcpy(&v1, a1 + g * 4, 4);
+        std::memcpy(&v2, a2 + g * 4, 4);
+        std::memcpy(&v3, a3 + g * 4, 4);
+        acc0 = _mm512_dpbusd_epi32(acc0, _mm512_set1_epi32(v0), b);
+        acc1 = _mm512_dpbusd_epi32(acc1, _mm512_set1_epi32(v1), b);
+        acc2 = _mm512_dpbusd_epi32(acc2, _mm512_set1_epi32(v2), b);
+        acc3 = _mm512_dpbusd_epi32(acc3, _mm512_set1_epi32(v3), b);
+      }
+      const int nch = nb * 16;
+      const int wn = std::min(16, oc - nch);
+      if (wn <= 0) continue;  // fully padded trailing block
+      const __mmask16 mask = static_cast<__mmask16>((1u << wn) - 1u);
+      const __m512i bias = _mm512_loadu_si512(op.bias_eff.data() + nch);
+      const __m512i wzp = op.need_rowsum
+                              ? _mm512_loadu_si512(op.wzp.data() + nch)
+                              : _mm512_setzero_si512();
+      __m512i r[4] = {acc0, acc1, acc2, acc3};
+      for (int t = 0; t < mr; ++t) {
+        __m512i acc = _mm512_add_epi32(r[t], bias);
+        if (op.need_rowsum)
+          acc = _mm512_sub_epi32(
+              acc, _mm512_mullo_epi32(wzp, _mm512_set1_epi32(rowsum[m0 + t])));
+        requant_store16(acc, op.mult.data() + nch, op.yzp, op.lo, op.hi,
+                        out + (static_cast<int64_t>(m0 + t)) * oc + nch, mask);
+      }
+    }
+  }
+}
+
+__attribute__((target("avx512f,avx512bw,avx512vl,avx512vnni")))
+void dw_vnni(const uint8_t *xpad, const Op &op, uint8_t *out) {
+  const int wp = op.w + op.pl + op.pr;
+  const int c = op.c, c16 = round_up(c, 16);
+  const int taps = op.kh * op.kw;
+  for (int y = 0; y < op.oh; ++y) {
+    for (int x = 0; x < op.ow; ++x) {
+      const int64_t ibase =
+          (static_cast<int64_t>(y * op.sh) * wp + x * op.sw) * c;
+      uint8_t *dst = out + (static_cast<int64_t>(y) * op.ow + x) * c;
+      for (int cb = 0; cb < c; cb += 16) {
+        const int wn = std::min(16, c - cb);
+        const __mmask16 mask = static_cast<__mmask16>((1u << wn) - 1u);
+        __m512 acc = _mm512_loadu_ps(op.biasf.data() + cb);
+        for (int t = 0; t < taps; ++t) {
+          const int ky = t / op.kw, kx = t % op.kw;
+          const uint8_t *src =
+              xpad + ibase + (static_cast<int64_t>(ky) * wp + kx) * c + cb;
+          __m128i v8 = _mm_maskz_loadu_epi8(mask, src);
+          __m512 xf = _mm512_cvtepi32_ps(_mm512_cvtepu8_epi32(v8));
+          acc = _mm512_fmadd_ps(
+              xf, _mm512_loadu_ps(op.wf.data() + static_cast<int64_t>(t) * c16 + cb),
+              acc);
+        }
+        __m512 f = _mm512_mul_ps(acc, _mm512_loadu_ps(op.mult.data() + cb));
+        __m512i i = _mm512_add_epi32(_mm512_cvtps_epi32(f),
+                                     _mm512_set1_epi32(op.yzp));
+        i = _mm512_max_epi32(i, _mm512_set1_epi32(op.lo));
+        i = _mm512_min_epi32(i, _mm512_set1_epi32(op.hi));
+        _mm_mask_storeu_epi8(dst + cb, mask, _mm512_cvtepi32_epi8(i));
+      }
+    }
+  }
+}
+
+__attribute__((target("avx512f,avx512bw,avx512vl,avx512vnni")))
+void add_vnni(const uint8_t *a, const uint8_t *b, const Op &op, uint8_t *out) {
+  const __m512 ka = _mm512_set1_ps(op.ka), kb = _mm512_set1_ps(op.kb);
+  const __m512 c0 = _mm512_set1_ps(op.c0);
+  const __m512i lo = _mm512_set1_epi32(op.lo), hi = _mm512_set1_epi32(op.hi);
+  int64_t i = 0;
+  for (; i + 16 <= op.elems; i += 16) {
+    __m512 af = _mm512_cvtepi32_ps(
+        _mm512_cvtepu8_epi32(_mm_loadu_si128(
+            reinterpret_cast<const __m128i *>(a + i))));
+    __m512 bf = _mm512_cvtepi32_ps(
+        _mm512_cvtepu8_epi32(_mm_loadu_si128(
+            reinterpret_cast<const __m128i *>(b + i))));
+    __m512 y = _mm512_fmadd_ps(af, ka, _mm512_fmadd_ps(bf, kb, c0));
+    __m512i v = _mm512_cvtps_epi32(y);
+    v = _mm512_min_epi32(_mm512_max_epi32(v, lo), hi);
+    _mm_storeu_si128(reinterpret_cast<__m128i *>(out + i),
+                     _mm512_cvtepi32_epi8(v));
+  }
+  if (i < op.elems) {
+    const int rem = static_cast<int>(op.elems - i);
+    const __mmask16 mask = static_cast<__mmask16>((1u << rem) - 1u);
+    __m512 af = _mm512_cvtepi32_ps(
+        _mm512_cvtepu8_epi32(_mm_maskz_loadu_epi8(mask, a + i)));
+    __m512 bf = _mm512_cvtepi32_ps(
+        _mm512_cvtepu8_epi32(_mm_maskz_loadu_epi8(mask, b + i)));
+    __m512 y = _mm512_fmadd_ps(af, ka, _mm512_fmadd_ps(bf, kb, c0));
+    __m512i v = _mm512_cvtps_epi32(y);
+    v = _mm512_min_epi32(_mm512_max_epi32(v, lo), hi);
+    _mm_mask_storeu_epi8(out + i, mask, _mm512_cvtepi32_epi8(v));
+  }
+}
+#endif  // x86_64
+
+// ---------------------------------------------------------------------------
+// op execution
+// ---------------------------------------------------------------------------
+
+void pad_input(const uint8_t *x, const Op &op, uint8_t *xpad) {
+  const int wp = op.w + op.pl + op.pr;
+  const int hp = op.h + op.pt + op.pb;
+  const int64_t rowb = static_cast<int64_t>(wp) * op.c;
+  if (op.pt || op.pb || op.pl || op.pr)
+    std::memset(xpad, static_cast<uint8_t>(op.xzp),
+                static_cast<size_t>(hp) * rowb);
+  for (int y = 0; y < op.h; ++y)
+    std::memcpy(xpad + (static_cast<int64_t>(y + op.pt) * wp + op.pl) * op.c,
+                x + static_cast<int64_t>(y) * op.w * op.c,
+                static_cast<size_t>(op.w) * op.c);
+}
+
+// im2col: one patch row per output pixel, rows padded to K4 with xzp
+void im2col(const uint8_t *x, const Op &op, uint8_t *A) {
+  const int K4 = op.K4;
+  const int64_t rowc = static_cast<int64_t>(op.w) * op.c;
+  for (int y = 0; y < op.oh; ++y) {
+    for (int xo = 0; xo < op.ow; ++xo) {
+      uint8_t *dst = A + (static_cast<int64_t>(y) * op.ow + xo) * K4;
+      int off = 0;
+      for (int ky = 0; ky < op.kh; ++ky) {
+        const int iy = y * op.sh + ky - op.pt;
+        if (iy < 0 || iy >= op.h) {
+          std::memset(dst + off, static_cast<uint8_t>(op.xzp),
+                      static_cast<size_t>(op.kw) * op.c);
+          off += op.kw * op.c;
+          continue;
+        }
+        const int ix0 = xo * op.sw - op.pl;
+        // contiguous fast path when the whole kx span is in-bounds
+        if (ix0 >= 0 && ix0 + op.kw <= op.w) {
+          std::memcpy(dst + off, x + iy * rowc + static_cast<int64_t>(ix0) * op.c,
+                      static_cast<size_t>(op.kw) * op.c);
+          off += op.kw * op.c;
+        } else {
+          for (int kx = 0; kx < op.kw; ++kx) {
+            const int ix = ix0 + kx;
+            if (ix < 0 || ix >= op.w)
+              std::memset(dst + off, static_cast<uint8_t>(op.xzp), op.c);
+            else
+              std::memcpy(dst + off, x + iy * rowc + static_cast<int64_t>(ix) * op.c,
+                          op.c);
+            off += op.c;
+          }
+        }
+      }
+      if (off < K4)
+        std::memset(dst + off, static_cast<uint8_t>(op.xzp), K4 - off);
+    }
+  }
+}
+
+void run_conv(Prog *p, const Op &op) {
+  const uint8_t *x = bptr(p, op.in);
+  uint8_t *out = bptr(p, op.out);
+  const int M = op.oh * op.ow;
+  const int64_t in_img = static_cast<int64_t>(op.h) * op.w * op.c;
+  const int64_t out_img = static_cast<int64_t>(M) * op.oc;
+  for (int img = 0; img < op.n; ++img) {
+    const uint8_t *A;
+    if (op.direct_a) {
+      A = x + img * in_img;
+    } else {
+      im2col(x + img * in_img, op, p->scratch_a.data());
+      A = p->scratch_a.data();
+    }
+    const int32_t *rs = nullptr;
+    if (op.need_rowsum) {
+#if defined(__x86_64__) || defined(_M_X64)
+      if (p->simd == 1)
+        rowsum_vnni(A, M, op.K4, p->rowsum.data());
+      else
+#endif
+      {
+        for (int m = 0; m < M; ++m) {
+          const uint8_t *a = A + static_cast<int64_t>(m) * op.K4;
+          int32_t s = 0;
+          for (int k = 0; k < op.K4; ++k) s += a[k];
+          p->rowsum[m] = s;
+        }
+      }
+      rs = p->rowsum.data();
+    }
+#if defined(__x86_64__) || defined(_M_X64)
+    if (p->simd == 1)
+      gemm_vnni(A, M, op, out + img * out_img, rs);
+    else
+#endif
+      gemm_scalar(A, M, op, out + img * out_img, rs);
+  }
+}
+
+void run_dw(Prog *p, const Op &op) {
+  const uint8_t *x = bptr(p, op.in);
+  uint8_t *out = bptr(p, op.out);
+  const int64_t in_img = static_cast<int64_t>(op.h) * op.w * op.c;
+  const int64_t out_img = static_cast<int64_t>(op.oh) * op.ow * op.c;
+  const bool padded = op.pt || op.pb || op.pl || op.pr;
+  for (int img = 0; img < op.n; ++img) {
+    const uint8_t *src;
+    if (padded) {
+      pad_input(x + img * in_img, op, p->scratch_pad.data());
+      src = p->scratch_pad.data();
+    } else {
+      src = x + img * in_img;
+    }
+#if defined(__x86_64__) || defined(_M_X64)
+    if (p->simd == 1)
+      dw_vnni(src, op, out + img * out_img);
+    else
+#endif
+      dw_scalar(src, op, out + img * out_img);
+  }
+}
+
+void run_op(Prog *p, const Op &op) {
+  switch (op.k) {
+    case OpK::Conv:
+      run_conv(p, op);
+      break;
+    case OpK::Dw:
+      run_dw(p, op);
+      break;
+    case OpK::Add:
+#if defined(__x86_64__) || defined(_M_X64)
+      if (p->simd == 1) {
+        add_vnni(bptr(p, op.in), bptr(p, op.in2), op, bptr(p, op.out));
+        break;
+      }
+#endif
+      add_scalar(bptr(p, op.in), bptr(p, op.in2), op, bptr(p, op.out));
+      break;
+    case OpK::AvgPool: {
+      const uint8_t *x = bptr(p, op.in);
+      uint8_t *out = bptr(p, op.out);
+      const int64_t in_img = static_cast<int64_t>(op.h) * op.w * op.c;
+      const int64_t out_img = static_cast<int64_t>(op.oh) * op.ow * op.c;
+      for (int img = 0; img < op.n; ++img)
+        avgpool_scalar(x + img * in_img, op, out + img * out_img);
+      break;
+    }
+    case OpK::Softmax:
+      softmax_scalar(bptr(p, op.in), op, bptr(p, op.out));
+      break;
+  }
+}
+
+// pack a [K][oc] s8 weight matrix into [oc16-block][K4/4][16][4]
+void pack_b(const int8_t *wkn, int K, int oc, Op *op) {
+  const int K4 = op->K4, ocp = op->ocp;
+  op->wpack.assign(static_cast<size_t>(ocp) * K4, 0);
+  for (int nb = 0; nb < ocp; nb += 16) {
+    int8_t *blk = op->wpack.data() + static_cast<int64_t>(nb / 16) * (K4 / 4) * 64;
+    for (int g = 0; g < K4 / 4; ++g)
+      for (int j = 0; j < 16; ++j)
+        for (int t = 0; t < 4; ++t) {
+          const int k = g * 4 + t, nch = nb + j;
+          blk[static_cast<int64_t>(g) * 64 + j * 4 + t] =
+              (k < K && nch < oc) ? wkn[static_cast<int64_t>(k) * oc + nch]
+                                  : static_cast<int8_t>(0);
+        }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+__attribute__((visibility("default"))) uint64_t nns_q8_abi(void) { return kAbi; }
+
+__attribute__((visibility("default"))) int nns_q8_simd(void) {
+  return detect_simd();
+}
+
+__attribute__((visibility("default"))) void *nns_q8_new(int n_bufs) {
+  Prog *p = new Prog();
+  p->bufs.resize(n_bufs);
+  return p;
+}
+
+__attribute__((visibility("default"))) void nns_q8_free(void *h) {
+  delete static_cast<Prog *>(h);
+}
+
+__attribute__((visibility("default"))) int nns_q8_buf(void *h, int idx,
+                                                      int64_t nbytes) {
+  Prog *p = static_cast<Prog *>(h);
+  if (idx < 0 || idx >= static_cast<int>(p->bufs.size())) return -1;
+  p->bufs[idx].data.assign(static_cast<size_t>(nbytes), 0);
+  p->bufs[idx].nbytes = nbytes;
+  return 0;
+}
+
+__attribute__((visibility("default"))) int nns_q8_alias(void *h, int idx,
+                                                        int src) {
+  Prog *p = static_cast<Prog *>(h);
+  if (idx < 0 || idx >= static_cast<int>(p->bufs.size())) return -1;
+  p->bufs[idx].alias_of = src;
+  p->bufs[idx].nbytes = p->bufs[src].nbytes;
+  return 0;
+}
+
+__attribute__((visibility("default"))) int nns_q8_io(void *h, const int32_t *ins,
+                                                     int n_in,
+                                                     const int32_t *outs,
+                                                     int n_out) {
+  Prog *p = static_cast<Prog *>(h);
+  p->ins.assign(ins, ins + n_in);
+  p->outs.assign(outs, outs + n_out);
+  return 0;
+}
+
+// weights arrive as stored bytes [kh][kw][c][oc] reordered by the caller
+// to [K][oc] (K = kh*kw*c, patch order ky,kx,ic), already in the s8 domain
+__attribute__((visibility("default"))) int nns_q8_add_conv(
+    void *h, int in, int out, int n, int hgt, int wid, int c, int oh, int ow,
+    int oc, int kh, int kw, int sh, int sw, int pt, int pl, const int8_t *wkn,
+    const int32_t *wzp, const int32_t *bias, const float *mult, int xzp,
+    int yzp, int lo, int hi) {
+  Prog *p = static_cast<Prog *>(h);
+  Op op;
+  op.k = OpK::Conv;
+  op.in = in;
+  op.out = out;
+  op.n = n;
+  op.h = hgt;
+  op.w = wid;
+  op.c = c;
+  op.oh = oh;
+  op.ow = ow;
+  op.oc = oc;
+  op.kh = kh;
+  op.kw = kw;
+  op.sh = sh;
+  op.sw = sw;
+  op.pt = pt;
+  op.pl = pl;
+  op.xzp = xzp;
+  op.yzp = yzp;
+  op.lo = lo;
+  op.hi = hi;
+  op.K = kh * kw * c;
+  op.K4 = round_up(op.K, 4);
+  op.ocp = round_up(oc, 16);
+  op.direct_a = (kh == 1 && kw == 1 && sh == 1 && sw == 1 && pt == 0 &&
+                 pl == 0 && c % 4 == 0 && oh == hgt && ow == wid);
+  pack_b(wkn, op.K, oc, &op);
+  // per-channel epilogue constants: acc_n = dot(a, w_n)
+  //   - wzp_n * rowsum(a)            (separate per-row term when needed)
+  //   - xzp * colsum(w_n)  + K4*xzp*wzp_n  + bias_n   (constant, folded here;
+  //     K4 because A rows and packed B are both padded consistently: pad
+  //     bytes carry a=xzp, w=0, so the identity holds over K4 uniformly)
+  op.wzp.assign(op.ocp, 0);
+  op.bias_eff.assign(op.ocp, 0);
+  op.mult.assign(op.ocp, 0.f);
+  bool any_wzp = false;
+  for (int nch = 0; nch < oc; ++nch) {
+    int64_t colsum = 0;
+    for (int k = 0; k < op.K; ++k) colsum += wkn[static_cast<int64_t>(k) * oc + nch];
+    const int32_t z = wzp[nch];
+    if (z != 0) any_wzp = true;
+    op.wzp[nch] = z;
+    int64_t c0 = -static_cast<int64_t>(xzp) * colsum +
+                 static_cast<int64_t>(op.K4) * xzp * z +
+                 (bias ? bias[nch] : 0);
+    op.bias_eff[nch] = static_cast<int32_t>(c0);
+    op.mult[nch] = mult[nch];
+  }
+  op.need_rowsum = any_wzp ? 1 : 0;
+  const int64_t M = static_cast<int64_t>(oh) * ow;
+  if (!op.direct_a)
+    p->scratch_a.resize(
+        std::max<size_t>(p->scratch_a.size(), static_cast<size_t>(M) * op.K4));
+  if (op.need_rowsum)
+    p->rowsum.resize(std::max<size_t>(p->rowsum.size(), static_cast<size_t>(M)));
+  p->ops.push_back(std::move(op));
+  return 0;
+}
+
+// depthwise: weights [kh][kw][c] stored s8; depth multiplier 1
+__attribute__((visibility("default"))) int nns_q8_add_dw(
+    void *h, int in, int out, int n, int hgt, int wid, int c, int oh, int ow,
+    int kh, int kw, int sh, int sw, int pt, int pl, const int8_t *w8,
+    const int32_t *wzp, const int32_t *bias, const float *mult, int xzp,
+    int yzp, int lo, int hi) {
+  Prog *p = static_cast<Prog *>(h);
+  Op op;
+  op.k = OpK::Dw;
+  op.in = in;
+  op.out = out;
+  op.n = n;
+  op.h = hgt;
+  op.w = wid;
+  op.c = c;
+  op.oh = oh;
+  op.ow = ow;
+  op.oc = c;
+  op.kh = kh;
+  op.kw = kw;
+  op.sh = sh;
+  op.sw = sw;
+  op.pt = pt;
+  op.pl = pl;
+  // bottom/right pads so every tap index lands inside the padded buffer
+  op.pb = std::max(0, (oh - 1) * sh + kh - hgt - pt);
+  op.pr = std::max(0, (ow - 1) * sw + kw - wid - pl);
+  op.xzp = xzp;
+  op.yzp = yzp;
+  op.lo = lo;
+  op.hi = hi;
+  const int c16 = round_up(c, 16), taps = kh * kw;
+  op.wf.assign(static_cast<size_t>(taps) * c16, 0.f);
+  op.biasf.assign(c16, 0.f);
+  op.mult.assign(c16, 0.f);
+  // fold: sum_t (a_t - xzp) * (w_t - wzp_c)
+  //     = sum_t a_t * wf_tc + (bias_c - xzp * sum_t wf_tc)
+  for (int ch = 0; ch < c; ++ch) {
+    float wsum = 0.f;
+    for (int t = 0; t < taps; ++t) {
+      const float wv =
+          static_cast<float>(w8[static_cast<int64_t>(t) * c + ch] - wzp[ch]);
+      op.wf[static_cast<int64_t>(t) * c16 + ch] = wv;
+      wsum += wv;
+    }
+    op.biasf[ch] = static_cast<float>(bias ? bias[ch] : 0) -
+                   static_cast<float>(xzp) * wsum;
+    op.mult[ch] = mult[ch];
+  }
+  const size_t padb = static_cast<size_t>(hgt + op.pt + op.pb) *
+                      (wid + op.pl + op.pr) * c;
+  p->scratch_pad.resize(std::max(p->scratch_pad.size(), padb));
+  p->ops.push_back(std::move(op));
+  return 0;
+}
+
+__attribute__((visibility("default"))) int nns_q8_add_add(
+    void *h, int a, int b, int out, int64_t elems, float ka, float kb,
+    float c0, int lo, int hi) {
+  Prog *p = static_cast<Prog *>(h);
+  Op op;
+  op.k = OpK::Add;
+  op.in = a;
+  op.in2 = b;
+  op.out = out;
+  op.elems = elems;
+  op.ka = ka;
+  op.kb = kb;
+  op.c0 = c0;
+  op.lo = lo;
+  op.hi = hi;
+  p->ops.push_back(std::move(op));
+  return 0;
+}
+
+__attribute__((visibility("default"))) int nns_q8_add_avgpool(
+    void *h, int in, int out, int n, int hgt, int wid, int c, int oh, int ow,
+    int kh, int kw, int sh, int sw, int pt, int pl, int xzp, float ratio,
+    int yzp, int lo, int hi) {
+  Prog *p = static_cast<Prog *>(h);
+  Op op;
+  op.k = OpK::AvgPool;
+  op.in = in;
+  op.out = out;
+  op.n = n;
+  op.h = hgt;
+  op.w = wid;
+  op.c = c;
+  op.oh = oh;
+  op.ow = ow;
+  op.oc = c;
+  op.kh = kh;
+  op.kw = kw;
+  op.sh = sh;
+  op.sw = sw;
+  op.pt = pt;
+  op.pl = pl;
+  op.xzp = xzp;
+  op.ratio = ratio;
+  op.yzp = yzp;
+  op.lo = lo;
+  op.hi = hi;
+  p->ops.push_back(std::move(op));
+  return 0;
+}
+
+__attribute__((visibility("default"))) int nns_q8_add_softmax(
+    void *h, int in, int out, int rows, int cols, float s_in, int xzp,
+    float inv_s_out, int yzp, float beta) {
+  Prog *p = static_cast<Prog *>(h);
+  Op op;
+  op.k = OpK::Softmax;
+  op.in = in;
+  op.out = out;
+  op.rows = rows;
+  op.cols = cols;
+  op.s_in = s_in;
+  op.xzp = xzp;
+  op.inv_s_out = inv_s_out;
+  op.yzp = yzp;
+  op.beta = beta;
+  p->ops.push_back(std::move(op));
+  return 0;
+}
+
+__attribute__((visibility("default"))) int nns_q8_run(void *h,
+                                                      const uint8_t **ins,
+                                                      uint8_t **outs) {
+  Prog *p = static_cast<Prog *>(h);
+  if (p->simd < 0) p->simd = detect_simd();
+  for (size_t i = 0; i < p->ins.size(); ++i) {
+    Buf &b = p->bufs[p->ins[i]];
+    std::memcpy(bptr(p, p->ins[i]), ins[i], static_cast<size_t>(b.nbytes));
+  }
+  for (const Op &op : p->ops) run_op(p, op);
+  for (size_t i = 0; i < p->outs.size(); ++i) {
+    Buf &b = p->bufs[p->outs[i]];
+    std::memcpy(outs[i], bptr(p, p->outs[i]), static_cast<size_t>(b.nbytes));
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,177 @@
+"""ctypes binding for the native int8 engine (``csrc/nns_q8.cc``).
+
+Build-on-demand into ``build/native/`` (``_build.py``, as the host-runtime
+core in ``__init__.py``); the source is nnstreamer_tpu's. The engine is the CPU-side analog
+of the reference's native int8 interpreter path
+(ext/nnstreamer/tensor_filter/tensor_filter_tensorflow_lite.cc); see the
+.cc header comment for the arithmetic contract it shares with
+``models/tflite_int8.py`` (the port's own is its twin).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import List, Optional
+
+import numpy as np
+
+from ._build import load_once
+
+_lib = None
+_lib_lock = threading.Lock()
+_build_failed = False
+
+ABI_VERSION = 1
+
+_i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    i32, i64, vp = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+    f32 = ctypes.c_float
+    lib.nns_q8_abi.restype = ctypes.c_uint64
+    lib.nns_q8_simd.restype = i32
+    lib.nns_q8_new.restype = vp
+    lib.nns_q8_new.argtypes = [i32]
+    lib.nns_q8_free.argtypes = [vp]
+    lib.nns_q8_buf.restype = i32
+    lib.nns_q8_buf.argtypes = [vp, i32, i64]
+    lib.nns_q8_alias.restype = i32
+    lib.nns_q8_alias.argtypes = [vp, i32, i32]
+    lib.nns_q8_io.restype = i32
+    lib.nns_q8_io.argtypes = [vp, _i32p, i32, _i32p, i32]
+    lib.nns_q8_add_conv.restype = i32
+    lib.nns_q8_add_conv.argtypes = [vp] + [i32] * 15 + [
+        _i8p, _i32p, _i32p, _f32p] + [i32] * 4
+    lib.nns_q8_add_dw.restype = i32
+    lib.nns_q8_add_dw.argtypes = [vp] + [i32] * 14 + [
+        _i8p, _i32p, _i32p, _f32p] + [i32] * 4
+    lib.nns_q8_add_add.restype = i32
+    lib.nns_q8_add_add.argtypes = [vp, i32, i32, i32, i64, f32, f32, f32,
+                                   i32, i32]
+    lib.nns_q8_add_avgpool.restype = i32
+    lib.nns_q8_add_avgpool.argtypes = [vp] + [i32] * 15 + [f32] + [i32] * 3
+    lib.nns_q8_add_softmax.restype = i32
+    lib.nns_q8_add_softmax.argtypes = [vp, i32, i32, i32, i32, f32, i32, f32,
+                                       i32, f32]
+    lib.nns_q8_run.restype = i32
+    lib.nns_q8_run.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(vp)]
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _build_failed
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        if _build_failed:
+            return None
+        lib = load_once("nns_q8", ABI_VERSION, "nns_q8_abi", _bind)
+        if lib is None:
+            _build_failed = True
+            return None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    if os.environ.get("NNS_DISABLE_NATIVE"):
+        return False
+    return _load() is not None
+
+
+def simd_level() -> int:
+    """0 = portable scalar, 1 = AVX512-VNNI."""
+    lib = _load()
+    return int(lib.nns_q8_simd()) if lib is not None else -1
+
+
+class Q8Program:
+    """A built native program: fixed graph, reusable across frames.
+
+    All quantization arguments are in the engine's stored domains (see
+    nns_q8.cc): activations u8 (+128 biased for int8 tensors), weights
+    s8, zero points likewise.
+    """
+
+    def __init__(self, n_bufs: int):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("q8 native engine unavailable")
+        self._lib = lib
+        self._h = lib.nns_q8_new(n_bufs)
+
+    def buf(self, idx: int, nbytes: int) -> None:
+        if self._lib.nns_q8_buf(self._h, idx, nbytes) != 0:
+            raise ValueError(f"q8: bad buffer index {idx}")
+
+    def alias(self, idx: int, src: int) -> None:
+        if self._lib.nns_q8_alias(self._h, idx, src) != 0:
+            raise ValueError(f"q8: bad alias {idx}->{src}")
+
+    def io(self, ins: List[int], outs: List[int]) -> None:
+        self._lib.nns_q8_io(
+            self._h, np.asarray(ins, np.int32), len(ins),
+            np.asarray(outs, np.int32), len(outs))
+
+    def add_conv(self, in_idx, out_idx, n, h, w, c, oh, ow, oc, kh, kw, sh,
+                 sw, pt, pl, wkn, wzp, bias, mult, xzp, yzp, lo, hi) -> None:
+        wkn = np.ascontiguousarray(wkn, np.int8)
+        wzp = np.ascontiguousarray(wzp, np.int32)
+        bias = np.ascontiguousarray(
+            bias if bias is not None else np.zeros(oc, np.int32), np.int32)
+        mult = np.ascontiguousarray(mult, np.float32)
+        r = self._lib.nns_q8_add_conv(
+            self._h, in_idx, out_idx, n, h, w, c, oh, ow, oc, kh, kw, sh, sw,
+            pt, pl, wkn, wzp, bias, mult, xzp, yzp, lo, hi)
+        if r != 0:
+            raise ValueError("q8: add_conv failed")
+
+    def add_dw(self, in_idx, out_idx, n, h, w, c, oh, ow, kh, kw, sh, sw, pt,
+               pl, w8, wzp, bias, mult, xzp, yzp, lo, hi) -> None:
+        w8 = np.ascontiguousarray(w8, np.int8)
+        wzp = np.ascontiguousarray(wzp, np.int32)
+        bias = np.ascontiguousarray(
+            bias if bias is not None else np.zeros(c, np.int32), np.int32)
+        mult = np.ascontiguousarray(mult, np.float32)
+        r = self._lib.nns_q8_add_dw(
+            self._h, in_idx, out_idx, n, h, w, c, oh, ow, kh, kw, sh, sw, pt,
+            pl, w8, wzp, bias, mult, xzp, yzp, lo, hi)
+        if r != 0:
+            raise ValueError("q8: add_dw failed")
+
+    def add_add(self, a, b, out, elems, ka, kb, c0, lo, hi) -> None:
+        self._lib.nns_q8_add_add(self._h, a, b, out, elems, ka, kb, c0, lo, hi)
+
+    def add_avgpool(self, in_idx, out_idx, n, h, w, c, oh, ow, kh, kw, sh, sw,
+                    pt, pl, xzp, ratio, yzp, lo, hi) -> None:
+        self._lib.nns_q8_add_avgpool(
+            self._h, in_idx, out_idx, n, h, w, c, oh, ow, kh, kw, sh, sw, pt,
+            pl, xzp, ratio, yzp, lo, hi)
+
+    def add_softmax(self, in_idx, out_idx, rows, cols, s_in, xzp, inv_s_out,
+                    yzp, beta) -> None:
+        self._lib.nns_q8_add_softmax(self._h, in_idx, out_idx, rows, cols,
+                                     s_in, xzp, inv_s_out, yzp, beta)
+
+    def run(self, inputs: List[np.ndarray], outputs: List[np.ndarray]) -> None:
+        n_in, n_out = len(inputs), len(outputs)
+        in_ptrs = (ctypes.c_void_p * n_in)(
+            *(x.ctypes.data for x in inputs))
+        out_ptrs = (ctypes.c_void_p * n_out)(
+            *(x.ctypes.data for x in outputs))
+        if self._lib.nns_q8_run(self._h, in_ptrs, out_ptrs) != 0:
+            raise RuntimeError("q8: run failed")
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.nns_q8_free(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover - interpreter teardown
+        try:
+            self.close()
+        except Exception:
+            pass

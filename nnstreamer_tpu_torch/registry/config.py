@@ -33,7 +33,13 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
     "filter": {
         # model-extension -> backend priority (comma-separated, first wins)
         "framework_priority_py": "python",
+        "framework_priority_tflite": "tflite",
         "framework_priority_so": "custom",
+        # model path that is a directory containing saved_model.pb
+        "framework_priority_savedmodel": "tensorflow",
+    },
+    "tensorflow": {
+        "signature": "serving_default",
     },
 }
 

@@ -38,6 +38,8 @@ _BUILTIN_MODULES: Dict[SubpluginKind, tuple] = {
         "nnstreamer_tpu_torch.backends.python_backend",
         "nnstreamer_tpu_torch.backends.custom_easy",
         "nnstreamer_tpu_torch.backends.custom_c",
+        "nnstreamer_tpu_torch.backends.tflite_backend",
+        "nnstreamer_tpu_torch.backends.tf_backend",
     ),
     SubpluginKind.DECODER: ("nnstreamer_tpu_torch.decoders",),
     SubpluginKind.CONVERTER: ("nnstreamer_tpu_torch.converters",),

@@ -294,6 +294,19 @@ def _nbytes(ts) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _reset_rng_capture(dev: torch.device) -> None:
+    """A capture whose end failed never ran its generators' capture
+    epilogue: the card's default generator then believes a capture is
+    underway, and every later random op on that card raises ("Offset
+    increment outside graph capture"). Give the generator a fresh state
+    with the same seed and offset."""
+    gen = torch.cuda.default_generators[dev.index]
+    try:
+        gen.graphsafe_set_state(gen.clone_state())
+    except (AttributeError, RuntimeError):  # a torch without graph-safe states
+        pass
+
+
 class FusedSegment:
     """One linear run of device elements run as a single dispatch.
 
@@ -548,6 +561,7 @@ class FusedSegment:
                         graph.capture_end()
                     except Exception:  # noqa: BLE001 - the first error is the news
                         pass
+                    _reset_rng_capture(home)
                     raise
                 graph.capture_end()
         finally:

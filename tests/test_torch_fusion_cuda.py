@@ -15,7 +15,8 @@ runs where they are not installed:
   the side stream while the caller's stream is still busy (overlap), and
   ``retarget`` drops the slots;
 * a capture that fails (a model that declares itself safe to capture
-  but syncs with the host) ends in a bus ERROR, with no eager fallback;
+  but syncs with the host) ends in a bus ERROR, with no eager fallback,
+  and leaves the card's random number generator usable;
 * a model that declares nothing runs its eager invoke under the default
   ``fuse``: the segment defuses, as for a pinned filter."""
 import sys
@@ -216,3 +217,26 @@ def test_capture_failure_is_a_bus_error(cuda_card):
         f"! tensor_filter framework=torch model={model} ! tensor_sink "
         "name=out", fuse=False)
     assert plain.run(timeout=60).type is MessageType.EOS
+
+
+@pytest.mark.cuda
+def test_failed_capture_leaves_the_rng_usable(cuda_card):
+    """A capture whose end fails never ran the generator's capture
+    epilogue; the segment resets the generator, so a random op on the
+    card afterwards runs (it used to raise "Offset increment outside
+    graph capture encountered unexpectedly") and continues the stream."""
+    torch.cuda.manual_seed(7)
+    want = torch.rand(4, device=cuda_card)
+    torch.cuda.manual_seed(7)
+    model = _syncing_model(declared=True)
+    pipe = parse_launch(
+        "tensor_src device=true num-buffers=2 dimensions=8 types=float32 "
+        "pattern=counter ! tensor_transform mode=arithmetic option=add:1 "
+        f"! tensor_filter framework=torch model={model} ! tensor_sink "
+        "name=out")
+    pipe.play()
+    try:
+        assert pipe.wait(timeout=60).type is MessageType.ERROR
+    finally:
+        pipe.stop()
+    torch.testing.assert_close(torch.rand(4, device=cuda_card), want)

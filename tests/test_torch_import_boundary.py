@@ -109,6 +109,20 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.decoders.python_decoder",
     "nnstreamer_tpu_torch.elements.datarepo",
     "nnstreamer_tpu_torch.elements.iio",
+    "nnstreamer_tpu_torch.models.tflite_schema",
+    "nnstreamer_tpu_torch.models.tflite_int8",
+    "nnstreamer_tpu_torch.models.tflite_q8_native",
+    "nnstreamer_tpu_torch.native",
+    "nnstreamer_tpu_torch.native.q8",
+    "nnstreamer_tpu_torch.backends.tflite_backend",
+    "nnstreamer_tpu_torch.backends.tf_backend",
+    "nnstreamer_tpu_torch.utils.parity",
+]
+# the slice that needs no TensorFlow to import: blocked too when checked
+TFLITE_MODULES = SLICE_MODULES[-8:] + [
+    "nnstreamer_tpu_torch.models.tflite_import",
+    "nnstreamer_tpu_torch.backends.torch_backend",
+    "nnstreamer_tpu_torch.elements.datarepo",
 ]
 
 
@@ -142,7 +156,7 @@ for mode in ("bounding_boxes", "pose_estimation", "image_segment",
     assert get(SubpluginKind.DECODER, mode).MODE == mode
 from nnstreamer_tpu_torch.registry.subplugin import names
 assert names(SubpluginKind.FILTER) == ["custom", "custom-easy", "python",
-                                       "torch"]
+                                       "tensorflow", "tflite", "torch"]
 assert get(SubpluginKind.FILTER, "python3") is get(SubpluginKind.FILTER,
                                                    "python")
 assert get(SubpluginKind.DECODER, "python3").MODE == "python3"
@@ -152,6 +166,51 @@ assert {{"videomixer", "compositor", "datareposrc", "datareposink",
 assert len(element_factories()) == 48
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_tflite_slice_imports_with_tensorflow_blocked(tmp_path):
+    """The .tflite slice imports, loads the fixture and runs it in every
+    mode with jax, nnstreamer_tpu and tensorflow blocked; the two TF
+    backends register and fail only in open(), naming tensorflow."""
+    code = f"""
+import sys
+for name in {FORBIDDEN + ("tensorflow",)!r}:
+    sys.modules[name] = None
+import importlib
+for mod in {TFLITE_MODULES!r}:
+    importlib.import_module(mod)
+import numpy as np, torch
+from nnstreamer_tpu_torch import native
+from nnstreamer_tpu_torch.native import q8
+from nnstreamer_tpu_torch.models.tflite_import import load_tflite
+from nnstreamer_tpu_torch.backends.base import (FilterProperties,
+                                                FrameworkUnavailable)
+from nnstreamer_tpu_torch.registry.subplugin import SubpluginKind, get
+path = "tests/fixtures/tiny_int8_perchannel.tflite"
+x = torch.zeros((1, 16, 16, 3), dtype=torch.int8)
+modes = ["fake-quant", "float", "int8"]
+if native.available() and q8.available():
+    modes.append("int8-native")
+for mode in modes:
+    out = load_tflite(path, {{"quantized_exec": mode}}, device="cpu")[0](x)
+    assert tuple(out[0].shape) == (1, 10)
+for name in ("tflite", "tensorflow-lite", "tensorflow", "tf"):
+    try:
+        get(SubpluginKind.FILTER, name)().open(FilterProperties(model=path))
+    except FrameworkUnavailable as e:
+        assert "tensorflow" in str(e)
+    else:
+        raise AssertionError(name)
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu.")
+               or m == "tensorflow" or m.startswith("tensorflow."))]
 assert not loaded, loaded
 print("ok")
 """
