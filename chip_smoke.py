@@ -299,14 +299,47 @@ phase fails:
     fixture post a bus ERROR naming tensorflow (the machine has none;
     nothing reaches the sink). (e) ``datareposrc`` (shuffled, 2 epochs)
     feeds the int8 filter with ``use-native`` true and false: the same
-    samples in the same order, the same outputs; frames/s. This phase
-    runs no hand-written kernel.
+    samples in the same order, the same outputs; frames/s. fake-quant's
+    convs at the shapes of ``FMA_ORDER_SHAPES`` run ``csrc/fma_gemm.cu``
+    (the reference's XLA:CPU summation order): it must launch once a
+    listed conv a forward, and equal its plain version bit for bit at
+    every shape of a forward, on the line's own operands (times for each
+    shape and a forward beside the bound and ``torch.matmul``'s).
+17. transport and query (also ``--only query``, after phase 4's local
+    line). (a) ``tensor_query_serversrc ! tensor_filter framework=torch
+    model=...lm_serving:base ! tensor_query_serversink`` in a process of
+    its own (``sys.executable``, importing only the package) serves phase
+    4's 3 requests from ``appsrc ! tensor_query_client ! tensor_sink``.
+    Gates: the tokens equal phase 4's; the server process counts 2268
+    decode and 36 flash launches and pulls each answer from the card once;
+    the handshake selected NNSB with the shm ring (3 shm frames each way
+    in ``nns_wire_frames_total``). Generated tokens/s and each request's
+    round trip against phase 4's local request. (b) MobileNet-v2
+    ``filter_model_u8`` (bf16) behind an in-process query server: the same
+    2 + 8 batches of 64 from ``appsrc ! tensor_query_client ! tensor_sink``
+    lines with ``wire=json``, ``shm=false`` and the defaults (NNSB with
+    shm, the rings' slots sized from the caps and the first answer).
+    Gates: the negotiated plane; ``nns_wire_frames_total`` of that plane
+    rose by 2 a batch each way (sender and receiver share the process),
+    of the others by 0, and no frame overflowed a slot; every answer
+    byte-equal to the server's own forward on the same frames. Frames/s, round-trip p50, wire bytes a batch each way, host ms
+    to encode and decode a batch. (c) ``attach_scheduler``: 8 clients,
+    released by a barrier, send batch-1 frames; gates: logits equal the
+    rows of a batch-8 forward, fewer scheduler batches than requests.
+    (d) ``tensor_shard`` across two server processes on the card, then
+    ``tensor_unshard``: labels and order equal the unsharded line's. (e)
+    one bf16 logits batch from the card through edgesink → edgesrc, a
+    HYBRID query link discovered over the embedded MiniBroker, and
+    mqttsink → mqttsrc: bytes equal; ``tensor_sink_grpc`` posts a bus
+    ERROR naming grpc where grpc is absent (else the bytes equal through
+    ``tensor_src_grpc``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
-plugins``, ``--only tflite``) runs phase 13 (14, 15, 16) alone and prints its report as the last
-line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
+plugins``, ``--only tflite``, ``--only query``) runs phase 13 (14, 15, 16,
+17) alone and prints its report as the last line (no kernel line, no
+``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
 which CUPTI lost kernel records, those short of a hand-kernel launch and
@@ -4897,6 +4930,82 @@ def tf_run(mode: str) -> dict:
             "frames_per_s": st_fps(times["raw"], TF_BATCH, TF_WARM - 1)}
 
 
+def tf_fma_convs() -> dict:
+    """{(M, K, N): convs a forward} of the fixture's CONV_2D steps that sum
+    in XLA's FMA order at batch TF_BATCH, as GEMMs (M, K) x (K, N)."""
+    from collections import Counter
+
+    from nnstreamer_tpu_torch.models.tflite_import import (FMA_ORDER_SHAPES,
+                                                           read_model)
+
+    steps, tensors, *_ = read_model(str(TF_MODEL))
+    convs = Counter()
+    for code, cfg, ins, outs in steps:
+        if code == "CONV_2D":
+            oc, kh, kw, ic = tensors[ins[1]].shape
+            _, h, w, _ = tensors[ins[0]].shape
+            _, oh, ow, _ = tensors[outs[0]].shape
+            if (TF_BATCH, h, w, kh, kw, *cfg["strides"], ic,
+                    oc) in FMA_ORDER_SHAPES:
+                convs[(TF_BATCH * oh * ow, kh * kw * ic, oc)] += 1
+    return dict(convs)
+
+
+def tf_fma_kernel(fake_quant_fn, convs: dict) -> dict:
+    """fma_gemm against its plain version, bit for bit, at every shape the
+    fake-quant line gives it, on that line's own operands (op 0's im2col
+    and the 1x1 convs' activations of one batch-64 forward, caught at the
+    wrapper). Kernel, plain and ``torch.matmul`` (TF32 off) times and the
+    bound for each shape, and summed over one forward's launches."""
+    import nnstreamer_tpu_torch.models.tflite_import as ti
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm, fma_gemm_plain
+
+    n0 = fma_gemm.launches
+    operands = {}
+
+    def catch(a, b):
+        key = (a.numel() // a.shape[-1], *b.shape)
+        operands.setdefault(key, []).append(
+            (a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous()))
+        return fma_gemm(a, b)
+    ti.fma_gemm = catch
+    try:
+        fake_quant_fn(tf_device_frames(0))
+    finally:
+        ti.fma_gemm = fma_gemm
+    torch.cuda.synchronize()
+    if {k: len(v) for k, v in operands.items()} != convs:
+        fail(f"fma_gemm: the fake-quant forward gave it shapes "
+             f"{ {k: len(v) for k, v in operands.items()} }, expected {convs}")
+    shapes, err = [], 0.0
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    side = {"bytes": 0.0, "operations": 0.0}
+    for (M, K, N), args in sorted(operands.items()):
+        for a, b in args:
+            got, want = fma_gemm(a, b), fma_gemm_plain(a, b)
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"fma_gemm at ({M}, {K}) x ({K}, {N}): "
+                     f"{int((got != want).sum())} of {got.numel()} values "
+                     "differ from the plain version (bit-equal required)")
+        by = {"bytes": (M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S * 1e3,
+              "operations": 2 * M * N * K / F32_FLOP_PER_S * 1e3}
+        one = {"shape_mkn": [M, K, N], "per_forward": len(args),
+               "ms": time_ms(fma_gemm, args, reps=5, inner=10),
+               "plain_ms": time_ms(fma_gemm_plain, args, reps=3, inner=1),
+               "library_ms": time_ms(torch.matmul, args, reps=5, inner=10),
+               "bound_ms": max(by.values()),
+               "bound_by": max(by, key=by.get)}
+        shapes.append(one)
+        for k in total:
+            total[k] += len(args) * one[k]
+        for k in side:
+            side[k] += len(args) * by[k]
+    fma_gemm.launches = n0     # comparison launches do not count
+    return {"max_abs_err": err, **total, "bound_by": max(side, key=side.get),
+            "launches_per_forward": sum(convs.values()), "shapes": shapes}
+
+
 def tf_tiny(native_fn_of) -> dict:
     """All four modes on the tiny per-channel fixture give the port's CPU
     bytes (the three torch modes on the card, int8-native on the host)."""
@@ -5098,12 +5207,23 @@ def phase_tflite(report: dict) -> None:
                 "quantized_exec": "int8-native", "batch": str(batch)})[0]
         return natives[key]
 
-    # (b) the four modes
+    # (b) the four modes; fake-quant's listed convs go through fma_gemm
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm
+
     modes = r["modes"] = {}
     runs = {}
     for mode in TF_DEVICE_MODES + ("int8-native",):
+        fma_gemm.launches = 0
         runs[mode] = run = tf_run(mode)
         modes[mode] = {"frames_per_s": run["frames_per_s"]}
+        if mode == "fake-quant":
+            r["fma_gemm_launches"] = fma_gemm.launches
+    convs = tf_fma_convs()
+    want = sum(convs.values()) * (TF_WARM + TF_MEASURED)
+    if r["fma_gemm_launches"] != want:
+        fail(f"tflite fake-quant: {r['fma_gemm_launches']} fma_gemm launches,"
+             f" expected {want} ({sum(convs.values())} listed convs a "
+             "forward)")
     nat = native_fn_of(str(TF_MODEL), TF_BATCH)
     for k, out in enumerate(runs["int8"]["raw"]):
         want = nat(tf_device_frames(k).cpu())[0]
@@ -5113,6 +5233,17 @@ def phase_tflite(report: dict) -> None:
     fns = {m: load_tflite(str(TF_MODEL), {"quantized_exec": m,
                                          "batch": str(TF_BATCH)},
                           device=ST_DEV)[0] for m in TF_DEVICE_MODES}
+    r["fma_gemm"] = fq = tf_fma_kernel(fns["fake-quant"], convs)
+    print(f"tflite ({smi}) fma_gemm: {r['fma_gemm_launches']} launches in the "
+          f"fake-quant line; = its plain version bit for bit at all "
+          f"{len(fq['shapes'])} shapes of a batch-{TF_BATCH} forward, on its "
+          f"operands; a forward's {fq['launches_per_forward']} launches take "
+          f"{fq['ms']:.6f} ms (plain {fq['plain_ms']:.3f}, torch.matmul "
+          f"{fq['library_ms']:.6f}, bound {fq['bound_ms']:.6f} ms by "
+          f"{fq['bound_by']}); per shape: "
+          + "; ".join(f"{tuple(x['shape_mkn'])} x{x['per_forward']} "
+                      f"{x['ms']:.6f} / bound {x['bound_ms']:.6f} / matmul "
+                      f"{x['library_ms']:.6f} ms" for x in fq["shapes"]))
     host = tf_host_frames(TF_WARM + TF_MEASURED)
     for k, out in enumerate(runs["int8-native"]["raw"]):
         got = fns["int8"](torch.from_numpy(host[k]).to(ST_DEV))[0]
@@ -5192,6 +5323,639 @@ def phase_tflite(report: dict) -> None:
           f"{e['memmap_frames_per_s']:.1f} frames/s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: transport and query (transport/, query/, elements/{shard,mqtt},
+# utils/ntp.py) — the base LM and MobileNet-v2 served to remote clients
+
+QY_LM_MODEL = "nnstreamer_tpu_torch.models.lm_serving:base"
+QY_LM_CAPS = f"other/tensors,format=static,dimensions={PROMPT}:8,types=int32"
+QY_MB_CAPS = ("other/tensors,format=static,"
+              f"dimensions=3:224:224:{MB_BATCH},types=uint8")
+QY_LOGIT_CAPS = ("other/tensors,format=static,"
+                 f"dimensions=1001:{MB_BATCH},types=bfloat16")
+QY_WARM, QY_MEASURED = 2, 8
+QY_SHARD_BATCHES = 4
+QY_BRIDGE_CLIENTS = 8
+QY_CHILD_TIMEOUT = 600.0
+QY_WAIT = 120.0
+# the server process: plays one launch line, prints its port, serves until
+# its stdin closes, then prints its kernel launches and wire counters. It
+# imports only the port, and sets the TF32 switches as main() does, so its
+# LM forward is the parent's.
+QY_CHILD = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+for name in ("jax", "jaxlib", "nnstreamer_tpu"):
+    sys.modules[name] = None
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from nnstreamer_tpu_torch.ops.decode_attention import decode_attention
+from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+from nnstreamer_tpu_torch.runtime.parse import parse_launch
+from nnstreamer_tpu_torch.transport import stats
+pipe = parse_launch(sys.argv[2])
+pipe.play()
+print(json.dumps({"port": pipe.get("ssrc").bound_port}), flush=True)
+sys.stdin.readline()
+pipe.stop()
+torch.cuda.synchronize()
+print(json.dumps({"launches": {"decode_attention": decode_attention.launches,
+                               "flash_attention": flash_attention.launches},
+                  "wire": stats.snapshot()}), flush=True)
+'''
+
+
+def qy_bytes(t) -> tuple:
+    """(dtype name, shape, bytes) of a host or card tensor or an array; a
+    bfloat16 tensor by its bit patterns."""
+    from nnstreamer_tpu_torch.core import DataType
+
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        name = DataType.from_any(t.dtype).value
+        if t.dtype is torch.bfloat16:
+            t = t.view(torch.int16)
+        return name, tuple(t.shape), t.numpy().tobytes()
+    a = np.ascontiguousarray(t)
+    return DataType.from_any(a.dtype).value, a.shape, a.tobytes()
+
+
+def qy_server_line(model: str, caps: str, server_id: int = 0,
+                   extra: str = "") -> str:
+    return (f"tensor_query_serversrc name=ssrc id={server_id} port=0 "
+            f"caps={caps} {extra}! tensor_filter framework=torch "
+            f"model={model} name=f ! tensor_query_serversink id={server_id}")
+
+
+class QyChild:
+    """One query server line in its own process (``sys.executable``),
+    importing only the port; it stops when its stdin closes."""
+
+    def __init__(self, line: str, what: str):
+        import subprocess as sp
+
+        self.what = what
+        self.proc = sp.Popen([sys.executable, "-c", QY_CHILD, str(ROOT), line],
+                             stdin=sp.PIPE, stdout=sp.PIPE, text=True)
+        self.port = self._json("port")["port"]
+
+    def _json(self, key: str) -> dict:
+        import threading
+
+        got = {}
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    obj = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(obj, dict) and key in obj:
+                    got["obj"] = obj
+                    return
+        t = threading.Thread(target=read, daemon=True)
+        t.start()
+        t.join(QY_CHILD_TIMEOUT)
+        if "obj" not in got:
+            self.kill()
+            fail(f"query {self.what}: the server process printed no "
+                 f"'{key}' line (exit {self.proc.poll()})")
+        return got["obj"]
+
+    def stop(self) -> dict:
+        self.proc.stdin.close()
+        out = self._json("launches")
+        try:
+            rc = self.proc.wait(timeout=QY_WAIT)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail(f"query {self.what}: the server process did not exit")
+        if rc != 0:
+            fail(f"query {self.what}: the server process exited {rc}")
+        return out
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def qy_wait(cond, what: str, timeout: float = QY_WAIT) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            fail(f"query {what}: nothing within {timeout:.0f} s")
+        time.sleep(0.001)
+
+
+def qy_wire_frames(fmt: str = "shm") -> dict:
+    """This process's ``nns_wire_frames_total`` of ``fmt``, by direction,
+    read through the metrics' own text."""
+    from nnstreamer_tpu_torch.obs import metrics, promtext
+
+    text = metrics.render()
+    return {d: promtext.sample(text, "nns_wire_frames_total",
+                               {"format": fmt, "direction": d}) or 0.0
+            for d in ("tx", "rx")}
+
+
+def qy_lm(report: dict, prompts, want) -> dict:
+    """(a) phase 4's requests through a query client to the base LM server
+    in its own process."""
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    child = QyChild(qy_server_line(QY_LM_MODEL, QY_LM_CAPS), "lm")
+    try:
+        shm0 = qy_wire_frames()
+        pipe = parse_launch(
+            f"appsrc name=in caps={QY_LM_CAPS} ! tensor_query_client name=qc "
+            f"host=127.0.0.1 port={child.port} timeout={QY_WAIT} "
+            f"! tensor_sink name=out max-stored={REQUESTS}")
+        outs, t_out = [], []
+
+        def on_data(buf):
+            t_out.append(time.perf_counter())
+            outs.append(buf)
+        pipe.get("out").connect(on_data)
+        pipe.play()
+        rtt = []
+        try:
+            for p in prompts:
+                n = len(outs)
+                t0 = time.perf_counter()
+                pipe.get("in").push_buffer(p)
+                qy_wait(lambda: len(outs) > n, "lm request", QY_CHILD_TIMEOUT)
+                rtt.append(t_out[n] - t0)
+            qc = pipe.get("qc").client
+            wire = (qc.wire_format, qc.shm_active)
+        finally:
+            pipe.stop()
+        shm1 = qy_wire_frames()
+    except BaseException:
+        child.kill()
+        raise
+    served = child.stop()
+    if wire != ("binary", True):
+        fail(f"query lm: the handshake selected {wire}, not NNSB with shm")
+    shm = {d: shm1[d] - shm0[d] for d in shm1}
+    if shm != {"tx": REQUESTS, "rx": REQUESTS}:
+        fail(f"query lm: shm frames {shm}, expected {REQUESTS} each way")
+    for k, (out, w) in enumerate(zip(outs, want)):
+        got = np.asarray(out.as_numpy().tensors[0])
+        if not np.array_equal(got, w):
+            fail(f"query lm: request {k}'s tokens differ from phase 4's")
+    check_launches("query lm server", served["launches"], base.cfg.layers)
+    d2h = served["wire"]["d2h"]
+    want_d2h = {"tensors": REQUESTS,
+                "bytes": REQUESTS * 8 * (PROMPT + STEPS) * 4}
+    if d2h != want_d2h:
+        fail(f"query lm: the server pulled {d2h} from the card, expected "
+             f"{want_d2h} (one copy an answer)")
+    local = report["slice"]["float32"]["request_s_steady"]
+    r = {"rtt_s": rtt, "local_request_s_steady": local,
+         "tokens_per_s_steady": (REQUESTS - 1) * 8 * STEPS / sum(rtt[1:]),
+         "launches": served["launches"], "wire": wire, "shm_frames": shm,
+         "server_d2h": d2h}
+    print(f"query ({report['device']}) lm offload: {REQUESTS} x (8, {PROMPT})"
+          f" -> (8, {PROMPT + STEPS}) tokens = phase 4's; NNSB with shm; "
+          f"server kernel launches {served['launches']}; "
+          f"{r['tokens_per_s_steady']:.1f} generated tokens/s (requests "
+          f"2-3); round trips {', '.join(f'{x:.3f}' for x in rtt)} s "
+          f"(request 1 incl. model build) vs {local:.3f} s a local request")
+    return r
+
+
+def qy_codec_ms(frames: np.ndarray, logits: torch.Tensor) -> dict:
+    """Host ms (median of 5) to encode and to decode one batch up (frames)
+    and down (bf16 logits on the card) on each plane, and its wire
+    bytes."""
+    from nnstreamer_tpu_torch import transport
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.core.serialize import pack_tensors, unpack_tensors
+
+    def med(fn, n=5):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    out = {}
+    ring = transport.create_ring(slots=2, slot_bytes=transport.slot_bytes_for(
+        len(transport.encode_frame_bytes(Buffer([frames])))))
+    try:
+        for d, payload in (("up", frames), ("down", logits)):
+            buf = Buffer([payload])
+            blob = pack_tensors(buf)
+            frame = bytes(transport.encode_frame_bytes(buf))
+
+            def shm_round():
+                desc = ring.write_frame(transport.encode_frame(buf))
+                ring.read_frame(*transport.unpack_descriptor(desc)[1:])
+            out[d] = {
+                "json_encode_ms": med(lambda: pack_tensors(buf)),
+                "json_decode_ms": med(lambda: unpack_tensors(blob)),
+                "nnsb_encode_ms": med(lambda: transport.encode_frame(buf)),
+                "nnsb_decode_ms": med(lambda: transport.decode_frame(frame)),
+                "shm_write_read_ms": med(shm_round),
+                "json_bytes": len(blob), "nnsb_bytes": len(frame)}
+    finally:
+        transport.detach_ring(ring)
+    return out
+
+
+def qy_mobilenet_wire(report: dict) -> dict:
+    """(b) MobileNet-v2 behind a query server: the same measured batches
+    through a ``tensor_query_client`` line over JSON, NNSB and NNSB with
+    shm."""
+    from nnstreamer_tpu_torch import transport
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.transport import stats as wire_stats
+
+    n = QY_WARM + QY_MEASURED
+    frames = mb_host_frames(n * MB_BATCH).reshape(n, MB_BATCH, 224, 224, 3)
+    server = parse_launch(qy_server_line(MB_MODEL, QY_MB_CAPS, 3))
+    server.play()
+    ways = {"json": "wire=json", "nnsb": "shm=false", "nnsb+shm": ""}
+    want_wire = {"json": ("json", False), "nnsb": ("binary", False),
+                 "nnsb+shm": ("binary", True)}
+    plane = {"json": "json", "nnsb": "binary", "nnsb+shm": "shm"}
+    r, outs = {}, {}
+    try:
+        port = server.get("ssrc").bound_port
+        for name, props in ways.items():
+            before = {f: qy_wire_frames(f) for f in plane.values()}
+            oversize0 = wire_stats.snapshot()["shm"].get("fallback_oversize",
+                                                         0)
+            pipe = parse_launch(
+                f"appsrc name=in caps={QY_MB_CAPS} ! tensor_query_client "
+                f"name=qc host=127.0.0.1 port={port} timeout={QY_WAIT} "
+                f"{props} ! tensor_sink name=out max-stored=1")
+            got, t_out = [], []
+
+            def on_data(buf, got=got, t_out=t_out):
+                t_out.append(time.perf_counter())
+                got.append(buf.tensors[0])
+            pipe.get("out").connect(on_data)
+            pipe.play()
+            rtt = []
+            try:
+                for k in range(n):
+                    t0 = time.perf_counter()
+                    if k == QY_WARM:
+                        t_start = t0
+                    pipe.get("in").push_buffer(frames[k])
+                    qy_wait(lambda: len(got) > k, f"mobilenet {name} batch {k}")
+                    rtt.append(t_out[k] - t0)
+                qc = pipe.get("qc").client
+                wire = (qc.wire_format, qc.shm_active)
+            finally:
+                pipe.stop()
+            if wire != want_wire[name]:
+                fail(f"query mobilenet {name}: negotiated {wire}")
+            # the server shares this process: each frame is counted by its
+            # sender (tx) and its receiver (rx), up and down, so every batch
+            # adds 2 to each direction of its plane and 0 to the others
+            rose = {f: {d: qy_wire_frames(f)[d] - before[f][d]
+                        for d in ("tx", "rx")} for f in plane.values()}
+            want = {f: {d: 2 * n if f == plane[name] else 0
+                        for d in ("tx", "rx")} for f in plane.values()}
+            oversize = (wire_stats.snapshot()["shm"].get(
+                "fallback_oversize", 0) - oversize0)
+            if rose != want or oversize:
+                fail(f"query mobilenet {name}: nns_wire_frames_total rose "
+                     f"{rose} and {oversize} frames overflowed a slot, "
+                     f"expected {want} and 0")
+            outs[name] = got
+            r[name] = {"frames_per_s": QY_MEASURED * MB_BATCH
+                       / (t_out[-1] - t_start),
+                       "rtt_p50_ms": 1e3 * statistics.median(rtt[QY_WARM:]),
+                       "rtt_ms": [1e3 * x for x in rtt],
+                       "wire_frames": rose}
+        # the server's own forward on the same frames
+        fwd = server.get("f").backend
+        own = [fwd.invoke([torch.from_numpy(frames[k]).to(ST_DEV)])[0]
+               for k in range(n)]
+        torch.cuda.synchronize()
+    finally:
+        server.stop()
+    for name, got in outs.items():
+        for k, (g, o) in enumerate(zip(got, own)):
+            if qy_bytes(g) != qy_bytes(o):
+                fail(f"query mobilenet {name}: batch {k}'s logits differ "
+                     "from the server's own bf16 forward")
+    labels = [torch.argmax(o.float(), -1).cpu() for o in own]
+    r["codec"] = c = qy_codec_ms(frames[0], own[0])
+    r["labels"] = torch.cat(labels).tolist()
+    desc = len(transport.pack_descriptor(transport.ring_name("s0c0"), 0, 1, 1))
+    for name, key in (("json", "json_bytes"), ("nnsb", "nnsb_bytes"),
+                      ("nnsb+shm", None)):
+        x = r[name]
+        x["socket_bytes_per_batch"] = {
+            d: (c[d][key] if key else desc) for d in ("up", "down")}
+        print(f"query ({report['device']}) mobilenet {name}: "
+              f"{x['frames_per_s']:.1f} frames/s, round trip p50 "
+              f"{x['rtt_p50_ms']:.2f} ms a batch of {MB_BATCH}; on the "
+              f"socket {x['socket_bytes_per_batch']['up']} B up / "
+              f"{x['socket_bytes_per_batch']['down']} B down a batch"
+              + (f" (frames of {c['up']['nnsb_bytes']} / "
+                 f"{c['down']['nnsb_bytes']} B in the rings)"
+                 if key is None else ""))
+    c = r["codec"]
+    print(f"query ({report['device']}) mobilenet codec, host ms a batch "
+          f"(up {c['up']['nnsb_bytes']} B / down {c['down']['nnsb_bytes']} B"
+          f" NNSB): JSON encode {c['up']['json_encode_ms']:.3f} / "
+          f"{c['down']['json_encode_ms']:.3f}, decode "
+          f"{c['up']['json_decode_ms']:.3f} / {c['down']['json_decode_ms']:.3f}"
+          f"; NNSB encode {c['up']['nnsb_encode_ms']:.3f} / "
+          f"{c['down']['nnsb_encode_ms']:.3f}, decode "
+          f"{c['up']['nnsb_decode_ms']:.3f} / {c['down']['nnsb_decode_ms']:.3f}"
+          f"; shm write+read {c['up']['shm_write_read_ms']:.3f} / "
+          f"{c['down']['shm_write_read_ms']:.3f}; logits byte-equal to the "
+          "server's own forward on every way")
+    return r
+
+
+def qy_bridge(report: dict) -> dict:
+    """(c) attach_scheduler: batch-1 frames from QY_BRIDGE_CLIENTS clients,
+    released by a barrier, share scheduler batches."""
+    import threading
+
+    from nnstreamer_tpu_torch.core import Buffer, Caps
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as mb
+    from nnstreamer_tpu_torch.query.client import QueryClient
+    from nnstreamer_tpu_torch.query.server import QueryServer
+    from nnstreamer_tpu_torch.serving import Scheduler
+
+    n = QY_BRIDGE_CLIENTS
+    model = mb.filter_model_u8.make(ST_DEV)
+    frames = mb_host_frames(n)
+    want = model(torch.from_numpy(frames).to(ST_DEV)).cpu()
+    caps = Caps.new("other/tensors")
+    server = QueryServer(port=0, caps=caps)
+    sched = Scheduler(lambda x: (model(torch.as_tensor(x).to(ST_DEV)),),
+                      bucket_sizes=(n,), max_wait_s=1.0, name="qy-bridge")
+    server.attach_scheduler(sched)
+    results, errors = {}, []
+    barrier = threading.Barrier(n, timeout=QY_WAIT)
+
+    def client(i):
+        c = QueryClient("127.0.0.1", server.port, timeout=QY_WAIT)
+        try:
+            c.connect(caps)
+            barrier.wait()
+            results[i] = c.request(Buffer([frames[i:i + 1]]),
+                                   timeout=QY_WAIT)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=2 * QY_WAIT)
+        snap = sched.metrics_snapshot()
+    finally:
+        sched.close()
+        server.stop()
+    if errors or len(results) != n:
+        fail(f"query bridge: {len(results)} of {n} answers; {errors}")
+    for i in range(n):
+        if qy_bytes(results[i].tensors[0]) != qy_bytes(want[i:i + 1]):
+            fail(f"query bridge: client {i}'s logits differ from row {i} of "
+                 f"a batch-{n} forward")
+    if not (snap["completed"] == n and snap["batches"] < n):
+        fail(f"query bridge: {snap['completed']} completed in "
+             f"{snap['batches']} batches (want {n} in fewer than {n})")
+    r = {"requests": n, "batches": snap["batches"]}
+    print(f"query ({report['device']}) attach_scheduler: {n} clients' "
+          f"batch-1 frames in {snap['batches']} scheduler batch(es); logits "
+          f"= a batch-{n} forward's rows")
+    return r
+
+
+def qy_labels(pipe_line: str, frames: np.ndarray, what: str) -> list:
+    """Push ``frames`` (batches) through a client line ending in an
+    image_labeling decoder; the labels in arrival order."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(pipe_line)
+    labels = []
+    pipe.get("out").connect(lambda b: labels.append(b.meta["label_index"]))
+    pipe.play()
+    try:
+        for f in frames:
+            pipe.get("in").push_buffer(f)
+        qy_wait(lambda: len(labels) >= len(frames) * MB_BATCH, what)
+    finally:
+        pipe.stop()
+    return labels
+
+
+def qy_shard(report: dict, want_labels: list) -> dict:
+    """(d) tensor_shard across two server processes on the one card, then
+    tensor_unshard; order and labels equal the unsharded line's."""
+    frames = mb_host_frames(QY_SHARD_BATCHES * MB_BATCH).reshape(
+        QY_SHARD_BATCHES, MB_BATCH, 224, 224, 3)
+    tail = (f"! tensor_decoder mode=image_labeling frames-in={MB_BATCH} "
+            f"! tensor_sink name=out max-stored=1")
+    kids = []
+    try:
+        for _ in range(2):
+            kids.append(QyChild(qy_server_line(MB_MODEL, QY_MB_CAPS),
+                                "shard worker"))
+        p0, p1 = (k.port for k in kids)
+        plain = qy_labels(
+            f"appsrc name=in caps={QY_MB_CAPS} ! tensor_query_client "
+            f"port={p0} timeout={QY_WAIT} {tail}", frames, "unsharded line")
+        t0 = time.perf_counter()
+        sharded = qy_labels(
+            f"appsrc name=in caps={QY_MB_CAPS} ! tensor_shard name=s "
+            f"s.src_0 ! queue ! tensor_query_client port={p0} "
+            f"timeout={QY_WAIT} ! u.sink_0 s.src_1 ! queue ! "
+            f"tensor_query_client port={p1} timeout={QY_WAIT} ! u.sink_1 "
+            f"tensor_unshard name=u {tail}", frames, "sharded line")
+        wall = time.perf_counter() - t0
+    except BaseException:
+        for k in kids:
+            k.kill()
+        raise
+    for k in kids:
+        k.stop()
+    if sharded != plain:
+        fail("query shard: the sharded line's labels or order differ from "
+             "the unsharded line's")
+    # recorded, not gated: the bf16 forward of another process on the
+    # card may pick other cuDNN algorithms than the in-process server's
+    r = {"batches": QY_SHARD_BATCHES, "frames_per_s_incl_setup":
+         QY_SHARD_BATCHES * MB_BATCH / wall,
+         "labels_equal_in_process_server":
+             plain == want_labels[:len(plain)]}
+    print(f"query ({report['device']}) tensor_shard: {QY_SHARD_BATCHES} "
+          f"batches across two server processes, unsharded in order; labels"
+          f" = the unsharded line's")
+    return r
+
+
+def qy_edge_mqtt_grpc(report: dict, payload: torch.Tensor) -> dict:
+    """(e) one bf16 logits batch (on the card) through edgesink → edgesrc,
+    a HYBRID query link discovered over the embedded MiniBroker, mqttsink →
+    mqttsrc, and tensor_sink_grpc; the bytes arrive unchanged, or grpc's
+    typed error where grpc is absent."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.query.mqtt import MiniBroker
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    want = qy_bytes(payload)
+
+    def same(buf) -> bool:
+        return qy_bytes(buf.tensors[0]) == want
+
+    r = {}
+    # edge
+    pub = parse_launch(f"appsrc name=in caps={QY_LOGIT_CAPS} ! edgesink "
+                       "name=pub topic=qy port=0 wait-connection=true "
+                       "connection-timeout=60")
+    pub.play()
+    got = []
+    try:
+        sub = parse_launch(
+            f"edgesrc dest-host=127.0.0.1 dest-port={pub.get('pub').bound_port}"
+            " topic=qy num-buffers=1 ! tensor_sink name=out")
+        sub.get("out").connect(got.append)
+        pub.get("in").push_buffer(payload)
+        sub.play()
+        try:
+            qy_wait(lambda: got, "edge")
+        finally:
+            sub.stop()
+    finally:
+        pub.stop()
+    if not same(got[0]):
+        fail("query edge: edgesrc's bytes differ from edgesink's")
+    r["edge"] = "bytes equal"
+    broker = MiniBroker()
+    try:
+        # hybrid: the server advertises on the broker, the client discovers
+        srv = parse_launch(qy_server_line(
+            "builtin://passthrough", QY_LOGIT_CAPS, 8,
+            extra=f"connect-type=HYBRID dest-host=127.0.0.1 "
+                  f"dest-port={broker.port} topic=qy/h "))
+        srv.play()
+        got = []
+        try:
+            cli = parse_launch(
+                f"appsrc name=in caps={QY_LOGIT_CAPS} ! tensor_query_client "
+                f"connect-type=HYBRID host=127.0.0.1 port={broker.port} "
+                f"topic=qy/h timeout={QY_WAIT} ! tensor_sink name=out")
+            cli.get("out").connect(got.append)
+            cli.play()
+            try:
+                cli.get("in").push_buffer(payload)
+                qy_wait(lambda: got, "hybrid")
+            finally:
+                cli.stop()
+        finally:
+            srv.stop()
+        if not same(got[0]):
+            fail("query hybrid: the answer's bytes differ from the request's")
+        r["hybrid"] = "bytes equal"
+        # mqtt: QoS 0 pub/sub, so publish until the subscriber has one
+        got = []
+        sub = parse_launch(f"mqttsrc host=127.0.0.1 port={broker.port} "
+                           "sub-topic=qy/m num-buffers=1 timeout=60 "
+                           "! tensor_sink name=out")
+        sub.get("out").connect(got.append)
+        pub = parse_launch(f"appsrc name=in caps={QY_LOGIT_CAPS} ! mqttsink "
+                           f"host=127.0.0.1 port={broker.port} "
+                           "pub-topic=qy/m broker=external")
+        pub.play()
+        sub.play()
+        try:
+            deadline = time.perf_counter() + QY_WAIT
+            while not got and time.perf_counter() < deadline:
+                pub.get("in").push_buffer(payload)
+                time.sleep(0.05)
+        finally:
+            sub.stop()
+            pub.stop()
+        if not got or not same(got[0]):
+            fail("query mqtt: mqttsrc's bytes differ from mqttsink's")
+        r["mqtt"] = "bytes equal"
+    finally:
+        broker.stop()
+    # grpc
+    try:
+        import grpc  # noqa: F401
+        have_grpc = True
+    except ImportError:
+        have_grpc = False
+    if have_grpc:
+        got = []
+        recv = parse_launch(f"tensor_src_grpc name=g server=true port=0 "
+                            f"caps={QY_LOGIT_CAPS} ! tensor_sink name=out")
+        recv.get("out").connect(got.append)
+        recv.play()
+        try:
+            qy_wait(lambda: recv.get("g").bound_port != 0, "grpc bind")
+            send = parse_launch(f"appsrc name=in caps={QY_LOGIT_CAPS} ! "
+                                "tensor_sink_grpc server=false "
+                                f"port={recv.get('g').bound_port}")
+            send.play()
+            send.get("in").push_buffer(payload)
+            qy_wait(lambda: got, "grpc")
+            send.stop()
+        finally:
+            recv.stop()
+        if not same(got[0]):
+            fail("query grpc: tensor_src_grpc's bytes differ")
+        r["grpc"] = "bytes equal"
+    else:
+        send = parse_launch(f"appsrc name=in caps={QY_LOGIT_CAPS} ! "
+                            "tensor_sink_grpc server=false port=1")
+        send.play()
+        msg = send.bus.wait_for((MessageType.ERROR,), timeout=60)
+        send.stop()
+        if msg is None or "grpc" not in str(msg.data.get("error", "")):
+            fail(f"query grpc: without grpc, expected a bus ERROR naming "
+                 f"grpc, got {msg}")
+        r["grpc"] = "typed error: " + str(msg.data["error"])[:120]
+    print(f"query ({report['device']}) edge, hybrid discovery and mqtt: "
+          f"one bf16 batch of logits from the card, bytes equal; grpc: "
+          f"{r['grpc']}")
+    return r
+
+
+def phase_query(report: dict, prompts, want) -> None:
+    """Phase 17: the base LM and MobileNet-v2 served over the query
+    transports (module docstring)."""
+    r = report["query"] = {}
+    r["lm"] = qy_lm(report, prompts, want)
+    r["mobilenet"] = qy_mobilenet_wire(report)
+    r["bridge"] = qy_bridge(report)
+    r["shard"] = qy_shard(report, r["mobilenet"].pop("labels"))
+    payload = torch.from_numpy(mb_host_frames(MB_BATCH)).to(ST_DEV)
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as mb
+
+    r["edge"] = qy_edge_mqtt_grpc(report, mb.filter_model_u8.make(ST_DEV)(
+        payload).to(torch.bfloat16))
+
+
+def phase_query_alone(report: dict) -> None:
+    """--only query: the kernels built, phase 4's requests served locally
+    for the reference tokens, then phase 17."""
+    phase_build(report)
+    prompts, want = phase_slice(report)
+    phase_query(report, prompts, want)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -5211,18 +5975,18 @@ def main() -> None:
     report["device"] = phase_device()
     alone = {"fusion": phase_fusion, "streams": phase_streams,
              "plugins": phase_plugins, "tflite": phase_tflite,
-             "trace-loss": phase_trace_loss}
+             "query": phase_query_alone, "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15 or 16 alone (no kernel is built or checked, no
-        # ok line), or the trace-loss count
+        # phase 13, 14, 15, 16 or 17 alone (no kernel is checked, no ok
+        # line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
-             "--only fusion / streams / plugins / tflite for phase 13 / 14 "
-             "/ 15 / 16 alone, or --only trace-loss)")
+             "--only fusion / streams / plugins / tflite / query for phase "
+             "13 / 14 / 15 / 16 / 17 alone, or --only trace-loss)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -5241,6 +6005,7 @@ def main() -> None:
     phase_streams(report)
     phase_plugins(report)
     phase_tflite(report)
+    phase_query(report, prompts, filter_outs)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -5267,6 +6032,20 @@ def main() -> None:
     kernels[0]["per_slot_pos"] = {k: slot[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
+    # both LM kernels again in the query server's process (phase 17)
+    for k in kernels:
+        k["launches_query"] = report["query"]["lm"]["launches"][k["name"]]
+    # the fake-quant conv order (phase 16): replaces no Pallas kernel but
+    # the reference's XLA conv; launches from the fake-quant line's run,
+    # times and bound for one batch-64 forward's launches, each at its shape
+    fq = report["tflite"]["fma_gemm"]
+    kernels.append({
+        "name": "fma_gemm", "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/fma_gemm.cu",
+        "replaces": "nnstreamer_tpu/models/tflite_import.py:502",
+        "launches": report["tflite"]["fma_gemm_launches"],
+        **{k: fq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

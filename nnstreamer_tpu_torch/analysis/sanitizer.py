@@ -40,8 +40,11 @@ sizes torch tensors and numpy arrays alike. nnstreamer_tpu also runs its
 pure-jit regions under ``jax.transfer_guard`` (``no_implicit_d2h``);
 PyTorch has no such guard, so the port keeps only the ledger.
 
-Not in this package: the wire frame-fuzz scorekeeper (``NNS_WIREFUZZ``),
-which comes with the query wire.
+**Wire frame-fuzz scorekeeper** (``NNS_WIREFUZZ=1`` at first import, or
+:func:`enable_wirefuzz`): fuzzers record each mutant's fate on a wire
+surface with :func:`note_mutant` (``typed``/``clean`` satisfy the
+contract; ``hang``/``crash``/``silent`` are violations), and the frame
+codec reports every clean encode and decode with :func:`note_frame_event`.
 """
 from __future__ import annotations
 
@@ -585,7 +588,117 @@ def xfer_report() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# NNS_WIREFUZZ — structure-aware frame-fuzz scorekeeper (see module docstring)
+# ---------------------------------------------------------------------------
+
+# module-global fast path: note_frame_event/note_mutant check this and
+# only this when the fuzzer is off (the microbench wirefuzz leg gates it)
+WIREFUZZ = False
+
+#: outcomes that satisfy the wire contract; anything else is a violation
+WIREFUZZ_OK_OUTCOMES = ("typed", "clean")
+
+_wf_lock = threading.Lock()   # guards the fuzz tables below
+# surface -> outcome -> count (surface: "decode_frame", "shm_ring", ...)
+_wf_outcomes: Dict[str, Dict[str, int]] = {}
+_wf_violations: List[dict] = []
+# stage -> {frames, bytes}: clean-decode accounting from the codec choke
+# points (frame.py _note_wire_bytes) while the fuzzer is armed
+_wf_frames: Dict[str, dict] = {}
+
+
+def enable_wirefuzz() -> None:
+    """Arm the fuzz scorekeeper; clears every table."""
+    global WIREFUZZ
+    with _wf_lock:
+        _wf_outcomes.clear()
+        del _wf_violations[:]
+        _wf_frames.clear()
+        WIREFUZZ = True
+
+
+def disable_wirefuzz() -> None:
+    global WIREFUZZ
+    WIREFUZZ = False
+
+
+def wirefuzz_enabled() -> bool:
+    return WIREFUZZ
+
+
+def reset_wirefuzz() -> None:
+    """Drop every recorded outcome/violation (between test phases)."""
+    with _wf_lock:
+        _wf_outcomes.clear()
+        del _wf_violations[:]
+        _wf_frames.clear()
+
+
+def note_frame_event(stage: str, nbytes: int) -> None:
+    """Codec choke-point hook: one successfully decoded/encoded frame
+    at ``stage`` (called from transport/frame.py's ``_note_wire_bytes``
+    while armed) — the byte-parity denominator for surviving mutants."""
+    if not WIREFUZZ:
+        return
+    with _wf_lock:
+        entry = _wf_frames.get(stage)
+        if entry is None:
+            entry = _wf_frames[stage] = {"frames": 0, "bytes": 0}
+        entry["frames"] += 1
+        entry["bytes"] += int(nbytes)
+
+
+def note_mutant(surface: str, mutation: str, outcome: str,
+                detail: str = "") -> None:
+    """Record one mutant's fate on one surface. ``outcome`` is ``typed``
+    / ``clean`` (contract satisfied) or ``hang`` / ``crash`` /
+    ``silent`` (recorded as a violation the per-test fixture gates)."""
+    if not WIREFUZZ:
+        return
+    with _wf_lock:
+        per = _wf_outcomes.setdefault(surface, {})
+        per[outcome] = per.get(outcome, 0) + 1
+        if outcome not in WIREFUZZ_OK_OUTCOMES:
+            _wf_violations.append({
+                "surface": surface, "mutation": mutation,
+                "outcome": outcome, "detail": detail[:300],
+                "thread": threading.current_thread().name})
+
+
+def wirefuzz_violations() -> List[dict]:
+    """Contract breaches recorded so far (hang/crash/silent mutants).
+    The per-test fixture asserts no NEW entries."""
+    with _wf_lock:
+        return list(_wf_violations)
+
+
+def wirefuzz_report() -> dict:
+    """Everything the fuzz scorekeeper knows (JSON-friendly)."""
+    with _wf_lock:
+        surfaces = {s: dict(per) for s, per in _wf_outcomes.items()}
+        frames = {s: dict(e) for s, e in _wf_frames.items()}
+        viols = list(_wf_violations)
+    total = sum(n for per in surfaces.values() for n in per.values())
+    typed = sum(per.get("typed", 0) for per in surfaces.values())
+    clean = sum(per.get("clean", 0) for per in surfaces.values())
+    return {
+        "enabled": WIREFUZZ,
+        "surfaces": surfaces,
+        "frames": frames,
+        "mutants_total": total,
+        "typed": typed,
+        "clean": clean,
+        "hangs": sum(per.get("hang", 0) for per in surfaces.values()),
+        "crashes": sum(per.get("crash", 0) for per in surfaces.values()),
+        "silent": sum(per.get("silent", 0) for per in surfaces.values()),
+        "violations": viols,
+    }
+
+
 if os.environ.get("NNS_TSAN", "") == "1":
     enable(hold_warn_s=float(os.environ.get("NNS_TSAN_HOLD_S", "5")))
 if os.environ.get("NNS_LEAKCHECK", "") == "1":
     enable_leakcheck()
+if os.environ.get("NNS_WIREFUZZ", "") == "1":
+    enable_wirefuzz()

@@ -33,16 +33,14 @@ links of the tensor-query transports:
 * ``partition_for_s(port, s)`` — connects and sends involving the port
   fail for the window (heals by itself).
 
-All modes key on a TCP port (either endpoint of the link matches). The
-port has no query transport yet (ROADMAP A6): the rules and the hooks
-(``NetworkChaos._on_send`` / ``_on_connect``) are
-here, and arming installs them into ``nnstreamer_tpu_torch.query.protocol``
-once that module exists. ``clear()`` disarms everything.
+All modes key on a TCP port (either endpoint of the link matches).
+Arming installs ``NetworkChaos._on_send`` / ``_on_connect`` into
+``query/protocol.py`` (consulted only while armed: disarmed costs one
+attribute read per send); ``clear()`` disarms everything and uninstalls
+the hooks.
 """
 from __future__ import annotations
 
-import importlib
-import socket
 import time
 from typing import Dict
 
@@ -74,30 +72,24 @@ class NetworkChaos:
                       "partition_refusals": 0}  # guarded-by: _lock
 
     # -- arming --------------------------------------------------------------
-    @staticmethod
-    def _set_transport_hooks(send, connect) -> None:
-        """Install (or, with ``None``, remove) the hooks in the query
-        transport; a no-op while the port has none (ROADMAP A6)."""
-        try:
-            protocol = importlib.import_module(
-                "nnstreamer_tpu_torch.query.protocol")
-        except ImportError:
-            return
-        protocol.set_fault_hooks(send=send, connect=connect)
-
     def _arm(self) -> None:
+        from ..query import protocol
+
         with self._lock:
             if self._armed:
                 return
             self._armed = True
-        self._set_transport_hooks(self._on_send, self._on_connect)
+        protocol.set_fault_hooks(send=self._on_send,
+                                 connect=self._on_connect)
 
     def clear(self) -> None:
         """Disarm every rule and uninstall the transport hooks."""
+        from ..query import protocol
+
         with self._lock:
             self._rules.clear()
             self._armed = False
-        self._set_transport_hooks(None, None)
+        protocol.set_fault_hooks(None, None)
 
     def _rule(self, port: int) -> dict:
         # caller holds _lock
@@ -180,25 +172,13 @@ class NetworkChaos:
                     self.stats["delayed_sends"] += 1
         if kill is not None:
             reason, p = kill
+            from ..query.server import _shutdown_close
+
             _shutdown_close(sock)  # FIN both ways: the peer's reader wakes
             raise ConnectionResetError(
                 f"chaos: {reason} (port {p})")
         if delay_s > 0:
             time.sleep(delay_s)  # outside _lock: never stall other links
-
-
-def _shutdown_close(sock) -> None:
-    """FIN both directions, then close (the reference's
-    ``query/server.py::_shutdown_close``): a peer blocked in recv wakes
-    with EOF instead of hanging on a half-dead socket."""
-    try:
-        sock.shutdown(socket.SHUT_RDWR)
-    except OSError:
-        pass
-    try:
-        sock.close()
-    except OSError:
-        pass
 
 
 #: the process-global injector chaos runs drive

@@ -19,9 +19,11 @@ the obs plane itself (``nns_flight_events_total``,
 ``nns_trace_spans_total``, ``nns_tracing_enabled``); the serving modules
 add the KV pool's and speculation's gauges, ``obs/memory.py`` the
 ``nns_memory_*`` ones, ``obs/profile.py``, ``obs/quality.py`` and
-``obs/slo.py`` theirs. Not in this package yet: the fabric, service,
-fused-segment and wire collectors, which come with the subsystems they
-read (ROADMAP A4, A6).
+``obs/slo.py`` theirs; the fused-segment collector (``nns_fused_*``)
+reads the pipelines' segments and the wire collector (``nns_wire_*``,
+``nns_shm_*``) ``transport/stats.py``. Not in this package yet: the
+fabric and service collectors, which come with the service plane
+(ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -434,6 +436,51 @@ def _collect_fused(reg: Registry) -> None:
                       segment=seg.name)
 
 
+def _collect_wire(reg: Registry) -> None:
+    """Data-plane counters (transport/stats.py): negotiated wire formats,
+    frames/bytes per format+direction, shm ring events, and the card
+    bytes the encoder pulled. A fleet silently stuck on the JSON fallback
+    shows up here."""
+    from ..transport import stats as wire_stats
+
+    conn = reg.gauge("nns_wire_connections",
+                     "open query connections by negotiated wire format",
+                     ("format",))
+    neg = reg.counter("nns_wire_negotiated_total",
+                      "handshakes completed by selected wire format",
+                      ("format",))
+    frames = reg.counter("nns_wire_frames_total",
+                         "DATA frames moved", ("format", "direction"))
+    nbytes = reg.counter("nns_wire_bytes_total",
+                         "DATA payload bytes moved (shm frames count their "
+                         "slot bytes, not the descriptor)",
+                         ("format", "direction"))
+    shm = reg.counter("nns_shm_events_total",
+                      "shared-memory ring events (slot_writes, bytes, "
+                      "fallback_full, fallback_oversize, reclaimed_slots, "
+                      "segments_created/attached/closed)", ("event",))
+    for inst in (conn, neg, frames, nbytes, shm):  # snapshot mirrors
+        inst.clear()
+    snap = wire_stats.snapshot()
+    for fmt, v in snap["connections"].items():
+        conn.set(v, format=fmt)
+    for fmt, v in snap["negotiated"].items():
+        neg.set_total(v, format=fmt)
+    for key, v in snap["frames"].items():
+        fmt, direction = key.rsplit(":", 1)
+        frames.set_total(v, format=fmt, direction=direction)
+    for key, v in snap["bytes"].items():
+        fmt, direction = key.rsplit(":", 1)
+        nbytes.set_total(v, format=fmt, direction=direction)
+    for event, v in snap["shm"].items():
+        shm.set_total(v, event=event)
+    d2h = reg.counter("nns_wire_d2h_bytes_total",
+                      "card tensor bytes the frame encoder pulled to the "
+                      "host")
+    d2h.clear()
+    d2h.set_total(snap["d2h"].get("bytes", 0))
+
+
 def _collect_obs(reg: Registry) -> None:
     from . import context, flight
 
@@ -451,4 +498,5 @@ def _collect_obs(reg: Registry) -> None:
 
 register_collector("serving", _collect_serving)
 register_collector("fused", _collect_fused)
+register_collector("wire", _collect_wire)
 register_collector("obs", _collect_obs)

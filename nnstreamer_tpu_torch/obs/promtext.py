@@ -1,0 +1,189 @@
+"""Prometheus text-exposition parser: samples, labels, scrape helpers (L7).
+
+The counterpart of nnstreamer_tpu's ``obs/promtext.py``: the one parser
+every reader of a ``GET /metrics`` endpoint (or of :func:`.metrics.render`)
+shares, for the text format an external Prometheus would read.
+
+The parser understands exactly what our renderer (:mod:`.metrics`)
+emits — and the corners the naive splitters got wrong:
+
+* label VALUES may contain commas, spaces, ``=``, and escaped quotes
+  (``\\"``), backslashes (``\\\\``) and newlines (``\\n``) — a
+  ``split(",")`` over the label block mis-parses all of them;
+* histogram sample suffixes (``_bucket``/``_sum``/``_count``) belong to
+  their base metric name, so a prefix match on the base name must not
+  swallow them by accident (``nns_fabric_requests_total`` vs
+  ``nns_fabric_requests_total_whatever``);
+* ``# HELP`` / ``# TYPE`` / blank lines are metadata, not samples.
+
+API surface (stdlib only):
+
+* :func:`parse_samples` — full text → list of (name, labels, value);
+* :func:`sample` — one value out of a text blob, matched by name +
+  label SUBSET (the caller names the labels it cares about);
+* :func:`scrape_metric` / :func:`wait_metric` — the HTTP conveniences
+  the benches poll evict/readmit counters with.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+Sample = Tuple[str, Dict[str, str], float]
+
+
+def _unescape(value: str) -> str:
+    out: List[str] = []
+    i, n = 0, len(value)
+    while i < n:
+        c = value[i]
+        if c == "\\" and i + 1 < n:
+            nxt = value[i + 1]
+            if nxt == "n":
+                out.append("\n")
+            elif nxt in ("\\", '"'):
+                out.append(nxt)
+            else:  # unknown escape: keep verbatim (prometheus stance)
+                out.append(c)
+                out.append(nxt)
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def _parse_labels(block: str) -> Optional[Dict[str, str]]:
+    """``a="x",b="y"`` → dict; None on malformed input (never raises —
+    scraped text is remote data)."""
+    labels: Dict[str, str] = {}
+    i, n = 0, len(block)
+    while i < n:
+        eq = block.find("=", i)
+        if eq < 0:
+            return None
+        name = block[i:eq].strip().lstrip(",").strip()
+        if not name:
+            return None
+        j = eq + 1
+        if j >= n or block[j] != '"':
+            return None
+        j += 1
+        start = j
+        while j < n:
+            if block[j] == "\\":
+                j += 2
+                continue
+            if block[j] == '"':
+                break
+            j += 1
+        if j >= n:
+            return None  # unterminated value
+        labels[name] = _unescape(block[start:j])
+        i = j + 1
+    return labels
+
+
+def parse_line(line: str) -> Optional[Sample]:
+    """One exposition line → (name, labels, value); None for comments,
+    blanks, and anything malformed."""
+    line = line.strip()
+    if not line or line.startswith("#"):
+        return None
+    brace = line.find("{")
+    if brace >= 0:
+        close = line.rfind("}")
+        if close < brace:
+            return None
+        name = line[:brace]
+        labels = _parse_labels(line[brace + 1:close])
+        if labels is None:
+            return None
+        rest = line[close + 1:].strip()
+    else:
+        name, _, rest = line.partition(" ")
+        labels = {}
+        rest = rest.strip()
+    # value may be followed by an optional timestamp — take field one
+    value_text = rest.split()[0] if rest else ""
+    try:
+        value = float(value_text)
+    except ValueError:
+        return None
+    return name, labels, value
+
+
+def parse_samples(text: str) -> List[Sample]:
+    """Every sample in an exposition blob, in order."""
+    out: List[Sample] = []
+    for line in text.splitlines():
+        parsed = parse_line(line)
+        if parsed is not None:
+            out.append(parsed)
+    return out
+
+
+def sample(text: str, name: str, labels: Optional[Dict[str, str]] = None,
+           **label_kw) -> Optional[float]:
+    """The first sample named EXACTLY ``name`` whose labels are a
+    superset of the requested ones; None when absent. Histogram
+    consumers pass the suffixed name (``..._bucket``) explicitly —
+    a base-name query never swallows suffixed samples."""
+    want = dict(labels or {})
+    want.update(label_kw)
+    for s_name, s_labels, value in parse_samples(text):
+        if s_name != name:
+            continue
+        if all(s_labels.get(k) == str(v) for k, v in want.items()):
+            return value
+    return None
+
+
+def samples_named(text: str, name: str) -> List[Sample]:
+    """Every sample of one metric (all label sets)."""
+    return [s for s in parse_samples(text) if s[0] == name]
+
+
+# -- HTTP conveniences (the bench scrape loop) --------------------------------
+
+def fetch(endpoint: str, timeout: float = 5.0) -> str:
+    """``GET <endpoint>/metrics`` → exposition text. ``endpoint`` is the
+    control-plane base URL (a trailing ``/metrics`` is tolerated)."""
+    import urllib.request
+
+    url = endpoint.rstrip("/")
+    if not url.endswith("/metrics"):
+        url += "/metrics"
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def scrape_metric(endpoint: str, name: str, timeout: float = 5.0,
+                  **labels) -> Optional[float]:
+    """One Prometheus sample from a live ``GET /metrics``; None when
+    absent (label matching is subset, like :func:`sample`)."""
+    return sample(fetch(endpoint, timeout=timeout), name, **labels)
+
+
+def wait_metric(endpoint: str, name: str, labels: Dict[str, str],
+                want: float, timeout: float = 15.0,
+                poll_s: float = 0.02) -> Optional[float]:
+    """Poll the endpoint until ``name`` reaches ``want``; returns the
+    observation time (``time.monotonic()``) or None on timeout — the
+    benches' evict/readmit clock reads the same scrape surface a
+    monitoring stack would."""
+    import http.client
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            v = scrape_metric(endpoint, name, **labels)
+        except (OSError, http.client.HTTPException):
+            # endpoint mid-restart: connection refused/reset is OSError,
+            # but a body that dies mid-read raises IncompleteRead /
+            # BadStatusLine (HTTPException, NOT OSError) — keep polling
+            v = None
+        if v is not None and v >= want:
+            return time.monotonic()
+        time.sleep(poll_s)
+    return None

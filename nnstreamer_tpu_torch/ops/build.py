@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("decode_attention", "flash_attention")
+KERNELS = ("decode_attention", "flash_attention", "fma_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -51,6 +51,10 @@ _STANDARD_MODULES = (
     "nnstreamer_tpu_torch.elements.files",
     "nnstreamer_tpu_torch.elements.datarepo",
     "nnstreamer_tpu_torch.elements.iio",
+    "nnstreamer_tpu_torch.elements.shard",
+    "nnstreamer_tpu_torch.elements.mqtt",
+    "nnstreamer_tpu_torch.query.elements",
+    "nnstreamer_tpu_torch.query.grpc_io",
 )
 
 _loaded = False

@@ -86,6 +86,9 @@ class Pipeline:
         # error path only READS the epoch and spawns, it does not block.
         self._state_lock = named_rlock("Pipeline._state_lock")
         self._play_epoch = 0  # guarded-by: _state_lock
+        # running-time anchor, set at each play() (GStreamer base_time
+        # analog; mqttsink/mqttsrc stamp epochs against it)
+        self.play_t0_mono: Optional[float] = None
         self._halt_threads = ThreadRegistry()
         # out-of-band state listeners: cb(kind, source, data) with kind in
         # {"playing", "stopped", "eos", "error"}. Unlike the Bus (a queue
@@ -173,6 +176,7 @@ class Pipeline:
             self._validate_links()
             self._playing = True
             self._play_epoch += 1
+            self.play_t0_mono = time.monotonic()
             with self._lock:
                 self._eos_sinks.clear()
             for el in self.elements.values():

@@ -52,10 +52,11 @@ to the store (``save(merge=True)``), and the plan is recomputed.
 Observability: each plan lands as a ``placement`` span, the
 ``nns_placement_*`` gauges and a PLACEMENT section in ``obs top``.
 
-Not here yet: ``tensor_shard`` branch weights (ROADMAP A6; plans carry
-an empty ``shard_weights``), AOT artifact references (A7; ``aot`` stays
-empty) and the planner-assignment surfaces of ``parallel/pipeline``
-(A7).
+``tensor_shard`` fan-outs get branch weights inversely proportional to
+each branch's profiled downstream cost (``shard_weights``).
+
+Not here yet: AOT artifact references (A7; ``aot`` stays empty) and the
+planner-assignment surfaces of ``parallel/pipeline`` (A7).
 """
 from __future__ import annotations
 
@@ -424,6 +425,7 @@ class Planner:
         }
 
         self._tune_queues(pipeline, artifact, plan)
+        self._shard_weights(pipeline, artifact, plan)
         return plan
 
     # makespan minimization (multiprocessor scheduling) is NP-hard in
@@ -579,6 +581,44 @@ class Planner:
                 "service_ms": round(service_ms, 6),
             }
 
+    def _shard_weights(self, pipeline: "Pipeline", artifact,
+                       plan: PlacementPlan) -> None:
+        """Weight ``tensor_shard`` branches inversely to their profiled
+        downstream cost (a branch twice as slow gets half the frames)."""
+        if artifact is None:
+            return
+        hops = artifact.entries.get("element", {})
+        for el in pipeline.elements.values():
+            if el.ELEMENT_NAME != "tensor_shard":
+                continue
+            branch_costs: List[float] = []
+            for pad in el.src_pads:
+                if pad.peer is None:
+                    continue
+                cost = 0.0
+                cur = pad.peer.element
+                seen = set()
+                while cur is not None and id(cur) not in seen:
+                    seen.add(id(cur))
+                    if cur.ELEMENT_NAME == "tensor_unshard":
+                        break
+                    q = _entry_quantiles(
+                        hops.get(obs_profile.canonical_base(cur)))
+                    if q is not None:
+                        cost += q[0]
+                    nxt = None
+                    for sp in cur.src_pads:
+                        if sp.peer is not None:
+                            nxt = sp.peer.element
+                            break
+                    cur = nxt
+                branch_costs.append(cost)
+            if len(branch_costs) >= 2 and all(c > 0 for c in branch_costs):
+                inv = [1.0 / c for c in branch_costs]
+                total = sum(inv)
+                plan.shard_weights[el.name] = [round(w / total, 6)
+                                               for w in inv]
+
 
 # ---------------------------------------------------------------------------
 # runtime wiring: per-pipeline state, apply, calibration, re-plan
@@ -732,7 +772,8 @@ def _apply(pipeline: "Pipeline", plan: PlacementPlan,
     """Push a plan into the live graph: fused-segment device pins
     (re-captured lazily on the next buffer), tensor_filter backend pins
     for singleton stages and fused members (consumed at backend open —
-    a user's ``custom=device:N`` always wins), and tuned queue depths."""
+    a user's ``custom=device:N`` always wins), tuned queue depths and
+    ``tensor_shard`` branch weights."""
     by_canon = {obs_profile.canonical_base(el): el
                 for el in pipeline.elements.values()}
     placed = set()
@@ -756,6 +797,10 @@ def _apply(pipeline: "Pipeline", plan: PlacementPlan,
         el = by_canon.get(canon)
         if el is not None and hasattr(el, "set_capacity"):
             el.set_capacity(int(q["depth"]))
+    for name, weights in plan.shard_weights.items():
+        el = pipeline.elements.get(name)
+        if el is not None and hasattr(el, "set_branch_weights"):
+            el.set_branch_weights(weights)
 
 
 def _label(device, i: int) -> str:

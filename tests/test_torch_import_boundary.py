@@ -117,13 +117,44 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.backends.tflite_backend",
     "nnstreamer_tpu_torch.backends.tf_backend",
     "nnstreamer_tpu_torch.utils.parity",
+    "nnstreamer_tpu_torch.ops.fma_gemm",
+    "nnstreamer_tpu_torch.transport",
+    "nnstreamer_tpu_torch.transport.frame",
+    "nnstreamer_tpu_torch.transport.shm",
+    "nnstreamer_tpu_torch.transport.stats",
+    "nnstreamer_tpu_torch.query",
+    "nnstreamer_tpu_torch.query.protocol",
+    "nnstreamer_tpu_torch.query.client",
+    "nnstreamer_tpu_torch.query.server",
+    "nnstreamer_tpu_torch.query.edge",
+    "nnstreamer_tpu_torch.query.mqtt",
+    "nnstreamer_tpu_torch.query.hybrid",
+    "nnstreamer_tpu_torch.query.elements",
+    "nnstreamer_tpu_torch.query.grpc_io",
+    "nnstreamer_tpu_torch.elements.shard",
+    "nnstreamer_tpu_torch.elements.mqtt",
+    "nnstreamer_tpu_torch.utils.ntp",
+    "nnstreamer_tpu_torch.obs.promtext",
 ]
 # the slice that needs no TensorFlow to import: blocked too when checked
-TFLITE_MODULES = SLICE_MODULES[-8:] + [
+TFLITE_MODULES = [
+    "nnstreamer_tpu_torch.models.tflite_schema",
+    "nnstreamer_tpu_torch.models.tflite_int8",
+    "nnstreamer_tpu_torch.models.tflite_q8_native",
+    "nnstreamer_tpu_torch.native",
+    "nnstreamer_tpu_torch.native.q8",
+    "nnstreamer_tpu_torch.backends.tflite_backend",
+    "nnstreamer_tpu_torch.backends.tf_backend",
+    "nnstreamer_tpu_torch.utils.parity",
     "nnstreamer_tpu_torch.models.tflite_import",
     "nnstreamer_tpu_torch.backends.torch_backend",
     "nnstreamer_tpu_torch.elements.datarepo",
 ]
+# the transport and query slice: imports and serves with grpc blocked too
+QUERY_ELEMENTS = {"tensor_query_client", "tensor_query_serversrc",
+                  "tensor_query_serversink", "edgesrc", "edgesink",
+                  "tensor_src_grpc", "tensor_sink_grpc", "mqttsrc",
+                  "mqttsink", "tensor_shard", "tensor_unshard"}
 
 
 def _forbidden(name: str) -> bool:
@@ -163,7 +194,8 @@ assert get(SubpluginKind.DECODER, "python3").MODE == "python3"
 assert get(SubpluginKind.CONVERTER, "python3").NAME == "python3"
 assert {{"videomixer", "compositor", "datareposrc", "datareposink",
          "tensor_src_iio"}} <= set(element_factories())
-assert len(element_factories()) == 48
+assert {QUERY_ELEMENTS!r} <= set(element_factories())
+assert len(element_factories()) == 59
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded
@@ -211,6 +243,60 @@ for name in ("tflite", "tensorflow-lite", "tensorflow", "tf"):
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu.")
                or m == "tensorflow" or m.startswith("tensorflow."))]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_query_slice_serves_with_grpc_blocked():
+    """With jax, nnstreamer_tpu and grpc blocked, the transport and query
+    modules import, their elements register, a query server line answers a
+    client over NNSB with the shm ring, and the grpc elements fail only
+    when they open, naming grpc."""
+    code = f"""
+import sys, time
+for name in {FORBIDDEN + ("grpc",)!r}:
+    sys.modules[name] = None
+import numpy as np
+from nnstreamer_tpu_torch.registry.elements import element_factories
+from nnstreamer_tpu_torch.runtime.parse import parse_launch
+from nnstreamer_tpu_torch.core import MessageType
+assert {QUERY_ELEMENTS!r} <= set(element_factories())
+caps = "other/tensors,format=static,dimensions=4,types=float32"
+srv = parse_launch("tensor_query_serversrc name=s id=5 port=0 caps=" + caps
+                   + " ! tensor_filter framework=torch accelerator=cpu "
+                   "model=builtin://scaler?factor=2 ! tensor_query_serversink id=5")
+srv.play()
+deadline = time.monotonic() + 10
+while srv.get("s").bound_port == 0 and time.monotonic() < deadline:
+    time.sleep(0.01)
+cli = parse_launch("appsrc name=in caps=" + caps + " ! tensor_query_client "
+                   "name=q port=" + str(srv.get("s").bound_port)
+                   + " ! tensor_sink name=out")
+got = []
+cli.get("out").connect(got.append)
+cli.play()
+cli.get("in").push_buffer(np.ones(4, np.float32))
+deadline = time.monotonic() + 30
+while not got and time.monotonic() < deadline:
+    time.sleep(0.01)
+q = cli.get("q").client
+assert (q.wire_format, q.shm_active) == ("binary", True)
+assert float(np.asarray(got[0].tensors[0])[0]) == 2.0
+cli.stop(); srv.stop()
+g = parse_launch("tensor_src_grpc server=true port=0 caps=" + caps
+                 + " ! tensor_sink")
+g.play()
+msg = g.bus.wait_for((MessageType.ERROR,), timeout=10)
+g.stop()
+assert msg is not None and "grpc" in msg.data["error"], msg
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu.")
+               or m == "grpc" or m.startswith("grpc."))]
 assert not loaded, loaded
 print("ok")
 """

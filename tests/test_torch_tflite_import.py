@@ -6,10 +6,11 @@ CPU (its executors are plain XLA, no Pallas kernel).
 
 * tiny per-channel fixture: all four modes byte-exact;
 * full-width MobileNet-v2 int8 fixture on 4 frames: int8 and int8-native
-  byte-exact, float within 2 LSB. fake-quant is not within 2 LSB (5 on
-  these frames): the first layer's float32 sums differ from XLA's in the
-  last bit and its snapping turns that into whole steps that grow layer by
-  layer (ROADMAP §C); the first layer is held to exactly that;
+  byte-exact, float within 2 LSB. fake-quant is not within 2 LSB (6 on
+  these frames): the first conv now sums in XLA's order
+  (``test_torch_tflite_fma.py``), but later layers' float32 sums differ
+  from XLA's in the last bit and the snapping turns that into whole steps
+  that grow layer by layer (ROADMAP §C); the first layer is held to that;
 * graphs the TF converter makes here: float outputs within 1e-5 of the
   reference run eagerly, as its own tests run them;
 * ``batch:N`` equals the stacked per-frame outputs;
