@@ -305,6 +305,12 @@ phase fails:
     listed conv a forward, and equal its plain version bit for bit at
     every shape of a forward, on the line's own operands (times for each
     shape and a forward beside the bound and ``torch.matmul``'s).
+    fake-quant's depthwise convs at the shapes of
+    ``DEPTHWISE_FMA_SHAPES`` run ``csrc/depthwise_fma.cu`` (XLA:CPU's
+    contracted order): it must launch once a listed op a forward, and
+    equal its plain version bit for bit at every shape of a forward, on
+    the line's own operands (times beside the bytes bound and a grouped
+    ``F.conv2d``'s).
 17. transport and query (also ``--only query``, after phase 4's local
     line). (a) ``tensor_query_serversrc ! tensor_filter framework=torch
     model=...lm_serving:base ! tensor_query_serversink`` in a process of
@@ -334,12 +340,50 @@ phase fails:
     ERROR naming grpc where grpc is absent (else the bytes equal through
     ``tensor_src_grpc``).
 
+18. the service plane (also ``--only service``, after phase 4's local
+    line). (a) ``python -m nnstreamer_tpu_torch serve cfg.json`` in a
+    process of its own: slot ``lm`` → ``lm_serving:base``, restart
+    ``always``, the service ``tensor_query_serversrc ! tensor_fault !
+    tensor_filter model=registry://lm ! tensor_query_serversink``; its
+    READY state read through ``ControlClient``; phase 4's 3 requests from
+    ``appsrc ! tensor_query_client ! tensor_sink``. Gates: tokens equal
+    phase 4's; the serve process counts 2268 decode and 36 flash launches
+    (``nns_kernel_launches_total`` at its ``/metrics``);
+    ``nns_service_up{service="lm"}`` is 1. (b) tensor_fault crashes the
+    service on each run's 4th request, 3 times. Gates: a crash report
+    naming the fault; the pipeline replayed no sooner than the policy's
+    backoff; READY again with the next answer; the next requests' tokens
+    equal phase 4's; the card bytes of the served model (after each run's
+    requests) within 64 MiB of the first run's. Crash to replay and to
+    READY. (c) MobileNet-v2 ``filter_model_u8`` (bf16, batch 64) in an
+    in-process query-server service on slot ``mnet`` (seed-0 and seed-1
+    weights), one fused transform → filter segment; a client line
+    streams 8 batches, then on while ``swap("mnet", "2")`` flips in a
+    thread of its own until it has finished, then 8 more. Gates: no
+    failed request; every answer v1's or v2's forward byte for byte, v1
+    first, then v2 alone, in all of the last 8; the old backend released
+    after a segment or stream fence, and the card's allocated bytes after
+    the last 8 within half the model's parameter bytes of those before
+    the swap (a kept v1 would add all of them). Then ``canary(..., 0.25)`` over 40 batches: each batch
+    answered by the version the router's rule gives (10 / 30), the
+    segment defused for the window and re-fused after
+    ``promote_canary``. Swap time and the longest gap across the flip.
+    (d) a ``ProcReplicaSet`` of 2 MobileNet-v2 replicas on the card
+    (READY lines report ``cuda:0``): 20 batches through the pool, one
+    replica SIGKILLed mid-stream; gates: reap → evict → respawn →
+    readmit with zero client-visible errors, every answer equal to the
+    in-process forward; an ``Autoscaler`` burst scales out to 3 and idle
+    scales back in to 2; ``FleetView``'s merged request count equals the
+    replicas' own. Frames/s with 2 replicas and 1, round-trip p50,
+    SIGKILL → readmit, scale-out time. (e) a caps mismatch and an
+    unknown element refused with ``AdmissionRejected`` (NNL003, NNL001).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
-plugins``, ``--only tflite``, ``--only query``) runs phase 13 (14, 15, 16,
-17) alone and prints its report as the last line (no kernel line, no
-``ok`` line). ``--only trace-loss`` is no phase
+plugins``, ``--only tflite``, ``--only query``, ``--only service``) runs
+phase 13 (14, 15, 16, 17, 18) alone and prints its report as the last
+line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
 which CUPTI lost kernel records, those short of a hand-kernel launch and
@@ -5006,6 +5050,96 @@ def tf_fma_kernel(fake_quant_fn, convs: dict) -> dict:
             "launches_per_forward": sum(convs.values()), "shapes": shapes}
 
 
+def tf_dw_shapes() -> dict:
+    """{(H, W, C, stride): ops a forward} of the fixture's DEPTHWISE_CONV_2D
+    steps that sum in XLA's FMA order at batch TF_BATCH."""
+    from collections import Counter
+
+    from nnstreamer_tpu_torch.models.tflite_import import (
+        DEPTHWISE_FMA_SHAPES, read_model)
+
+    steps, tensors, *_ = read_model(str(TF_MODEL))
+    dws = Counter()
+    for code, cfg, ins, outs in steps:
+        if code == "DEPTHWISE_CONV_2D":
+            _, kh, kw, oc = tensors[ins[1]].shape
+            _, h, w, c = tensors[ins[0]].shape
+            if (TF_BATCH, h, w, kh, kw, *cfg["strides"], c,
+                    oc) in DEPTHWISE_FMA_SHAPES:
+                dws[(h, w, c, cfg["strides"][0])] += 1
+    return dict(dws)
+
+
+def tf_dw_kernel(fake_quant_fn, dws: dict) -> dict:
+    """depthwise_fma against its plain version, bit for bit, at every shape
+    the fake-quant line gives it, on that line's own operands (caught at
+    the wrapper during one batch-64 forward). Kernel, plain and grouped
+    ``F.conv2d`` (on the pre-padded input) times and the bytes bound for
+    each shape, and summed over one forward's launches."""
+    import torch.nn.functional as F
+
+    import nnstreamer_tpu_torch.models.tflite_import as ti
+    from nnstreamer_tpu_torch.ops.depthwise_fma import (depthwise_fma,
+                                                        depthwise_fma_plain)
+
+    n0 = depthwise_fma.launches
+    operands = {}
+
+    def catch(x, w, strides, dilation, pads, out_hw, in_scale=None):
+        key = (int(x.shape[1]), int(x.shape[2]), int(x.shape[3]),
+               int(strides[0]))
+        operands.setdefault(key, []).append(
+            (x.contiguous(), w.contiguous(), tuple(strides), tuple(dilation),
+             pads, tuple(out_hw), in_scale))
+        return depthwise_fma(x, w, strides, dilation, pads, out_hw, in_scale)
+    ti.depthwise_fma = catch
+    try:
+        fake_quant_fn(tf_device_frames(0))
+    finally:
+        ti.depthwise_fma = depthwise_fma
+    torch.cuda.synchronize()
+    if {k: len(v) for k, v in operands.items()} != dws:
+        fail(f"depthwise_fma: the fake-quant forward gave it shapes "
+             f"{ {k: len(v) for k, v in operands.items()} }, expected {dws}")
+    shapes, err = [], 0.0
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    side = {"bytes": 0.0, "operations": 0.0}
+    for (h, w_, c, st), args in sorted(operands.items()):
+        for a in args:
+            got, want = depthwise_fma(*a), depthwise_fma_plain(*a)
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"depthwise_fma at {h}x{w_}x{c}/{st}: "
+                     f"{int((got != want).sum())} of {got.numel()} values "
+                     "differ from the plain version (bit-equal required)")
+        x, wt, strides, _, ((pt, pb), (pl, pr)), (oh, ow), _ = args[0]
+        kh, kw = int(wt.shape[1]), int(wt.shape[2])
+        n_out = TF_BATCH * oh * ow * c
+        by = {"bytes": (x.numel() + wt.numel() + n_out) * 4
+              / HBM_BYTES_PER_S * 1e3,
+              "operations": 2 * kh * kw * n_out / F32_FLOP_PER_S * 1e3}
+        lib_args = [(F.pad(a[0], (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2),
+                     a[1][0].permute(2, 0, 1).unsqueeze(1).contiguous())
+                    for a in args]
+        one = {"shape_hwc_stride": [h, w_, c, st], "per_forward": len(args),
+               "ms": time_ms(depthwise_fma, args, reps=5, inner=10),
+               "plain_ms": time_ms(depthwise_fma_plain, args, reps=3,
+                                   inner=1),
+               "library_ms": time_ms(
+                   lambda xx, ww: F.conv2d(xx, ww, None, strides,
+                                           groups=c), lib_args,
+                   reps=5, inner=10),
+               "bound_ms": max(by.values()), "bound_by": max(by, key=by.get)}
+        shapes.append(one)
+        for k in total:
+            total[k] += len(args) * one[k]
+        for k in side:
+            side[k] += len(args) * by[k]
+    depthwise_fma.launches = n0     # comparison launches do not count
+    return {"max_abs_err": err, **total, "bound_by": max(side, key=side.get),
+            "launches_per_forward": sum(dws.values()), "shapes": shapes}
+
+
 def tf_tiny(native_fn_of) -> dict:
     """All four modes on the tiny per-channel fixture give the port's CPU
     bytes (the three torch modes on the card, int8-native on the host)."""
@@ -5207,23 +5341,34 @@ def phase_tflite(report: dict) -> None:
                 "quantized_exec": "int8-native", "batch": str(batch)})[0]
         return natives[key]
 
-    # (b) the four modes; fake-quant's listed convs go through fma_gemm
+    # (b) the four modes; fake-quant's listed convs go through fma_gemm,
+    # its listed depthwise convs through depthwise_fma
+    from nnstreamer_tpu_torch.ops.depthwise_fma import depthwise_fma
     from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm
 
     modes = r["modes"] = {}
     runs = {}
     for mode in TF_DEVICE_MODES + ("int8-native",):
-        fma_gemm.launches = 0
+        fma_gemm.launches = depthwise_fma.launches = 0
         runs[mode] = run = tf_run(mode)
         modes[mode] = {"frames_per_s": run["frames_per_s"]}
         if mode == "fake-quant":
             r["fma_gemm_launches"] = fma_gemm.launches
-    convs = tf_fma_convs()
+            r["depthwise_fma_launches"] = depthwise_fma.launches
+        elif depthwise_fma.launches:
+            fail(f"tflite {mode}: {depthwise_fma.launches} depthwise_fma "
+                 "launches outside fake-quant")
+    convs, dws = tf_fma_convs(), tf_dw_shapes()
     want = sum(convs.values()) * (TF_WARM + TF_MEASURED)
     if r["fma_gemm_launches"] != want:
         fail(f"tflite fake-quant: {r['fma_gemm_launches']} fma_gemm launches,"
              f" expected {want} ({sum(convs.values())} listed convs a "
              "forward)")
+    want = sum(dws.values()) * (TF_WARM + TF_MEASURED)
+    if not dws or r["depthwise_fma_launches"] != want:
+        fail(f"tflite fake-quant: {r['depthwise_fma_launches']} depthwise_fma"
+             f" launches, expected {want} ({sum(dws.values())} listed "
+             "depthwise convs a forward)")
     nat = native_fn_of(str(TF_MODEL), TF_BATCH)
     for k, out in enumerate(runs["int8"]["raw"]):
         want = nat(tf_device_frames(k).cpu())[0]
@@ -5244,6 +5389,17 @@ def phase_tflite(report: dict) -> None:
           + "; ".join(f"{tuple(x['shape_mkn'])} x{x['per_forward']} "
                       f"{x['ms']:.6f} / bound {x['bound_ms']:.6f} / matmul "
                       f"{x['library_ms']:.6f} ms" for x in fq["shapes"]))
+    r["depthwise_fma"] = dq = tf_dw_kernel(fns["fake-quant"], dws)
+    print(f"tflite ({smi}) depthwise_fma: {r['depthwise_fma_launches']} "
+          f"launches in the fake-quant line; = its plain version bit for bit "
+          f"at all {len(dq['shapes'])} shapes of a batch-{TF_BATCH} forward, "
+          f"on its operands; a forward's {dq['launches_per_forward']} "
+          f"launches take {dq['ms']:.6f} ms (plain {dq['plain_ms']:.3f}, "
+          f"grouped conv2d {dq['library_ms']:.6f}, bound "
+          f"{dq['bound_ms']:.6f} ms by {dq['bound_by']}); per shape: "
+          + "; ".join(f"{tuple(x['shape_hwc_stride'])} x{x['per_forward']} "
+                      f"{x['ms']:.6f} / bound {x['bound_ms']:.6f} / conv2d "
+                      f"{x['library_ms']:.6f} ms" for x in dq["shapes"]))
     host = tf_host_frames(TF_WARM + TF_MEASURED)
     for k, out in enumerate(runs["int8-native"]["raw"]):
         got = fns["int8"](torch.from_numpy(host[k]).to(ST_DEV))[0]
@@ -5956,6 +6112,695 @@ def phase_query_alone(report: dict) -> None:
     phase_query(report, prompts, want)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the service plane (service/, obs/fleet.py, analysis/graph_lint)
+# — managed services, supervision, swap and canary, process replicas, the
+# autoscaler, the fleet view and the admission lint
+
+SV_LM_MODEL = QY_LM_MODEL
+SV_MB_V1 = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model_u8"
+SV_MB_V2 = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model_u8_seed1"
+# properties every device element of a service line gets (none: the card)
+SV_DEVICE_PROPS = ""
+# the fault passes (a)'s requests and crashes each run's next one
+SV_CRASH_AT = REQUESTS
+SV_CYCLES = 3
+SV_POLICY = {"mode": "always", "backoff_base_s": 0.5, "jitter": 0.1,
+             "max_restarts": 5, "window_s": 600.0}
+SV_MEM_SLACK = 64 << 20
+SV_FRAME_BATCHES = 8          # distinct batches of 64 frames, cycled
+SV_SWAP_AT, SV_AFTER_SWAP = 8, 8
+SV_CANARY_BATCHES, SV_CANARY_FRACTION, SV_AFTER_PROMOTE = 40, 0.25, 4
+SV_POOL_BATCHES, SV_KILL_AT = 20, 8
+SV_FPS_BATCHES, SV_FPS_THREADS = 16, 4
+SV_BURST = 12
+SV_WAIT = 300.0
+SV_SERIES = "serving:query"
+
+
+def sv_wait(cond, what: str, timeout: float = SV_WAIT, poll: float = 0.02):
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            fail(f"service {what}: not within {timeout:.0f} s")
+        time.sleep(poll)
+
+
+def sv_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sv_card_bytes(client) -> int:
+    """The serve process's allocated card bytes, from its GET /memory (0
+    before the process first touched the card: the model loads at the
+    first request)."""
+    rows = client.memory()["memory"]["devices"]
+    row = [r for r in rows if r["device"] == "cuda:0"]
+    return int(row[0]["bytes_in_use"]) if row else 0
+
+
+class SvServe:
+    """``python -m nnstreamer_tpu_torch serve cfg.json`` in a process of its
+    own; stops on SIGINT."""
+
+    def __init__(self, cfg: dict, tmp: Path):
+        import signal  # noqa: F401 - used in stop()
+        import threading
+
+        path = tmp / "serve.json"
+        path.write_text(json.dumps(cfg))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch", "serve",
+             str(path)], cwd=str(ROOT), stdout=subprocess.PIPE, text=True)
+        got = {}
+
+        def read():
+            for line in self.proc.stdout:
+                if line.startswith("service control endpoint: "):
+                    got["url"] = line.split(": ", 1)[1].strip()
+                    return
+        t = threading.Thread(target=read, daemon=True)
+        t.start()
+        t.join(SV_WAIT)
+        if "url" not in got:
+            self.kill()
+            fail(f"service lm: the serve process printed no endpoint (exit "
+                 f"{self.proc.poll()})")
+        self.endpoint = got["url"]
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.kill()
+                fail("service lm: the serve process did not stop on SIGINT")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def sv_lm_request(port: int, prompt: np.ndarray) -> np.ndarray:
+    """One LM request through its own query client (a crash may take its
+    connection down); raises on a lost answer."""
+    from nnstreamer_tpu_torch.core import Buffer, parse_caps_string
+    from nnstreamer_tpu_torch.query.client import QueryClient
+
+    c = QueryClient("127.0.0.1", port, timeout=SV_WAIT)
+    try:
+        c.connect(parse_caps_string(QY_LM_CAPS))
+        out = c.request(Buffer([prompt]), timeout=SV_WAIT)
+    finally:
+        c.close()
+    return np.asarray(out.as_numpy().tensors[0])
+
+
+def sv_managed_lm(report: dict, prompts, want, tmp: Path) -> dict:
+    """(a) the base LM as a managed service in a serve process; (b) its
+    supervision through tensor_fault crashes."""
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.obs import promtext
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.service import ControlClient
+
+    port = sv_free_port()
+    launch = (f"tensor_query_serversrc name=ssrc id=40 port={port} "
+              f"caps={QY_LM_CAPS} ! tensor_fault name=fault "
+              f"crash-at-buffer={SV_CRASH_AT} crash-repeat=true ! "
+              "tensor_filter framework=torch model=registry://lm name=f "
+              f"{SV_DEVICE_PROPS} ! tensor_query_serversink id=40")
+    cfg = {"models": {"lm": {"versions": {"base": SV_LM_MODEL},
+                             "active": "base"}},
+           "services": [{"name": "lm", "launch": launch,
+                         "restart": SV_POLICY, "warmup": "none",
+                         "autostart": True}]}
+    t0 = time.perf_counter()
+    serve = SvServe(cfg, tmp)
+    r: dict = {}
+    try:
+        ctl = ControlClient(serve.endpoint, timeout=60.0)
+        st = ctl.status("lm")
+        if st["state"] != "ready":
+            fail(f"service lm: state {st['state']} after autostart, not "
+                 "ready")
+        r["start_to_ready_s"] = time.perf_counter() - t0
+        r["card_bytes_at_ready"] = sv_card_bytes(ctl)
+        # (a) phase 4's requests from a client line
+        pipe = parse_launch(
+            f"appsrc name=in caps={QY_LM_CAPS} ! tensor_query_client "
+            f"host=127.0.0.1 port={port} timeout={SV_WAIT} ! tensor_sink "
+            f"name=out max-stored={REQUESTS}")
+        outs = []
+        pipe.get("out").connect(lambda b: outs.append(b))
+        pipe.play()
+        rtt = []
+        try:
+            for p in prompts:
+                n, t1 = len(outs), time.perf_counter()
+                pipe.get("in").push_buffer(p)
+                sv_wait(lambda: len(outs) > n, "lm request")
+                rtt.append(time.perf_counter() - t1)
+        finally:
+            pipe.stop()
+        for k, (out, w) in enumerate(zip(outs, want)):
+            if not np.array_equal(np.asarray(out.as_numpy().tensors[0]), w):
+                fail(f"service lm: request {k}'s tokens differ from phase 4's")
+        text = ctl.metrics_text()
+        launches = {k: int(promtext.sample(text, "nns_kernel_launches_total",
+                                           {"kernel": k}) or 0)
+                    for k in ("decode_attention", "flash_attention")}
+        check_launches("service lm", launches, base.cfg.layers)
+        up = promtext.sample(text, "nns_service_up", {"service": "lm"})
+        if up != 1.0:
+            fail(f"service lm: nns_service_up is {up}, not 1")
+        # the card bytes of the served model, idle after its requests
+        mem_served = sv_card_bytes(ctl)
+        if mem_served <= 0:
+            fail("service lm: the serve process holds no card memory after "
+                 "serving: the model did not run on the card")
+        r.update(launches=launches, rtt_s=rtt, card_bytes_served=mem_served)
+        # (b) crash, supervised restart (the pipeline replayed, STARTING),
+        # then READY once the next request's answer reaches the sink (the
+        # monitor's first-buffer promotion after a restart)
+        cycles = []
+        gen = ctl.status("lm")["generation"]
+        for c in range(SV_CYCLES):
+            try:
+                sv_lm_request(port, prompts[0])
+                fail(f"service lm: cycle {c}'s crash request was answered")
+            except Exception:  # noqa: BLE001 - the crash takes it down
+                pass
+
+            def replayed():
+                s = ctl.status("lm")
+                return s if (s["supervisor"]["restarts"] == c + 1
+                             and s["generation"] == gen + c + 1) else None
+            st = sv_wait(replayed, f"restart {c + 1}", poll=0.005)
+            t_replayed = time.time()
+            report_ = st["supervisor"]["crash_reports"][-1]
+            if "injected crash" not in report_["error"] or \
+                    report_["source"] != "fault":
+                fail(f"service lm: crash report {report_['error']!r} from "
+                     f"{report_['source']!r}")
+            mem = sv_card_bytes(ctl)
+            for k, p in enumerate(prompts):
+                if not np.array_equal(sv_lm_request(port, p), want[k]):
+                    fail(f"service lm: after restart {c + 1}, request "
+                         f"{k}'s tokens differ from phase 4's")
+                if k == 0:  # the health monitor promotes within a poll
+                    sv_wait(lambda: ctl.status("lm")["state"] == "ready",
+                            f"READY after restart {c + 1}'s first answer",
+                            timeout=10.0, poll=0.005)
+                    t_ready = time.time()
+            cycles.append({"crash_to_replayed_s":
+                           t_replayed - report_["time"],
+                           "crash_to_ready_s": t_ready - report_["time"],
+                           "card_bytes_at_replay": mem,
+                           "card_bytes_served": sv_card_bytes(ctl)})
+        r["cycles"] = cycles
+        drift = cycles[-1]["card_bytes_served"] - mem_served
+        r["card_bytes_drift"] = drift
+        if abs(drift) > SV_MEM_SLACK:
+            fail(f"service lm: card memory of the served model moved "
+                 f"{drift} bytes over {SV_CYCLES} crash/restart cycles "
+                 f"(limit {SV_MEM_SLACK})")
+        floor = SV_POLICY["backoff_base_s"] * (1 - SV_POLICY["jitter"])
+        if min(x["crash_to_replayed_s"] for x in cycles) < floor:
+            fail("service lm: the pipeline replayed before the policy's "
+                 "backoff")
+    except BaseException:
+        serve.kill()
+        raise
+    serve.stop()
+    if serve.proc.returncode != 0:
+        fail(f"service lm: the serve process exited "
+             f"{serve.proc.returncode}")
+    print(f"service ({report['device']}) managed lm: serve process READY in "
+          f"{r['start_to_ready_s']:.3f} s; phase 4's {REQUESTS} requests = "
+          f"phase 4's tokens, server launches {r['launches']}, "
+          "nns_service_up 1; round trips "
+          + ", ".join(f"{x:.3f}" for x in r["rtt_s"]) + " s; "
+          f"{SV_CYCLES} tensor_fault crashes: crash to replay "
+          + ", ".join(f"{x['crash_to_replayed_s']:.3f}" for x in cycles)
+          + " s, to READY (the next answer) "
+          + ", ".join(f"{x['crash_to_ready_s']:.3f}" for x in cycles)
+          + f" s (backoff {SV_POLICY['backoff_base_s']} s), next requests "
+          f"= phase 4's tokens; card bytes of the served model "
+          f"{mem_served} -> "
+          + " -> ".join(str(x["card_bytes_served"]) for x in cycles)
+          + f" ({drift:+d}), at each replay "
+          + ", ".join(str(x["card_bytes_at_replay"]) for x in cycles))
+    return r
+
+
+def sv_frames() -> np.ndarray:
+    return mb_host_frames(SV_FRAME_BATCHES * MB_BATCH).reshape(
+        SV_FRAME_BATCHES, MB_BATCH, 224, 224, 3)
+
+
+def sv_forwards(frames: np.ndarray) -> dict:
+    """{version: [bytes of each distinct batch's logits]} of the slot's two
+    versions, run in this process on the card."""
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as mb
+
+    out = {}
+    for ver, entry in (("1", mb.filter_model_u8), ("2",
+                                                   mb.filter_model_u8_seed1)):
+        fn = entry.make(ST_DEV)
+        with torch.inference_mode():
+            out[ver] = [qy_bytes(fn(torch.from_numpy(f).to(ST_DEV)))
+                        for f in frames]
+        del fn
+    torch.cuda.synchronize()
+    return out
+
+
+def sv_settled_bytes() -> int:
+    """The card's allocated bytes once the server threads have dropped the
+    last answer's tensors: read until two reads 20 ms apart agree."""
+    torch.cuda.synchronize(ST_DEV)
+    last = torch.cuda.memory_allocated(ST_DEV)
+    for _ in range(100):
+        time.sleep(0.02)
+        now = torch.cuda.memory_allocated(ST_DEV)
+        if now == last:
+            return now
+        last = now
+    fail("service mnet: the card's allocated bytes did not settle in 2 s")
+
+
+def sv_stream(pipe, frames, first: int, n: int, outs: list,
+              times: list) -> None:
+    """Push batches first..first+n-1 (cycling the distinct frames) one at a
+    time, each after the previous answer."""
+    for k in range(first, first + n):
+        m = len(outs)
+        pipe.get("in").push_buffer(frames[k % len(frames)])
+        sv_wait(lambda: len(outs) > m, f"mnet batch {k}")
+        times.append(time.perf_counter())
+
+
+def sv_swap_canary(report: dict, frames, fwd: dict) -> dict:
+    """(c) swap and canary on MobileNet-v2 behind an in-process query
+    server service."""
+    import threading
+
+    from nnstreamer_tpu_torch.obs.memory import backend_param_nbytes
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.service import ServiceManager
+
+    mgr = ServiceManager(jitter_seed=0)
+    r: dict = {}
+    try:
+        mgr.models.define("mnet", {"1": SV_MB_V1, "2": SV_MB_V2},
+                          active="1")
+        svc = mgr.register(
+            "mnet", "tensor_query_serversrc name=ssrc id=41 port=0 "
+            f"caps={QY_MB_CAPS} ! tensor_transform mode=typecast "
+            f"option=uint8 name=t {SV_DEVICE_PROPS} ! tensor_filter "
+            f"framework=torch model=registry://mnet name=f {SV_DEVICE_PROPS} "
+            "! tensor_query_serversink id=41", warmup="none").start()
+        pipe_s = svc.pipeline
+        if len(pipe_s.fused_segments) != 1:
+            fail(f"service mnet: {len(pipe_s.fused_segments)} fused "
+                 "segments, expected the transform and the filter as one")
+        seg = pipe_s.fused_segments[0]
+        port = pipe_s.get("ssrc").bound_port
+        f = pipe_s.get("f")
+        client = parse_launch(
+            f"appsrc name=in caps={QY_MB_CAPS} ! tensor_query_client "
+            f"host=127.0.0.1 port={port} timeout={SV_WAIT} ! tensor_sink "
+            "name=out max-stored=1")
+        outs, times = [], []
+        client.get("out").connect(lambda b: outs.append(b.tensors[0]))
+        client.play()
+        try:
+            # v1's batches; then the swap, in a thread of its own, while the
+            # client streams on until it has finished; then SV_AFTER_SWAP
+            # batches, which v2 alone answers
+            sv_stream(client, frames, 0, SV_SWAP_AT, outs, times)
+            swap_t = {}
+            warmed, go = threading.Event(), threading.Event()
+
+            def do_swap():
+                try:
+                    # the swap's warmup runs on this thread: give it its
+                    # cuBLAS handle and workspace (kept per thread, not per
+                    # model) before the card bytes are read
+                    f.backend.invoke([frames[0]])
+                    torch.cuda.synchronize(ST_DEV)
+                    warmed.set()
+                    go.wait(SV_WAIT)
+                    swap_t["start"] = time.perf_counter()
+                    swap_t["result"] = mgr.models.swap("mnet", "2")
+                    swap_t["end"] = time.perf_counter()
+                except Exception as e:  # reported by the gate below
+                    swap_t["error"] = repr(e)
+                    warmed.set()
+            th = threading.Thread(target=do_swap, name="sv:swap")
+            th.start()
+            if not warmed.wait(SV_WAIT) or "error" in swap_t:
+                fail(f"service mnet: the swap thread did not warm: {swap_t}")
+            mem0 = sv_settled_bytes()
+            param_bytes = backend_param_nbytes(f.backend)
+            if param_bytes <= 0:
+                fail("service mnet: v1's parameter bytes read 0")
+            t_go = time.perf_counter()
+            go.set()
+            deadline = time.perf_counter() + SV_WAIT
+            while th.is_alive():
+                if time.perf_counter() > deadline:
+                    fail(f"service mnet: the swap ran past {SV_WAIT} s")
+                sv_stream(client, frames, len(outs), 1, outs, times)
+            th.join()
+            if "end" not in swap_t or swap_t["result"]["flipped"] != 1:
+                fail(f"service mnet: the swap did not finish: {swap_t}")
+            n_after = len(outs)
+            sv_stream(client, frames, n_after, SV_AFTER_SWAP, outs, times)
+            mem1 = sv_settled_bytes()
+            vers = []
+            for k, out in enumerate(outs):
+                b = qy_bytes(out)
+                i = k % len(frames)
+                v = "1" if b == fwd["1"][i] else \
+                    "2" if b == fwd["2"][i] else None
+                if v is None:
+                    fail(f"service mnet: swap batch {k}'s answer is neither "
+                         "v1's nor v2's forward")
+                vers.append(v)
+            vs = "".join(vers)
+            flip = vs.find("2")
+            if flip < SV_SWAP_AT or vs != "1" * flip + "2" * (len(vs) - flip):
+                fail(f"service mnet: versions across the swap {vs}: v1 "
+                     f"before the swap, then v2 alone")
+            if flip > n_after:  # the batches after the swap are all v2
+                fail(f"service mnet: v1 answered after the flip {vs}")
+            log = [kind for kind, _ in list(f.swap_log)[-2:]]
+            if log[-1] != "released" or log[0] not in ("segment fence",
+                                                       "stream fence"):
+                fail(f"service mnet: swap log {list(f.swap_log)}: the old "
+                     "weights were not released after a fence")
+            # the same architecture: the old weights went as the new came,
+            # so the card's bytes are back where they were (a kept v1 would
+            # add its param_bytes)
+            if abs(mem1 - mem0) >= param_bytes // 2:
+                fail(f"service mnet: card bytes {mem0} before the swap, "
+                     f"{mem1} after (the model holds {param_bytes}): the "
+                     "old weights were not freed")
+            # gaps between answers from the go (the warm-up and the byte
+            # read before it are no downtime), by the later batch's index
+            ts = [t_go] + times[SV_SWAP_AT:]
+            window = {SV_SWAP_AT + i: ts[i + 1] - ts[i]
+                      for i in range(len(ts) - 1)
+                      if ts[i + 1] >= swap_t["start"]
+                      and ts[i] <= swap_t["end"]}
+            if not window:
+                fail("service mnet: no answer came across the swap")
+            gaps = [times[k] - times[k - 1] for k in range(1, SV_SWAP_AT)]
+            r["swap"] = {
+                "versions": vs,
+                "batches_during_swap": n_after - SV_SWAP_AT,
+                "swap_s": swap_t["end"] - swap_t["start"],
+                "longest_gap_across_flip_s": max(window.values()),
+                "longest_gap_at_batch": max(window, key=window.get),
+                "first_v2_batch": flip,
+                "median_gap_before_s": statistics.median(gaps),
+                "fence": log[0],
+                "param_bytes": param_bytes,
+                "card_bytes_before": mem0,
+                "card_bytes_delta": mem1 - mem0}
+            # the canary: v1 back at 25% while v2 is active
+            d0 = seg.stats["dispatches"]
+            mgr.models.canary("mnet", "1", SV_CANARY_FRACTION)
+            router = f.backend
+            n0 = len(outs)
+            sv_stream(client, frames, n0, SV_CANARY_BATCHES, outs, times)
+            for i in range(SV_CANARY_BATCHES):
+                k = n0 + i
+                hit = int((i + 1) * SV_CANARY_FRACTION) > \
+                    int(i * SV_CANARY_FRACTION)
+                v = "1" if hit else "2"
+                if qy_bytes(outs[k]) != fwd[v][k % len(frames)]:
+                    fail(f"service mnet: canary batch {i} was not answered "
+                         f"by v{v}, as the router's rule gives")
+            stats = router.routing_stats()
+            want_c = sum(int((i + 1) * SV_CANARY_FRACTION)
+                         > int(i * SV_CANARY_FRACTION)
+                         for i in range(SV_CANARY_BATCHES))
+            if (stats["canary_invokes"], stats["primary_invokes"]) != (
+                    want_c, SV_CANARY_BATCHES - want_c):
+                fail(f"service mnet: router {stats}, expected {want_c} "
+                     "canary invokes")
+            if seg.stats["defused"] < 1 or seg.stats["dispatches"] != d0:
+                fail(f"service mnet: the segment did not defuse for the "
+                     f"canary window ({seg.stats})")
+            mgr.models.promote_canary("mnet")
+            d1 = seg.stats["dispatches"]
+            n1 = len(outs)
+            sv_stream(client, frames, n1, SV_AFTER_PROMOTE, outs, times)
+            if seg.stats["dispatches"] <= d1:
+                fail("service mnet: the segment did not re-fuse after "
+                     "promote_canary")
+            if any(qy_bytes(outs[n1 + i]) != fwd["1"][(n1 + i) % len(frames)]
+                   for i in range(SV_AFTER_PROMOTE)):
+                fail("service mnet: after promote an answer is not v1's")
+            r["canary"] = {**stats, "defused": seg.stats["defused"],
+                           "dispatches_after_promote":
+                           seg.stats["dispatches"] - d1}
+        finally:
+            client.stop()
+    finally:
+        mgr.shutdown()
+    s, c = r["swap"], r["canary"]
+    print(f"service ({report['device']}) mnet swap: {len(s['versions'])} "
+          f"batches of {MB_BATCH} ({s['batches_during_swap']} during the "
+          "swap), none failed, each = v1's or v2's forward byte for byte "
+          f"({s['versions']}); swap {s['swap_s']:.3f} s, longest gap across "
+          f"the flip {1e3 * s['longest_gap_across_flip_s']:.3f} ms (median "
+          f"{1e3 * s['median_gap_before_s']:.3f} ms before); old weights "
+          f"released after a {s['fence']}, card bytes "
+          f"{s['card_bytes_delta']:+d} across the swap (the model holds "
+          f"{s['param_bytes']}); canary "
+          f"{SV_CANARY_FRACTION} over {SV_CANARY_BATCHES} batches: "
+          f"{c['canary_invokes']} / {c['primary_invokes']} as the rule gives, "
+          "the segment defused and re-fused after promote")
+    return r
+
+
+def sv_procreplicas(report: dict, frames, fwd: dict) -> dict:
+    """(d) the fabric with process replicas on the card, SIGKILL and
+    readmit, an autoscaler step, the fleet view."""
+    import threading
+
+    from nnstreamer_tpu_torch.obs.fleet import FleetView
+    from nnstreamer_tpu_torch.obs.profile import QuantileDigest
+    from nnstreamer_tpu_torch.service import (Autoscaler, AutoscalerConfig,
+                                              ProcReplicaSet)
+
+    r: dict = {}
+    ps = ProcReplicaSet(
+        "mnet-procs",
+        f"tensor_filter framework=torch model={SV_MB_V1} {SV_DEVICE_PROPS}",
+        QY_MB_CAPS, replicas=2, quarantine_base_s=0.2, health_poll_s=0.05,
+        spawn_timeout_s=SV_WAIT)
+    scaler = None
+    try:
+        t0 = time.perf_counter()
+        ps.start()
+        r["start_2_s"] = time.perf_counter() - t0
+        with ps._lock:
+            infos = [ps._slots[rid].proc.info for rid in ps._order]
+        if any(i.get("devices") != ["cuda:0"] for i in infos):
+            fail(f"service procs: replicas report devices "
+                 f"{[i.get('devices') for i in infos]}, not cuda:0")
+
+        def check(k, out):
+            if qy_bytes(out.tensors[0]) != fwd["1"][k % len(frames)]:
+                fail(f"service procs: batch {k}'s answer differs from the "
+                     "in-process forward")
+        rtt, kill = [], {}
+
+        def readmit(rid):
+            dead = sv_wait(ps.reap_dead, "reap", poll=0.005)
+            kill["reaped"] = time.perf_counter()
+            if dead != [rid] or not ps.respawn(rid):
+                kill["error"] = f"reaped {dead}, respawn of {rid} failed"
+                return
+            sv_wait(lambda: ps.pool.snapshot()["readmissions"] >= 1,
+                    "readmit", poll=0.005)
+            kill["readmitted"] = time.perf_counter()
+        th = None
+        for k in range(SV_POOL_BATCHES):
+            if k == SV_KILL_AT:
+                kill["rid"] = ps.kill_replica(0)
+                kill["t"] = time.perf_counter()
+                th = threading.Thread(target=readmit, args=(kill["rid"],),
+                                      name="sv:readmit")
+                th.start()
+            t1 = time.perf_counter()
+            out = ps.request([frames[k % len(frames)]], key=f"b{k}",
+                             timeout=SV_WAIT)
+            rtt.append(time.perf_counter() - t1)
+            check(k, out)
+        th.join(SV_WAIT)
+        if "error" in kill or "readmitted" not in kill:
+            fail(f"service procs: {kill}")
+        snap = ps.pool.snapshot()
+        if snap["evictions"] < 1 or snap["request_errors"]:
+            fail(f"service procs: pool {snap}")
+        r["kill"] = {"replica": kill["rid"],
+                     "kill_to_reap_s": kill["reaped"] - kill["t"],
+                     "kill_to_readmit_s": kill["readmitted"] - kill["t"],
+                     "retries": snap["retries"]}
+        r["rtt_p50_ms"] = 1e3 * statistics.median(rtt)
+
+        def fps(n_threads: int) -> float:
+            errs = []
+
+            def worker(j):
+                for k in range(j, SV_FPS_BATCHES, n_threads):
+                    try:
+                        check(k, ps.request([frames[k % len(frames)]],
+                                            key=f"f{k}", timeout=SV_WAIT))
+                    except Exception as e:  # noqa: BLE001 - reported below
+                        errs.append(e)
+            ts = [threading.Thread(target=worker, args=(j,),
+                                   name=f"sv:fps{j}")
+                  for j in range(n_threads)]
+            t1 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(SV_WAIT)
+            if errs:
+                fail(f"service procs: {len(errs)} failed requests: {errs[0]}")
+            return SV_FPS_BATCHES * MB_BATCH / (time.perf_counter() - t1)
+        r["frames_per_s_2"] = fps(SV_FPS_THREADS)
+        # the fleet view: merged request count = the replicas' own
+        fv = FleetView("mnet-fleet", source=ps)
+        fv.tick()
+        merged = fv.request_total(SV_SERIES)
+        own = 0
+        for rid, ep in ps.control_endpoints().items():
+            from nnstreamer_tpu_torch.service import ControlClient
+
+            raw = ControlClient(ep).profile(raw=True)["raw"]
+            own += QuantileDigest.from_dict(
+                raw["requests"][SV_SERIES]["total"]).count
+        if merged is None or merged.count != own or own < SV_POOL_BATCHES:
+            fail(f"service procs: fleet-merged {SV_SERIES} count "
+                 f"{None if merged is None else merged.count}, replicas' "
+                 f"own {own}")
+        r["fleet_requests"] = own
+        # an autoscaler step: a burst scales out, idle scales back in
+        cfg = AutoscalerConfig(
+            min_replicas=2, max_replicas=3, latency_slo_s=1e-4,
+            short_window_s=2.0, long_window_s=4.0, min_samples=8,
+            scale_out_cooldown_s=0.1, scale_in_cooldown_s=0.1,
+            memory_max_fraction=0.95, tick_s=3600.0)
+        scaler = Autoscaler(ps, cfg, name="mnet-procs").start()
+        for k in range(SV_BURST):
+            check(k, ps.request([frames[k % len(frames)]], key=f"u{k}",
+                                timeout=SV_WAIT))
+        t1 = time.perf_counter()
+        d_out = scaler.tick()
+        r["scale_out_s"] = time.perf_counter() - t1
+        n_out = ps.replica_count()
+        time.sleep(cfg.long_window_s + 0.5)
+        d_in = scaler.tick()
+        n_in = ps.replica_count()
+        if (d_out["action"], n_out, d_in["action"], n_in) != (
+                "scale_out", 3, "scale_in", 2):
+            fail(f"service procs: autoscaler {d_out['action']} -> {n_out}, "
+                 f"then {d_in['action']} -> {n_in}; expected scale_out -> 3 "
+                 "and scale_in -> 2")
+        r["autoscale"] = {"out": {k: d_out[k] for k in (
+            "burn_short", "samples_short", "replicas")},
+            "in": {k: d_in[k] for k in ("burn_short", "burn_long")}}
+        ps.scale_in()
+        r["frames_per_s_1"] = fps(SV_FPS_THREADS)
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        ps.stop()
+    print(f"service ({report['device']}) process replicas: 2 on cuda:0 in "
+          f"{r['start_2_s']:.3f} s; {SV_POOL_BATCHES} batches = the "
+          "in-process forward byte for byte, zero client-visible errors "
+          f"across a SIGKILL (reap {r['kill']['kill_to_reap_s']:.3f} s, "
+          f"readmit {r['kill']['kill_to_readmit_s']:.3f} s after the kill); "
+          f"round trip p50 {r['rtt_p50_ms']:.3f} ms; "
+          f"{r['frames_per_s_2']:.1f} frames/s with 2 replicas, "
+          f"{r['frames_per_s_1']:.1f} with 1 ({SV_FPS_THREADS} client "
+          f"threads); autoscaler 2 -> 3 in {r['scale_out_s']:.3f} s, idle "
+          f"-> 2; fleet-merged {SV_SERIES} count {r['fleet_requests']} = "
+          "the replicas' own")
+    return r
+
+
+def sv_admission(report: dict) -> dict:
+    """(e) two bad lines refused at registration."""
+    from nnstreamer_tpu_torch.service import AdmissionRejected, ServiceManager
+
+    lines = {
+        "NNL003": "tensor_src dimensions=3:224:224:4 types=uint8 "
+                  "num-buffers=1 ! other/tensors,types=float32 ! "
+                  "tensor_sink",
+        "NNL001": "tensor_src num-buffers=1 ! tensor_filtr model=x ! "
+                  "tensor_sink"}
+    mgr = ServiceManager()
+    r = {}
+    try:
+        for code, line in lines.items():
+            try:
+                mgr.register(f"bad-{code}", line)
+            except AdmissionRejected as e:
+                r[code] = sorted({d.rule for d in e.diagnostics})
+            else:
+                fail(f"service admission: a line with {code} was admitted")
+            if r[code] != [code]:
+                fail(f"service admission: refused with {r[code]}, expected "
+                     f"[{code}]")
+    finally:
+        mgr.shutdown()
+    print(f"service ({report['device']}) admission: a caps mismatch and an "
+          "unknown element refused with AdmissionRejected (NNL003, NNL001)")
+    return r
+
+
+def phase_service(report: dict, prompts, want) -> None:
+    """Phase 18: the service plane (module docstring)."""
+    import tempfile
+
+    r = report["service"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        r["lm"] = sv_managed_lm(report, prompts, want, Path(tmp))
+    frames = sv_frames()
+    fwd = sv_forwards(frames)
+    r.update(sv_swap_canary(report, frames, fwd))
+    r["procs"] = sv_procreplicas(report, frames, fwd)
+    r["admission"] = sv_admission(report)
+
+
+def phase_service_alone(report: dict) -> None:
+    """--only service: the kernels built, phase 4's requests served locally
+    for the reference tokens, then phase 18."""
+    phase_build(report)
+    prompts, want = phase_slice(report)
+    phase_service(report, prompts, want)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -5975,18 +6820,20 @@ def main() -> None:
     report["device"] = phase_device()
     alone = {"fusion": phase_fusion, "streams": phase_streams,
              "plugins": phase_plugins, "tflite": phase_tflite,
-             "query": phase_query_alone, "trace-loss": phase_trace_loss}
+             "query": phase_query_alone, "service": phase_service_alone,
+             "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16 or 17 alone (no kernel is checked, no ok
-        # line), or the trace-loss count
+        # phase 13, 14, 15, 16, 17 or 18 alone (no kernel is checked, no
+        # ok line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
-             "--only fusion / streams / plugins / tflite / query for phase "
-             "13 / 14 / 15 / 16 / 17 alone, or --only trace-loss)")
+             "--only fusion / streams / plugins / tflite / query / service "
+             "for phase 13 / 14 / 15 / 16 / 17 / 18 alone, or --only "
+             "trace-loss)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -6006,6 +6853,7 @@ def main() -> None:
     phase_plugins(report)
     phase_tflite(report)
     phase_query(report, prompts, filter_outs)
+    phase_service(report, prompts, filter_outs)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -6032,9 +6880,12 @@ def main() -> None:
     kernels[0]["per_slot_pos"] = {k: slot[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
-    # both LM kernels again in the query server's process (phase 17)
+    # both LM kernels again in the query server's process (phase 17) and
+    # in the managed service's serve process (phase 18)
     for k in kernels:
         k["launches_query"] = report["query"]["lm"]["launches"][k["name"]]
+        k["launches_service"] = \
+            report["service"]["lm"]["launches"][k["name"]]
     # the fake-quant conv order (phase 16): replaces no Pallas kernel but
     # the reference's XLA conv; launches from the fake-quant line's run,
     # times and bound for one batch-64 forward's launches, each at its shape
@@ -6045,6 +6896,16 @@ def main() -> None:
         "replaces": "nnstreamer_tpu/models/tflite_import.py:502",
         "launches": report["tflite"]["fma_gemm_launches"],
         **{k: fq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}})
+    # the fake-quant depthwise order (phase 16): replaces no Pallas kernel
+    # but the reference's jitted depthwise_shift_add; as fma_gemm's row
+    dq = report["tflite"]["depthwise_fma"]
+    kernels.append({
+        "name": "depthwise_fma", "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/depthwise_fma.cu",
+        "replaces": "nnstreamer_tpu/models/tflite_import.py:150",
+        "launches": report["tflite"]["depthwise_fma_launches"],
+        **{k: dq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

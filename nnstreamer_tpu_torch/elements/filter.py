@@ -767,12 +767,18 @@ class TensorFilter(TransformElement):
             self._retire_fences[id(old)] = fenced
         return old
 
-    def release_prepared(self, backend: Optional[FilterBackend]) -> None:
+    def release_prepared(self, backend: Optional[FilterBackend],
+                         fence_of: Optional[FilterBackend] = None) -> None:
         """Release a backend from prepare_model (rollback) or commit_model
-        (retire-old): a retired one only after its fence."""
+        (retire-old): a retired one only after its fence. ``fence_of``:
+        the backend whose retirement fenced this one's last work (a canary
+        router retired by commit_model, releasing one of the two backends
+        it routed to)."""
         if backend is None:
             return
-        fenced = self._retire_fences.pop(id(backend), (None, "no fence"))
+        fenced = self._retire_fences.pop(
+            id(backend if fence_of is None else fence_of),
+            (None, "no fence"))
         # a retired backend may be the one _open_backend acquired under
         # the element's share key; release under that key so refcounts
         # balance (prepare_model never uses a share key), and a second

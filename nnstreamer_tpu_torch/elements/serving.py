@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..analysis.sanitizer import named_lock
 from ..backends.base import Accelerator, FilterProperties
 from ..core import Buffer, Caps, tensors_info_from_caps
 from ..core.caps import caps_from_tensors_info
@@ -132,8 +133,11 @@ class TensorServing(TransformElement):
             raise ElementError(
                 f"{self.describe()}: on-shed must be drop|error")
         _parse_buckets(self.props["bucket_sizes"])  # validate early
-        self.scheduler = None
-        self._shared_key: Optional[str] = None
+        # negotiation (a streaming thread) and a query-server attach (the
+        # caller's) may both ask for the scheduler first: one creates it
+        self._sched_lock = named_lock("TensorServing._sched_lock")
+        self.scheduler = None                     # guarded-by: _sched_lock
+        self._shared_key: Optional[str] = None    # guarded-by: _sched_lock
         self._backend = None
         self._shed_warned = False
 
@@ -173,6 +177,10 @@ class TensorServing(TransformElement):
         return sched
 
     def _ensure_scheduler(self):
+        with self._sched_lock:
+            return self._ensure_scheduler_locked()
+
+    def _ensure_scheduler_locked(self):
         if self.scheduler is not None:
             return self.scheduler
         key = self.props["shared_key"]
@@ -212,15 +220,16 @@ class TensorServing(TransformElement):
                 "effective): %s", self.name, self._shared_key, ignored)
 
     def stop(self) -> None:
-        if self.scheduler is not None:
-            if self._shared_key:
+        with self._sched_lock:
+            sched, self.scheduler = self.scheduler, None
+            key, self._shared_key = self._shared_key, None
+        if sched is not None:
+            if key:
                 from ..serving import release_shared_scheduler
 
-                release_shared_scheduler(self._shared_key)
-                self._shared_key = None
+                release_shared_scheduler(key)
             else:
-                self.scheduler.close()
-            self.scheduler = None
+                sched.close()
         # the backend is closed by the scheduler's on_close (possibly
         # later, when the last shared-key holder releases) — only drop
         # our negotiation reference here

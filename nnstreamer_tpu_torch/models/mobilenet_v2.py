@@ -128,3 +128,6 @@ filter_model_u8 = make_u8_entry(filter_model)
 # the same model info with other random weights: the target of a hot
 # swap (``tensor_filter.reload_model``) on a line serving filter_model
 filter_model_seed1 = _FilterEntry(seed=1)
+# ... and for a line serving filter_model_u8: the second version of a
+# model slot in a swap or canary (service/models.py)
+filter_model_u8_seed1 = make_u8_entry(filter_model_seed1)

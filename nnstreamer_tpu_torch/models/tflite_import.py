@@ -23,7 +23,10 @@ XLA:CPU's own order, a chain of float32 FMAs over K (``ops/fma_gemm.py``),
 which gives the reference's float32 conv bit for bit there. ``high`` runs them in float32 as the
 process's switches have it; ``default`` in bfloat16. Depthwise
 convolutions and pools are elementwise float32 multiply-adds in the
-reference's order.
+reference's order; in fake-quant mode the depthwise convs listed in
+``DEPTHWISE_FMA_SHAPES`` contract them into fused multiply-adds as
+XLA:CPU does under ``jit`` (``ops/depthwise_fma.py``), at every
+precision.
 
 The flatbuffer is parsed once at load: op options and weights are copied
 into plain Python/numpy structures, so the returned callable holds no
@@ -55,6 +58,7 @@ import torch.nn.functional as F
 
 from ..core import DataType, TensorsInfo
 from ..core.tensors import TensorSpec
+from ..ops.depthwise_fma import depthwise_fma
 from ..ops.fma_gemm import fma_gemm
 from ..utils.hw_accel import resolve_device
 from . import tflite_schema
@@ -456,6 +460,37 @@ FMA_ORDER_SHAPES = frozenset(
     for batch in (1, 4, 64) if (batch, hw) != (1, 7))
 
 
+# (batch, in_h, in_w, kh, kw, stride_h, stride_w, in_c, out_c) of the
+# DEPTHWISE_CONV_2D ops at which the reference's jitted depthwise_shift_add
+# on XLA:CPU, fed a fake-quantized input, equals ops/depthwise_fma.py's FMA
+# chain bit for bit: the fixture's depthwise convs (all 3x3, SAME,
+# undilated) at batches 1, 4 and 64, each held by a case of
+# tests/test_torch_tflite_dw_fma.py. Nothing else is assumed.
+_FMA_DEPTHWISE = (  # (in_hw, stride, channels)
+    (112, 1, 32), (112, 2, 96), (56, 1, 144), (56, 2, 144), (28, 1, 192),
+    (28, 2, 192), (14, 1, 384), (14, 1, 576), (14, 2, 576), (7, 1, 960))
+DEPTHWISE_FMA_SHAPES = frozenset(
+    (batch, hw, hw, 3, 3, s, s, c, c) for hw, s, c in _FMA_DEPTHWISE
+    for batch in (1, 4, 64))
+
+
+def _depthwise(x, w, strides, padding: str, dilation,
+               in_scale: Optional[float]):
+    """The graph's DEPTHWISE_CONV_2D: XLA:CPU's FMA order at the listed
+    shapes of a fake-quantized input of scale ``in_scale``, the reference's
+    unfused order elsewhere."""
+    n, h, wd, c = (int(d) for d in x.shape)
+    kh, kw, oc = (int(d) for d in w.shape[1:])
+    if in_scale is not None and padding == "SAME" and \
+            tuple(dilation) == (1, 1) and (n, h, wd, kh, kw, *strides, c,
+                                           oc) in DEPTHWISE_FMA_SHAPES:
+        oh, ow, pads = explicit_padding(h, wd, kh, kw, strides, dilation,
+                                        padding)
+        return depthwise_fma(x, w, strides, dilation, pads, (oh, ow),
+                             in_scale)
+    return depthwise_shift_add(x, w, strides, padding, dilation)
+
+
 def _gemm_float(precision: str):
     """``(a, b) -> a @ b`` for float32 ``a`` (..., K) and ``b`` (K, N) at
     the chosen precision (module docstring)."""
@@ -538,6 +573,15 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
         q = torch.clamp(torch.round(y / sc(scale)) + zp, info.min, info.max)
         return (q - zp) * scale
 
+    def _fq_scale(idx: int) -> Optional[float]:
+        """The scale of tensor ``idx`` where fake-quant snapped it to its
+        grid (``float32(k * scale)``), else None."""
+        t = tensors[idx]
+        if q_exec != "fake-quant" or idx in consts or not (
+                t.quantized and t.dtype in (np.uint8, np.int8)):
+            return None
+        return float(t.scale[0])
+
     def _const(idx) -> np.ndarray:
         """Operand that must be statically known at trace time (shapes,
         axes, pads) — raw integer values, not dequantized."""
@@ -592,8 +636,9 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
                 env[outs[0]] = _fused(cfg["act"], y)
             elif code == "DEPTHWISE_CONV_2D":
                 x, w = _in(env, ins[0]), _in(env, ins[1])
-                y = depthwise_shift_add(
-                    x, w, cfg["strides"], cfg["padding"], cfg["dilation"])
+                y = _depthwise(
+                    x, w, cfg["strides"], cfg["padding"], cfg["dilation"],
+                    _fq_scale(ins[0]))
                 if len(ins) > 2 and ins[2] >= 0:
                     y = y + _in(env, ins[2])
                 env[outs[0]] = _fused(cfg["act"], y)

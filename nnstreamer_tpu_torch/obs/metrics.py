@@ -9,21 +9,23 @@ Two publishing styles:
 * **direct instruments** — ``counter()/gauge()/histogram()`` get-or-create
   named instruments; callers ``inc()/set()/observe()`` (one dict update
   under a small lock);
-* **collectors** — snapshot-shaped sources (a live scheduler, a KV page
-  pool, a speculative engine) are *tracked weakly* and read at scrape
-  time: nothing on their hot paths changes, the scrape pays the snapshot
-  cost. ``register_collector()`` adds custom sources.
+* **collectors** — snapshot-shaped sources (a live scheduler, a replica
+  pool, a service manager, a KV page pool) are *tracked weakly* and read
+  at scrape time: nothing on their hot paths changes, the scrape pays the
+  snapshot cost. ``register_collector()`` adds custom sources.
 
-The built-in collectors cover serving schedulers (``nns_serving_*``) and
+The built-in collectors cover serving schedulers (``nns_serving_*``),
+fabric pools (``nns_fabric_*``), services (``nns_service_*``) and
 the obs plane itself (``nns_flight_events_total``,
 ``nns_trace_spans_total``, ``nns_tracing_enabled``); the serving modules
 add the KV pool's and speculation's gauges, ``obs/memory.py`` the
 ``nns_memory_*`` ones, ``obs/profile.py``, ``obs/quality.py`` and
 ``obs/slo.py`` theirs; the fused-segment collector (``nns_fused_*``)
 reads the pipelines' segments and the wire collector (``nns_wire_*``,
-``nns_shm_*``) ``transport/stats.py``. Not in this package yet: the
-fabric and service collectors, which come with the service plane
-(ROADMAP A6b).
+``nns_shm_*``) ``transport/stats.py``, and the kernels collector the
+launch counts of the hand-written CUDA kernels
+(``nns_kernel_launches_total``, the port's own: the reference has no
+such kernels).
 """
 from __future__ import annotations
 
@@ -297,15 +299,22 @@ def render() -> str:
 _tracked_pools: "weakref.WeakSet" = weakref.WeakSet()
 
 
+_tracked_managers: "weakref.WeakSet" = weakref.WeakSet()
+_tracked_pipelines: "weakref.WeakSet" = weakref.WeakSet()
+
+
 def track_pool(pool) -> None:
-    """Called by a replica pool at construction — pools join the metrics
-    plane (and ``serving.metrics_snapshot()``'s fabric fold). The port
-    has no replica pool yet, so the set stays empty until the fabric
-    comes."""
+    """Called by ``ReplicaPool.__init__`` — pools join the metrics plane
+    (and ``serving.metrics_snapshot()``'s fabric fold) automatically."""
     _tracked_pools.add(pool)
 
 
-_tracked_pipelines: "weakref.WeakSet" = weakref.WeakSet()
+def track_manager(manager) -> None:
+    _tracked_managers.add(manager)
+    if _san.LEAK:
+        _san.note_acquire("metrics_registration", f"manager:{id(manager):x}",
+                          idempotent=True)
+
 
 
 def track_pipeline(pipeline) -> None:
@@ -328,6 +337,12 @@ def untrack_pipeline(pipeline) -> None:
     if _san.LEAK:
         _san.note_release("metrics_registration",
                           f"pipeline:{id(pipeline):x}")
+
+
+def untrack_manager(manager) -> None:
+    _tracked_managers.discard(manager)
+    if _san.LEAK:
+        _san.note_release("metrics_registration", f"manager:{id(manager):x}")
 
 
 def pools_snapshot() -> Dict[str, dict]:
@@ -406,6 +421,84 @@ def _collect_serving(reg: Registry) -> None:
         wait.set(snap.get("estimated_wait_ms", 0.0) / 1e3, scheduler=name)
         p99.set(snap.get("total_latency", {}).get("p99_ms", 0.0) / 1e3,
                 scheduler=name)
+
+
+def _collect_fabric(reg: Registry) -> None:
+    pool_counters = {
+        "requests": reg.counter("nns_fabric_requests_total",
+                                "requests routed through a pool", ("pool",)),
+        "retries": reg.counter("nns_fabric_retries_total",
+                               "attempts retried on another replica",
+                               ("pool",)),
+        "hedges": reg.counter("nns_fabric_hedges_total",
+                              "hedge duplicates fired", ("pool",)),
+        "hedge_wins": reg.counter("nns_fabric_hedge_wins_total",
+                                  "hedges that answered first", ("pool",)),
+        "request_errors": reg.counter("nns_fabric_request_errors_total",
+                                      "requests failed after all attempts",
+                                      ("pool",)),
+        "evictions": reg.counter("nns_fabric_evictions_total",
+                                 "replica evictions", ("pool",)),
+        "readmissions": reg.counter("nns_fabric_readmissions_total",
+                                    "replica readmissions", ("pool",)),
+        "spills": reg.counter("nns_fabric_spills_total",
+                              "bounded-load ring spills", ("pool",)),
+    }
+    inflight = reg.gauge("nns_fabric_inflight",
+                         "in-flight requests", ("pool",))
+    r_inflight = reg.gauge("nns_fabric_replica_inflight",
+                           "per-replica in-flight requests",
+                           ("pool", "replica"))
+    r_score = reg.gauge("nns_fabric_replica_score",
+                        "per-replica EWMA health score",
+                        ("pool", "replica"))
+    r_up = reg.gauge("nns_fabric_replica_up",
+                     "1 = ACTIVE, 0 = quarantined/draining",
+                     ("pool", "replica"))
+    # snapshot mirrors (NOT the request-latency histogram, which is
+    # directly observed): closed pools / removed replicas drop out
+    for inst in list(pool_counters.values()) + [inflight, r_inflight,
+                                                r_score, r_up]:
+        inst.clear()
+    for name, snap in pools_snapshot().items():
+        for key, inst in pool_counters.items():
+            inst.set_total(snap.get(key, 0), pool=name)
+        inflight.set(snap.get("inflight_total", 0), pool=name)
+        for rep in snap.get("replicas", []):
+            rid = rep.get("id", "?")
+            r_inflight.set(rep.get("inflight", 0), pool=name, replica=rid)
+            r_score.set(rep.get("score", 0.0), pool=name, replica=rid)
+            r_up.set(1.0 if rep.get("state") == "active" else 0.0,
+                     pool=name, replica=rid)
+
+
+def _collect_services(reg: Registry) -> None:
+    up = reg.gauge("nns_service_up", "1 = READY", ("service",))
+    state = reg.gauge("nns_service_state",
+                      "1 for the service's current state",
+                      ("service", "state"))
+    restarts = reg.counter("nns_service_restarts_total",
+                           "supervised restarts", ("service",))
+    sink = reg.counter("nns_service_sink_buffers_total",
+                       "buffers rendered at sinks since last play",
+                       ("service",))
+    # snapshot mirrors: without the clear, nns_service_state would keep
+    # reporting 1 for every state a service was EVER in, and a
+    # deregistered service would stay "up" forever
+    for inst in (up, state, restarts, sink):
+        inst.clear()
+    for mgr in list(_tracked_managers):
+        try:
+            services = mgr.services()
+        except Exception:  # noqa: BLE001 - manager mid-shutdown
+            continue
+        for svc in services:
+            up.set(1.0 if svc.readiness() else 0.0, service=svc.name)
+            state.set(1.0, service=svc.name, state=svc.state.value)
+            restarts.set_total(svc.supervisor.restarts, service=svc.name)
+            pipe = svc.pipeline
+            if pipe is not None:
+                sink.set_total(pipe.sink_buffer_count, service=svc.name)
 
 
 def _collect_fused(reg: Registry) -> None:
@@ -496,7 +589,34 @@ def _collect_obs(reg: Registry) -> None:
               ).set(1.0 if st["tracing"] else 0.0)
 
 
+# the hand-written CUDA kernels (ops/), by module: each wrapper counts
+# its launches on the card (a CPU run counts none)
+_KERNELS = ("decode_attention", "flash_attention", "fma_gemm",
+            "depthwise_fma")
+
+
+def _collect_kernels(reg: Registry) -> None:
+    """``nns_kernel_launches_total{kernel}``: the launch counters of the
+    kernels this process loaded — how a scrape shows that a served line
+    really ran on them. A kernel module nothing imported is left out
+    (the scrape imports nothing)."""
+    import sys
+
+    launches = reg.counter("nns_kernel_launches_total",
+                           "hand-written CUDA kernel launches",
+                           ("kernel",))
+    launches.clear()
+    pkg = __name__.rsplit(".", 2)[0]
+    for name in _KERNELS:
+        mod = sys.modules.get(f"{pkg}.ops.{name}")
+        if mod is not None:
+            launches.set_total(getattr(mod, name).launches, kernel=name)
+
+
 register_collector("serving", _collect_serving)
+register_collector("fabric", _collect_fabric)
+register_collector("services", _collect_services)
 register_collector("fused", _collect_fused)
 register_collector("wire", _collect_wire)
 register_collector("obs", _collect_obs)
+register_collector("kernels", _collect_kernels)

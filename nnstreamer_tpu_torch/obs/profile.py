@@ -1054,22 +1054,51 @@ def render_top(profile_snap: dict, slo_status: List[dict],
                placement: Optional[List[dict]] = None,
                memory: Optional[dict] = None,
                quality: Optional[dict] = None,
+               autoscale: Optional[List[dict]] = None,
+               fleet: Optional[List[dict]] = None,
                transport: Optional[dict] = None) -> str:
     """The ``obs top`` one-shot/watch dashboard: per-element rates,
     queue waits + depths, fused quantiles, request series, SLO burn,
     a MEMORY section (device watermarks, stage byte estimates, queue
     occupancy — :mod:`.memory`) when a memory snapshot is supplied,
     a QUALITY section (per-edge tensor health + drift — :mod:`.quality`)
-    when a quality snapshot is supplied, and — when a placement plan or
-    a transport snapshot is supplied — per-stage device assignment +
-    balance (``runtime.placement.snapshot_all()``) and the wire formats
-    (rendered as the reference does; the port has no wire transport
-    yet)."""
+    when a quality snapshot is supplied, a FLEET section
+    (``obs/fleet.py``) and an AUTOSCALER section (replica counts, last
+    decision inputs — ``service/autoscaler.py``) when their snapshots
+    are supplied, and — when a placement plan or a transport snapshot is
+    supplied — per-stage device assignment + balance
+    (``runtime.placement.snapshot_all()``) and the wire formats. The
+    reference's AOT section waits for an AOT cache in the port."""
     lines = [f"nns obs top — profiling "
              f"{'ON' if profile_snap.get('active') else 'off'}"]
-    # the reference's FLEET and AUTOSCALER sections render obs/fleet.py
-    # and service/autoscaler.py snapshots: they come with those modules
-    # (ROADMAP A6), and its AOT section with the AOT cache (A7)
+    if fleet:
+        from . import fleet as obs_fleet
+
+        lines.extend(obs_fleet.render_section(fleet))
+    for a in autoscale or []:
+        last = a.get("last_decision") or {}
+        lines.append("")
+        lines.append(
+            f"AUTOSCALER [{a.get('name', '?')}] replicas "
+            f"{a.get('replicas', '?')}/{a.get('desired_replicas', '?')} "
+            f"(bounds {a.get('min_replicas', '?')}"
+            f"-{a.get('max_replicas', '?')}) "
+            f"shed={'ARMED' if a.get('shed_armed') else 'off'}")
+        lines.append(
+            f"  events: out={a.get('scale_out', 0)} "
+            f"in={a.get('scale_in', 0)} "
+            f"blocked_by_memory={a.get('blocked_by_memory', 0)} "
+            f"respawns={a.get('respawns', 0)} "
+            f"gave_up={a.get('respawn_gave_up', 0)}")
+        if last:
+            lines.append(
+                f"  last: {last.get('action', '?'):<16} "
+                f"burn {last.get('burn_short', 0):.2f}/"
+                f"{last.get('burn_long', 0):.2f} "
+                f"(n={last.get('samples_short', 0)}) "
+                f"mem {last.get('memory_used_fraction', 0):.2f} "
+                f"cooldown out {last.get('out_cooldown_s', 0):.1f}s / "
+                f"in {last.get('in_cooldown_s', 0):.1f}s")
     if transport and (transport.get("negotiated") or transport.get("shm")):
         # the data plane (transport/stats.py): which wire formats this
         # process's connections negotiated + shm ring traffic/fallbacks

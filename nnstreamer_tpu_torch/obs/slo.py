@@ -28,12 +28,13 @@ every short-window burn falls back under its threshold.
 
 On breach: a ``slo`` flight-recorder event, ``nns_slo_*`` gauges, and —
 when the objective names a ``service`` and the engine was given a
-``manager`` (anything with ``get(name)`` returning an object with
-``readiness()``, ``mark_degraded_external(reason)`` and
-``mark_recovered(reason)``; the reference's ``ServiceManager``, which
-the port does not have yet, ROADMAP A6) — the service flips DEGRADED,
-and back on recovery. ``availability`` objectives never degrade (the
-service is already down — alerting only).
+``manager`` (a :class:`~..service.ServiceManager`) — the Service flips
+READY → DEGRADED through the existing health path
+(``mark_degraded_external``: no supervisor crash, a restart does not fix
+overload; routers and fabric health ticks see ``readiness() == False``
+and shift load). On recovery the engine flips the services IT degraded
+back to READY. ``availability`` objectives never degrade (the service
+is already down — alerting only).
 """
 from __future__ import annotations
 

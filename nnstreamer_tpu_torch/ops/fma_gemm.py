@@ -50,23 +50,31 @@ _F32_NORMAL = (1023 - 126) << 52
 _CPU_BLOCK = 1 << 15
 
 
-def _fma_step(x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+def _fma_step(x: torch.Tensor, acc: torch.Tensor,
+              screen: bool = True) -> torch.Tensor:
     """float64 ``x + acc`` (``x`` exact, ``acc`` float32 values) rounded
-    as one float32 FMA would, returned in float64."""
+    as one float32 FMA would, returned in float64. ``screen``: look for
+    the sums that rounding twice can get wrong first, and redo the step
+    only where there are any; without it every step is redone (cheaper
+    where most blocks have some, as in sums of quantized activations)."""
     s = x + acc
     bits = s.view(torch.int64)
-    suspect = ((bits & _LOW29) == _HALF29) | ((bits & _EXP) < _F32_NORMAL)
-    if bool(suspect.any()):
-        xs, cs, ss = x.expand_as(s)[suspect], acc[suspect], s[suspect]
-        bb = ss - xs
-        err = (xs - (ss - bb)) + (cs - bb)       # ss + err == xs + cs exactly
-        # round to odd: an inexact sum with an even last bit moves one ulp
-        # toward the exact value (toward an infinity of err's sign: ss + err
-        # rounds back to ss)
-        odd = (err != 0) & ((ss.view(torch.int64) & 1) == 0)
-        toward = torch.copysign(torch.full_like(ss, float("inf")), err)
-        s[suspect] = torch.where(odd, torch.nextafter(ss, toward), ss)
-    return s.float().double()
+    if screen:
+        low, exp = bits & _LOW29, bits & _EXP
+        # any suspect, by two integer minima (comparisons cost more here)
+        if not (s.numel() and (int((low ^ _HALF29).min()) == 0
+                               or int(exp.min()) < _F32_NORMAL)):
+            return s.float().double()
+    # round to odd over the whole block: an inexact sum with an even last
+    # bit moves one ulp toward the exact value, +1 on its bits where err
+    # and s have one sign, -1 where they differ (sign(err) is 0 on an
+    # exact sum). Rounded to odd in float64 and then to nearest in
+    # float32, a sum is rounded once (53 >= 24 + 2 bits).
+    bb = s - x
+    err = (x - (s - bb)) + (acc - bb)            # s + err == x + acc exactly
+    step = ((torch.sign(err) * torch.sign(s)).to(torch.int64)
+            * (1 - (bits & 1)))
+    return (bits + step).view(torch.float64).float().double()
 
 
 def fma_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

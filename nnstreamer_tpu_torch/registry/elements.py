@@ -12,7 +12,7 @@ import difflib
 import importlib
 from typing import Dict, List, Optional, Type
 
-from ..runtime.element import Element
+from ..runtime.element import Element, merged_properties  # noqa: F401
 
 _FACTORIES: Dict[str, Type[Element]] = {}
 
@@ -126,3 +126,11 @@ def make_element(factory_name: str, name=None, **props) -> Element:
 def element_factories() -> List[str]:
     load_standard_elements()
     return sorted(_FACTORIES)
+
+
+def get_factory(factory_name: str) -> Type[Element]:
+    """The element class for a factory name (no instantiation)."""
+    load_standard_elements()
+    if factory_name not in _FACTORIES:
+        raise ValueError(_unknown_element_msg(factory_name))
+    return _FACTORIES[factory_name]

@@ -36,6 +36,16 @@ def prop_bool(v) -> bool:
     return str(v).strip().lower() in ("1", "true", "yes", "on")
 
 
+def merged_properties(cls) -> Dict[str, "Prop"]:
+    """The PROPERTIES table merged across the MRO: what an element of
+    ``cls`` accepts (the graph lint's NNL002 unknown-property rule reads
+    it too)."""
+    merged: Dict[str, Prop] = {}
+    for klass in reversed(cls.__mro__):
+        merged.update(getattr(klass, "PROPERTIES", {}) or {})
+    return merged
+
+
 class ElementError(RuntimeError):
     pass
 
@@ -112,9 +122,7 @@ class Element:
         self._fusion_head = None
         self._fusion_member = None
         self.props: Dict[str, Any] = {}
-        merged: Dict[str, Prop] = {}
-        for klass in reversed(cls.__mro__):
-            merged.update(getattr(klass, "PROPERTIES", {}) or {})
+        merged = merged_properties(cls)
         self._prop_defs = merged
         for pname, p in merged.items():
             self.props[pname] = p.default
@@ -544,6 +552,11 @@ class SinkElement(Element):
 
     def chain(self, pad: Pad, buf: Buffer) -> None:
         self.render(buf)
+        # rendered-buffer progress: the service watchdog's liveness signal
+        # (counted only AFTER a successful render, so a crashing sink
+        # never reads as progress)
+        if self.pipeline is not None:
+            self.pipeline.sink_buffer_count += 1
 
     def render(self, buf: Buffer) -> None:
         raise NotImplementedError

@@ -140,6 +140,15 @@ MAX_GRAPHS = 8
 #: the graph)
 WARMUP_RUNS = 3
 
+# the side stream of the warm-up runs and the capture stream, made once
+# a card and shared by every segment's capture under _CAPTURE_LOCK (a
+# stream holds one capture at a time). cuBLAS keeps a workspace per
+# (handle, stream) for the life of the process (33 MiB a stream on an
+# H100), so streams made for each capture would leave two more
+# workspaces on the card at every re-capture (a hot swap, a restart).
+_CAPTURE_LOCK = named_lock("fusion._CAPTURE_LOCK")
+_CAPTURE_STREAMS: Dict[torch.device, tuple] = {}  # guarded-by: _CAPTURE_LOCK
+
 
 def barrier_reason(el: "Element") -> Optional[str]:
     """Why ``el`` cannot join a fused segment (None = fusable candidate).
@@ -527,49 +536,53 @@ class FusedSegment:
     def _capture(self, call: Callable, args: list,
                  home: torch.device) -> _Graph:
         """Warm up on a side stream, then capture ``call`` on static
-        copies of ``args`` (thread-local capture mode)."""
+        copies of ``args`` (thread-local capture mode), on the card's
+        pair of capture streams (``_CAPTURE_STREAMS``)."""
         static_in = []
         for a in args:
             s = torch.empty(a.shape, dtype=a.dtype, device=home)
             s.copy_(a)
             static_in.append(s)
         xs = tuple(static_in)
-        cur = torch.cuda.current_stream(home)
-        side = torch.cuda.Stream(home)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
-                call(xs)
-        cur.wait_stream(side)
-        side.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        before = torch.cuda.memory_reserved(home)
-        cap = torch.cuda.Stream(home)
-        cap.wait_stream(cur)
-        # a garbage collection on this thread during the capture could
-        # destroy an unreachable segment's graph, which the capture
-        # forbids (the capture then fails): none runs until it ends
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.stream(cap):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    outs = call(xs)
-                except BaseException:
+        with _CAPTURE_LOCK:
+            if home not in _CAPTURE_STREAMS:
+                _CAPTURE_STREAMS[home] = (torch.cuda.Stream(home),
+                                          torch.cuda.Stream(home))
+            side, cap = _CAPTURE_STREAMS[home]
+            cur = torch.cuda.current_stream(home)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    call(xs)
+            cur.wait_stream(side)
+            side.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            before = torch.cuda.memory_reserved(home)
+            cap.wait_stream(cur)
+            # a garbage collection on this thread during the capture could
+            # destroy an unreachable segment's graph, which the capture
+            # forbids (the capture then fails): none runs until it ends
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(cap):
+                    graph.capture_begin(capture_error_mode="thread_local")
                     try:
-                        graph.capture_end()
-                    except Exception:  # noqa: BLE001 - the first error is the news
-                        pass
-                    _reset_rng_capture(home)
-                    raise
-                graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        cur.wait_stream(cap)
-        pool = max(0, torch.cuda.memory_reserved(home) - before)
-        return _Graph(graph, static_in, tuple(outs), pool)
+                        outs = call(xs)
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except Exception:  # noqa: BLE001 - the first error is the news
+                            pass
+                        _reset_rng_capture(home)
+                        raise
+                    graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+            cur.wait_stream(cap)
+            pool = max(0, torch.cuda.memory_reserved(home) - before)
+            return _Graph(graph, static_in, tuple(outs), pool)
 
     def _replay(self, call: Callable, args: list, home: torch.device):
         sig = (home,) + tuple((tuple(a.shape), a.dtype) for a in args)

@@ -90,6 +90,11 @@ class Pipeline:
         # analog; mqttsink/mqttsrc stamp epochs against it)
         self.play_t0_mono: Optional[float] = None
         self._halt_threads = ThreadRegistry()
+        # buffers rendered at ANY sink since the last play(); the service
+        # health watchdog reads this as "is data still making it through"
+        # (a plain int: += under the GIL is close enough for a watchdog,
+        # and the render path must stay lock-free)
+        self.sink_buffer_count = 0
         # out-of-band state listeners: cb(kind, source, data) with kind in
         # {"playing", "stopped", "eos", "error"}. Unlike the Bus (a queue
         # one consumer drains), listeners fan out.
@@ -177,6 +182,7 @@ class Pipeline:
             self._playing = True
             self._play_epoch += 1
             self.play_t0_mono = time.monotonic()
+            self.sink_buffer_count = 0
             with self._lock:
                 self._eos_sinks.clear()
             for el in self.elements.values():

@@ -135,6 +135,20 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.elements.mqtt",
     "nnstreamer_tpu_torch.utils.ntp",
     "nnstreamer_tpu_torch.obs.promtext",
+    "nnstreamer_tpu_torch.ops.depthwise_fma",
+    "nnstreamer_tpu_torch.analysis.diagnostics",
+    "nnstreamer_tpu_torch.analysis.graph_lint",
+    "nnstreamer_tpu_torch.service",
+    "nnstreamer_tpu_torch.service.supervisor",
+    "nnstreamer_tpu_torch.service.health",
+    "nnstreamer_tpu_torch.service.models",
+    "nnstreamer_tpu_torch.service.manager",
+    "nnstreamer_tpu_torch.service.api",
+    "nnstreamer_tpu_torch.service.fabric",
+    "nnstreamer_tpu_torch.service.autoscaler",
+    "nnstreamer_tpu_torch.service.procreplica",
+    "nnstreamer_tpu_torch.obs.fleet",
+    "nnstreamer_tpu_torch.__main__",
 ]
 # the slice that needs no TensorFlow to import: blocked too when checked
 TFLITE_MODULES = [
@@ -304,6 +318,33 @@ print("ok")
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("verb", ["replica", "serve", "service",
+                                  "obs"])
+def test_cli_verbs_run_with_jax_blocked(verb):
+    """``python -m nnstreamer_tpu_torch <verb> --help`` in a child with
+    jax and nnstreamer_tpu unimportable (the child a ProcReplica spawns,
+    and the serve process)."""
+    code = f"""
+import runpy, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+sys.argv = ["nnstreamer_tpu_torch", {verb!r}, "--help"]
+try:
+    runpy.run_module("nnstreamer_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.rstrip().endswith("ok") and "usage:" in r.stdout
 
 
 def test_zoo_line_constructs_with_jax_blocked():

@@ -177,3 +177,54 @@ def test_datareposrc_native_feeds_card_in_python_order(tmp_path):
         got[native] = (order, outs)
     assert got[True][0] == got[False][0] and len(got[True][0]) == 6
     assert all(torch.equal(a, b) for a, b in zip(got[True][1], got[False][1]))
+
+
+# the fixture's depthwise shapes (3x3 SAME at strides 1 and 2), with and
+# without the reassociated centre tap of a fake-quantized input; VALID
+# padding, and tiles and channel blocks cut short at the edges
+@pytest.mark.parametrize("n,hw,c,stride,padding,scale", [
+    (4, 112, 32, 1, "SAME", 0.0204), (4, 112, 96, 2, "SAME", None),
+    (3, 7, 960, 1, "SAME", 0.05), (2, 9, 5, 2, "VALID", None),
+    (1, 14, 576, 1, "SAME", None), (2, 15, 40, 2, "SAME", 0.05),
+    (2, 13, 144, 1, "SAME", 0.05)])
+def test_depthwise_fma_kernel_equals_its_plain_version(n, hw, c, stride,
+                                                       padding, scale):
+    from nnstreamer_tpu_torch.models.tflite_import import explicit_padding
+    from nnstreamer_tpu_torch.ops.depthwise_fma import (depthwise_fma,
+                                                        depthwise_fma_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(hw + c)
+    if scale is None:
+        x = torch.randn(n, hw, hw, c, device="cuda", generator=g)
+    else:  # a fake-quantized activation k * s
+        q = torch.randint(-128, 128, (n, hw, hw, c), device="cuda",
+                          generator=g).float()
+        x = q * torch.tensor(scale, device="cuda")
+    w = torch.randn(1, 3, 3, c, device="cuda", generator=g) / 3
+    oh, ow, pads = explicit_padding(hw, hw, 3, 3, (stride, stride), (1, 1),
+                                    padding)
+    args = (x, w, (stride, stride), (1, 1), pads, (oh, ow), scale)
+    before = depthwise_fma.launches
+    got = depthwise_fma(*args)
+    assert depthwise_fma.launches == before + 1
+    assert torch.equal(got, depthwise_fma_plain(*args))
+    cpu = depthwise_fma(x.cpu(), w.cpu(), *args[2:])
+    assert torch.equal(got.cpu(), cpu)
+
+
+# the kernel is built for the listed shapes' window alone; the plain
+# version (the CPU path) takes any
+@pytest.mark.parametrize("k,mult,stride,dil", [
+    (5, 1, 1, 1), (2, 1, 1, 1), (3, 2, 1, 1), (3, 1, 1, 2), (3, 1, 3, 1)])
+def test_depthwise_fma_kernel_refuses_other_windows(k, mult, stride, dil):
+    from nnstreamer_tpu_torch.models.tflite_import import explicit_padding
+    from nnstreamer_tpu_torch.ops.depthwise_fma import depthwise_fma
+
+    x = torch.randn(1, 9, 9, 4, device="cuda")
+    w = torch.randn(1, k, k, 4 * mult, device="cuda")
+    oh, ow, pads = explicit_padding(9, 9, k, k, (stride, stride), (dil, dil),
+                                    "SAME")
+    before = depthwise_fma.launches
+    with pytest.raises(ValueError, match="3x3 window"):
+        depthwise_fma(x, w, (stride, stride), (dil, dil), pads, (oh, ow))
+    assert depthwise_fma.launches == before

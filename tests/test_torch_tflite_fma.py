@@ -10,7 +10,7 @@
   float32 midpoint included);
 * the full-width fixture's first conv, in the reference's jitted
   fake-quant forward and the port's, gives the same float32 values;
-* the whole fake-quant forward stays within the 6 LSB that ROADMAP §C
+* the whole fake-quant forward stays within the 5 LSB that ROADMAP §C
   records for the open fault."""
 from fractions import Fraction
 
@@ -160,9 +160,10 @@ def test_fixture_first_conv_equals_the_jitted_reference():
 
 def test_full_width_fake_quant_no_further_than_recorded():
     """The open fault as ROADMAP §C records it: on the fixture's 4 frames
-    the port's fake-quant is 6 LSB from the jitted reference (4 on the
-    first 2 frames). The 2 LSB asked does not hold; this holds the
-    distance from growing."""
+    the port's fake-quant is 5 LSB from the jitted reference (4 on the
+    first 2 frames), since the depthwise convs sum in XLA's FMA order
+    (``tests/test_torch_tflite_dw_fma.py``). The 2 LSB asked does not
+    hold; this holds the distance from growing."""
     import nnstreamer_tpu.models.tflite_import as R
     from pathlib import Path
     model = str(Path(__file__).resolve().parent / "fixtures"
@@ -174,5 +175,5 @@ def test_full_width_fake_quant_no_further_than_recorded():
     pfn, _, _ = P.load_tflite(model, opts, device="cpu")
     want = np.asarray(jax.jit(rfn)(frames)[0]).astype(np.int64)
     got = pfn(torch.from_numpy(frames))[0].numpy().astype(np.int64)
-    assert int(np.abs(got - want).max()) <= 6
+    assert int(np.abs(got - want).max()) <= 5
     assert int(np.abs(got[:2] - want[:2]).max()) <= 4
