@@ -300,10 +300,12 @@ phase fails:
     nothing reaches the sink). (e) ``datareposrc`` (shuffled, 2 epochs)
     feeds the int8 filter with ``use-native`` true and false: the same
     samples in the same order, the same outputs; frames/s. fake-quant's
-    convs at the shapes of ``FMA_ORDER_SHAPES`` run ``csrc/fma_gemm.cu``
-    (the reference's XLA:CPU summation order): it must launch once a
-    listed conv a forward, and equal its plain version bit for bit at
-    every shape of a forward, on the line's own operands (times for each
+    convs at the shapes of ``FMA_ORDERS`` run ``csrc/fma_gemm.cu``
+    (the reference's XLA:CPU summation order: one, two or four chains,
+    or one chain a block of K): it must launch once a listed conv a
+    forward, and equal its plain version bit for bit at every shape and
+    order of a forward, on the line's own operands, and give the same
+    bits on those operands as a strided view (times for each
     shape and a forward beside the bound and ``torch.matmul``'s).
     fake-quant's depthwise convs at the shapes of
     ``DEPTHWISE_FMA_SHAPES`` run ``csrc/depthwise_fma.cu`` (XLA:CPU's
@@ -378,11 +380,40 @@ phase fails:
     SIGKILL → readmit, scale-out time. (e) a caps mismatch and an
     unknown element refused with ``AdmissionRejected`` (NNL003, NNL001).
 
+19. training, MoE and the parallel layer (also ``--only train``), float32
+    with TF32 off, the ``base`` LM's width. (a) five SGD steps (lr 1e-2)
+    of ``models/transformer.py::make_train_step`` on a seeded (8, 513)
+    batch; gates: the losses finite and falling; step 0's loss within a
+    relative 1e-5 of a float64 step on the card from the same weights,
+    its whole gradient (every leaf as one vector) within a relative L2
+    error of 1e-2 and each leaf within 5e-2 (TR_*_RTOL; read at 1.36e-3
+    whole and 1.84e-3 the worst leaf, block 0's, at this width). Step ms
+    (CUDA events), tokens/s, peak bytes. (b) the same with
+    ``moe_experts=8`` (the float64 step replays the float32 step's
+    routing, counting the decisions its own argmax would take otherwise);
+    the aux term and the tokens dropped over capacity a layer. (c)
+    ``appsrc ! tensor_filter model=...lm_serving:base_moe ! tensor_sink``,
+    3 requests of (8, 128), 64 steps; gates: 2268 decode and 36 flash
+    launches; every token the dense path's argmax on the same prefix and
+    routing (recorded from the filter's run), but at a near tie (top-2
+    margin below 1e-4). (d) ``appsrc ! tensor_trainer framework=optax
+    model-config=nnstreamer_tpu_torch/models/lm_train.py
+    custom=batch:8,optimizer:adamw,ckpt_dir:...`` with 32 training and 8
+    validation samples an epoch: 2 epochs, then a resume to 4; gates:
+    the history kept, the resumed losses and final validation loss within
+    a relative 1e-3 of an uninterrupted 4-epoch run, the parameters on the
+    card. (e) a world-1 NCCL group: one meshed step with ``attn_impl``
+    ring, ulysses and gspmd, each within the gates of (a) of the meshless
+    step: 1e-5 on the loss, 1e-2 on the whole update and 5e-2 on each
+    leaf's (relative L2; read at 1.14e-3 whole and 1.26e-2 the worst
+    leaf, the ring's); a 1-stage GPipe of block 0's MLP, outputs and
+    gradients equal to the plain stage's.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
-plugins``, ``--only tflite``, ``--only query``, ``--only service``) runs
-phase 13 (14, 15, 16, 17, 18) alone and prints its report as the last
+plugins``, ``--only tflite``, ``--only query``, ``--only service``,
+``--only train``) runs phase 13 (14, 15, 16, 17, 18, 19) alone and prints its report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
@@ -4975,11 +5006,12 @@ def tf_run(mode: str) -> dict:
 
 
 def tf_fma_convs() -> dict:
-    """{(M, K, N): convs a forward} of the fixture's CONV_2D steps that sum
-    in XLA's FMA order at batch TF_BATCH, as GEMMs (M, K) x (K, N)."""
+    """{(M, K, N, chains, kblock): convs a forward} of the fixture's
+    CONV_2D steps that sum in XLA's FMA order at batch TF_BATCH, as GEMMs
+    (M, K) x (K, N) in that order."""
     from collections import Counter
 
-    from nnstreamer_tpu_torch.models.tflite_import import (FMA_ORDER_SHAPES,
+    from nnstreamer_tpu_torch.models.tflite_import import (FMA_ORDERS,
                                                            read_model)
 
     steps, tensors, *_ = read_model(str(TF_MODEL))
@@ -4989,9 +5021,10 @@ def tf_fma_convs() -> dict:
             oc, kh, kw, ic = tensors[ins[1]].shape
             _, h, w, _ = tensors[ins[0]].shape
             _, oh, ow, _ = tensors[outs[0]].shape
-            if (TF_BATCH, h, w, kh, kw, *cfg["strides"], ic,
-                    oc) in FMA_ORDER_SHAPES:
-                convs[(TF_BATCH * oh * ow, kh * kw * ic, oc)] += 1
+            order = FMA_ORDERS.get((TF_BATCH, h, w, kh, kw,
+                                    *cfg["strides"], ic, oc))
+            if order:
+                convs[(TF_BATCH * oh * ow, kh * kw * ic, oc, *order)] += 1
     return dict(convs)
 
 
@@ -5007,11 +5040,12 @@ def tf_fma_kernel(fake_quant_fn, convs: dict) -> dict:
     n0 = fma_gemm.launches
     operands = {}
 
-    def catch(a, b):
-        key = (a.numel() // a.shape[-1], *b.shape)
+    def catch(a, b, chains=1, kblock=0):
+        key = (a.numel() // a.shape[-1], *b.shape, chains, kblock)
         operands.setdefault(key, []).append(
-            (a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous()))
-        return fma_gemm(a, b)
+            (a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous(), chains,
+             kblock))
+        return fma_gemm(a, b, chains, kblock)
     ti.fma_gemm = catch
     try:
         fake_quant_fn(tf_device_frames(0))
@@ -5024,20 +5058,32 @@ def tf_fma_kernel(fake_quant_fn, convs: dict) -> dict:
     shapes, err = [], 0.0
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     side = {"bytes": 0.0, "operations": 0.0}
-    for (M, K, N), args in sorted(operands.items()):
-        for a, b in args:
-            got, want = fma_gemm(a, b), fma_gemm_plain(a, b)
+    for (M, K, N, chains, kblock), args in sorted(operands.items()):
+        for a, b, _, _ in args:
+            got = fma_gemm(a, b, chains, kblock)
+            want = fma_gemm_plain(a, b, chains, kblock)
             err = max(err, float((got - want).abs().max()))
             if not torch.equal(got, want):
-                fail(f"fma_gemm at ({M}, {K}) x ({K}, {N}): "
-                     f"{int((got != want).sum())} of {got.numel()} values "
-                     "differ from the plain version (bit-equal required)")
+                fail(f"fma_gemm at ({M}, {K}) x ({K}, {N}), {chains} chains, "
+                     f"blocks of {kblock}: {int((got != want).sum())} of "
+                     f"{got.numel()} values differ from the plain version "
+                     "(bit-equal required)")
+        # the same rows as a strided view (a channel slice of wider rows)
+        # must read as their values
+        wide = torch.full((M, K + 8), float("nan"), device=a.device)
+        wide[:, 4:4 + K] = a
+        if not torch.equal(fma_gemm(wide[:, 4:4 + K], b, chains, kblock), got):
+            fail(f"fma_gemm at ({M}, {K}) x ({K}, {N}), {chains} chains, "
+                 f"blocks of {kblock}: a strided view of the operand gives "
+                 "other values than its contiguous copy")
         by = {"bytes": (M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S * 1e3,
               "operations": 2 * M * N * K / F32_FLOP_PER_S * 1e3}
-        one = {"shape_mkn": [M, K, N], "per_forward": len(args),
+        one = {"shape_mkn": [M, K, N], "chains": chains, "kblock": kblock,
+               "per_forward": len(args),
                "ms": time_ms(fma_gemm, args, reps=5, inner=10),
                "plain_ms": time_ms(fma_gemm_plain, args, reps=3, inner=1),
-               "library_ms": time_ms(torch.matmul, args, reps=5, inner=10),
+               "library_ms": time_ms(lambda a, b, *_: torch.matmul(a, b),
+                                     args, reps=5, inner=10),
                "bound_ms": max(by.values()),
                "bound_by": max(by, key=by.get)}
         shapes.append(one)
@@ -6801,6 +6847,479 @@ def phase_service_alone(report: dict) -> None:
     phase_service(report, prompts, want)
 
 
+# -- phase 19: training, MoE and the parallel layer ---------------------------
+
+TR_BATCH, TR_SEQ, TR_STEPS, TR_LR = 8, 512, 5, 1e-2
+# float32 (TF32 off) vs float64 on the card, step 0 of the same weights:
+# the loss within a relative 1e-5; the whole gradient (every leaf as one
+# vector) within a relative L2 error of 1e-2 and each leaf within 5e-2.
+# At init the softmax over 32000 words is near uniform, so a weight's
+# gradient is a small residual of per-token terms that cancel over 4096
+# tokens and 12 layers: float32 gets it to about 1e-3 of its norm at this
+# width (every op alone, forward and backward, is within 4e-6 of float64
+# on the card), where a wrong term or scale would be off by order 1
+TR_LOSS_RTOL, TR_GRAD_RTOL, TR_LEAF_RTOL = 1e-5, 1e-2, 5e-2
+# the MoE serving line: 3 requests of (8, 128), 64 steps each
+MOE_PROMPT = 128
+# tensor_trainer: samples an epoch (train + validation), batch; the resumed
+# run's loss history against the uninterrupted run's, relative (the
+# embedding's backward adds with atomics: not bit for bit)
+TT_TRAIN, TT_VAL, TT_BATCH, TT_RTOL = 32, 8, 8, 1e-3
+TT_CONFIG = ROOT / "nnstreamer_tpu_torch" / "models" / "lm_train.py"
+
+
+def tr_tokens(vocab: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, vocab, (TR_BATCH, TR_SEQ + 1)).astype(np.int32)
+
+
+def tr_grad_errs(got, want) -> tuple:
+    """(whole-gradient relative L2 error, {leaf: relative L2 error})."""
+    from nnstreamer_tpu_torch.utils.tree import tree_named
+
+    num = den = 0.0
+    per = {}
+    for (name, a), (_, b) in zip(tree_named(got), tree_named(want)):
+        d = float(torch.linalg.vector_norm(a.double() - b.double())) ** 2
+        n = float(torch.linalg.vector_norm(b.double())) ** 2
+        num, den = num + d, den + n
+        per[name] = (d / n) ** 0.5 if n else (0.0 if d == 0 else float("inf"))
+    return (num / den) ** 0.5, per
+
+
+def tr_rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.clamp(torch.linalg.vector_norm(b), min=1e-300))
+
+
+class tr_routing:
+    """Wraps parallel/moe.py's ``_route`` for a block: ``record`` keeps
+    each call's expert choice, keep mask and top-2 router probability gap;
+    ``force`` replays recorded choices (the float64 reference takes the
+    float32 run's discrete routing, since the two may break a near tie
+    apart) and counts the calls' tokens whose own argmax differs."""
+
+    def __init__(self, mode: str, store: Optional[list] = None):
+        import nnstreamer_tpu_torch.parallel.moe as M
+
+        self.M, self.mode = M, mode
+        self.store = store if store is not None else []
+        self.flipped = 0
+
+    def __enter__(self):
+        orig = self.orig = self.M._route
+        calls = iter(list(self.store)) if self.mode == "force" else None
+
+        def route(params, xt, C_, lead_shape, mesh=None, token_axes=()):
+            out = orig(params, xt, C_, lead_shape, mesh, token_axes)
+            logits, gate, expert, onehot, pos, keep = out
+            if self.mode == "record":
+                top = torch.topk(torch.softmax(logits.detach(), -1), 2).values
+                self.store.append({"expert": expert.clone(),
+                                   "dropped": (~keep).sum(),
+                                   "gap": (top[:, 0] - top[:, 1]).min()})
+                return out
+            want = next(calls)["expert"]
+            self.flipped += int((want != expert).sum())
+            probs = torch.softmax(logits, -1)
+            gate = probs.gather(-1, want[:, None])[:, 0]
+            onehot = torch.nn.functional.one_hot(want, logits.shape[-1]).to(
+                onehot.dtype)
+            pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1).long()
+            return logits, gate, want, onehot, pos, pos < C_
+
+        self.M._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.M._route = self.orig
+
+
+def tr_step_check(name: str, cfg, dev: torch.device) -> dict:
+    """(a)/(b): step 0 against float64, then TR_STEPS SGD steps."""
+    from nnstreamer_tpu_torch.models.transformer import (
+        init_params, loss_and_grads, make_train_step, tree_leaves, tree_map)
+
+    params = init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(tr_tokens(cfg.vocab)).to(dev)
+    moe = cfg.moe_experts > 0
+    rec = tr_routing("record")
+    if moe:
+        with rec:
+            loss32, g32 = loss_and_grads(cfg, params, toks)
+    else:
+        loss32, g32 = loss_and_grads(cfg, params, toks)
+    p64 = tree_map(lambda p: p.double(), params)
+    force = tr_routing("force", rec.store)
+    if moe:
+        with force:
+            loss64, g64 = loss_and_grads(cfg, p64, toks)
+    else:
+        loss64, g64 = loss_and_grads(cfg, p64, toks)
+    loss_err = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    grad_err, per_leaf = tr_grad_errs(g32, g64)
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    del p64, g64, g32
+    if not loss_err <= TR_LOSS_RTOL or not grad_err <= TR_GRAD_RTOL \
+            or not worst[0][1] <= TR_LEAF_RTOL:
+        fail(f"train {name}: step 0 vs float64: loss rel err {loss_err:.3e} "
+             f"(<= {TR_LOSS_RTOL}), gradient rel L2 {grad_err:.3e} (<= "
+             f"{TR_GRAD_RTOL}), worst leaves {worst} (<= {TR_LEAF_RTOL})")
+    step, _, _ = make_train_step(cfg, None, lr=TR_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(TR_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, loss = step(params, toks)
+        e1.record()
+        e1.synchronize()
+        losses.append(float(loss))
+        ms.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        fail(f"train {name}: losses {losses} not finite and decreasing")
+    if not all(p.is_cuda for p in tree_leaves(params)):
+        fail(f"train {name}: parameters left the card")
+    steady = statistics.mean(ms[1:])
+    r = {"losses": losses, "step_ms": ms, "step_ms_steady": steady,
+         "tokens_per_s": TR_BATCH * TR_SEQ / (steady / 1e3),
+         "peak_bytes": peak, "loss_rel_err_f64": loss_err,
+         "grad_rel_l2_f64": grad_err, "worst_leaves_f64": worst,
+         "parameters": sum(p.numel() for p in tree_leaves(params))}
+    if moe:
+        per_call = [int(c["dropped"]) for c in rec.store]
+        r["dropped_tokens_step0"] = per_call
+        r["routing_flips_f64"] = force.flipped
+        aux_cfg = replace(cfg, moe_aux_weight=0.0)
+        from nnstreamer_tpu_torch.models.transformer import loss_fn
+        with torch.no_grad():
+            r["aux_term_step5"] = float(loss_fn(cfg, params, toks)) - float(
+                loss_fn(aux_cfg, params, toks))
+    print(f"train {name} ({cfg.layers} layers, dim {cfg.dim}, "
+          f"{r['parameters']} parameters, f32, TF32 off): step 0 vs float64 "
+          f"loss rel err {loss_err:.3e}, gradient rel L2 {grad_err:.3e}, "
+          f"worst leaves {[(k, '%.2e' % v) for k, v in worst]}; losses "
+          f"{['%.6f' % x for x in losses]}; "
+          f"step {steady:.3f} ms (steps 2-{TR_STEPS}, CUDA events) = "
+          f"{r['tokens_per_s']:.1f} tokens/s; peak {peak} bytes"
+          + (f"; dropped tokens at step 0 by layer {r['dropped_tokens_step0']}"
+             f", aux term {r['aux_term_step5']:.6f}, routing flips in the "
+             f"float64 pass {force.flipped}" if moe else ""))
+    return r
+
+
+def tr_kernel_launches() -> dict:
+    from nnstreamer_tpu_torch.ops.depthwise_fma import depthwise_fma
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm
+
+    return {**read_launches(), "fma_gemm": fma_gemm.launches,
+            "depthwise_fma": depthwise_fma.launches}
+
+
+def tr_reset_launches() -> None:
+    from nnstreamer_tpu_torch.ops.depthwise_fma import depthwise_fma
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm
+
+    reset_launches()
+    fma_gemm.launches = depthwise_fma.launches = 0
+
+
+def tr_moe_serving(dev: torch.device) -> dict:
+    """(c) the MoE ``base`` entry serving 3 requests through the filter
+    line (both kernels), against the dense path's greedy tokens."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.models.decoding import (
+        decode_step, init_cache, prefill)
+    from nnstreamer_tpu_torch.models.lm_serving import base_moe
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    cfg = base_moe.cfg
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, (8, MOE_PROMPT)).astype(np.int32)
+               for _ in range(REQUESTS)]
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,"
+        f"dimensions={MOE_PROMPT}:8,types=int32 ! tensor_filter "
+        "framework=torch model=nnstreamer_tpu_torch.models.lm_serving:base_moe"
+        f" name=f ! tensor_sink name=out max-stored={REQUESTS}")
+    outs, t_out = [], []
+
+    def on_data(buf):
+        torch.cuda.synchronize()
+        t_out.append(time.perf_counter())
+        outs.append(buf.tensors[0])
+
+    pipe.get("out").connect(on_data)
+    rec = tr_routing("record")
+    tr_reset_launches()
+    t0 = time.perf_counter()
+    with rec:
+        pipe.play()
+        try:
+            for p in prompts:
+                pipe.get("in").push_buffer(p)
+            pipe.get("in").end_of_stream()
+            msg = pipe.wait(timeout=600)
+        finally:
+            pipe.stop()
+    launches = tr_kernel_launches()
+    if msg.type is not MessageType.EOS or len(outs) != REQUESTS:
+        fail(f"train moe serving: {msg}, {len(outs)} outputs")
+    check_launches("train moe serving", {k: launches[k] for k in (
+        "decode_attention", "flash_attention")}, cfg.layers)
+    if launches["fma_gemm"] or launches["depthwise_fma"]:
+        fail(f"train moe serving: tflite kernels launched {launches}")
+    gap = min(float(c["gap"]) for c in rec.store)
+    # the dense path on the same weights, replaying the filter run's
+    # routing (recorded call by call: a prefill and STEPS - 1 decode steps
+    # a request, one call a layer each), teacher-forced on the filter's
+    # tokens: each token must be the dense path's argmax, but at a near
+    # tie of its logits
+    per = cfg.layers * STEPS
+    if len(rec.store) != REQUESTS * per:
+        fail(f"train moe serving: {len(rec.store)} routing calls, expected "
+             f"{REQUESTS * per}")
+    params = base_moe.build_params(dev)
+    cfg_d = replace(cfg, decode_attn="dense", prefill_attn="dense")
+    ties, flips = [], 0
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        if not (o.is_cuda and tuple(o.shape) == (8, MOE_PROMPT + STEPS)):
+            fail(f"train moe serving: output {tuple(o.shape)} on {o.device}")
+        got = o.cpu().numpy()
+        if not np.array_equal(got[:, :MOE_PROMPT], p):
+            fail("train moe serving: prompt not echoed unchanged")
+        force = tr_routing("force", rec.store[i * per:(i + 1) * per])
+        with force, torch.inference_mode():
+            cache = init_cache(cfg_d, 8, params["embed"].dtype, dev)
+            logits, cache, pos = prefill(
+                cfg_d, params, torch.from_numpy(p).to(dev), cache)
+            for j in range(STEPS):
+                if j:
+                    tok = torch.from_numpy(got[:, MOE_PROMPT + j - 1]).to(dev)
+                    logits, cache = decode_step(cfg_d, params, tok,
+                                                pos + j - 1, cache)
+                top = torch.topk(logits.float(), 2)
+                want = top.indices[:, 0].cpu().numpy()
+                margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+                for b in np.nonzero(want != got[:, MOE_PROMPT + j])[0]:
+                    if not margin[b] < CS_TIE_MARGIN:
+                        fail(f"train moe serving request {i} row {b}: token "
+                             f"{j} is {got[b, MOE_PROMPT + j]}, the dense "
+                             f"path's {want[b]} (top-2 margin {margin[b]})")
+                    ties.append({"request": i, "row": int(b), "step": j,
+                                 "margin": float(margin[b])})
+        flips += force.flipped
+    wall = t_out[-1] - t_out[0]
+    r = {"launches": launches, "ties": ties, "least_router_gap": gap,
+         "routing_disagreements_dense": flips,
+         "dropped_tokens": sum(int(c["dropped"]) for c in rec.store),
+         "tokens_per_s_steady": (REQUESTS - 1) * 8 * STEPS / wall,
+         "first_request_s_incl_model_build": t_out[0] - t0}
+    print(f"train moe serving: {REQUESTS} x (8, {MOE_PROMPT}) -> {STEPS} "
+          "tokens through lm_serving:base_moe, each the dense path's argmax "
+          "on the same prefix and routing"
+          f"{' but at ' + str(len(ties)) + ' near ties' if ties else ''}; "
+          f"launches {launches}; {r['tokens_per_s_steady']:.1f} tokens/s "
+          f"(requests 2-3); least router gap {gap:.3e}, {flips} routing "
+          "decisions the dense path would take otherwise; tokens dropped "
+          f"over capacity {r['dropped_tokens']}")
+    return r
+
+
+def tt_run(epochs: int, ckpt_dir: Optional[str], samples) -> dict:
+    """One tensor_trainer line over ``epochs`` epochs' frames."""
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    ck = f",ckpt_dir:{ckpt_dir},ckpt_every:2" if ckpt_dir else ""
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,num_tensors=2,"
+        f"dimensions={TR_SEQ}.{TR_SEQ},types=int32.int32 ! tensor_trainer "
+        f"name=t framework=optax model-config={TT_CONFIG} "
+        f"custom=batch:{TT_BATCH},optimizer:adamw{ck} "
+        f"num-training-samples={TT_TRAIN} num-validation-samples={TT_VAL} "
+        f"epochs={epochs}")
+    t0 = time.perf_counter()
+    pipe.play()
+    try:
+        backend = pipe.get("t").backend
+        for _ in range(epochs):
+            for s in samples:
+                pipe.get("in").push_buffer([s[:-1], s[1:]])
+        pipe.get("in").end_of_stream()
+        # the completion message comes before the EOS, which wait() takes
+        done = pipe.bus.wait_for((MessageType.ELEMENT, MessageType.ERROR),
+                                 timeout=600)
+        wall = time.perf_counter() - t0
+        msg = pipe.wait(timeout=60)
+    finally:
+        pipe.stop()
+    if done is None or done.type is not MessageType.ELEMENT \
+            or done.data["event"] != "training-complete" \
+            or msg.type is not MessageType.EOS:
+        fail(f"train tensor_trainer: {done}, {msg}")
+    if not all(p.is_cuda for p in backend._opt.param_groups[0]["params"]):
+        fail("train tensor_trainer: parameters not on the card")
+    return {"losses": list(backend.losses),
+            "accuracies": list(backend.accuracies),
+            "validation_loss": done.data["validation_loss"],
+            "epochs": done.data["epochs"], "wall_s": wall}
+
+
+def tr_trainer() -> dict:
+    """(d) tensor_trainer on the base LM: 2 epochs with a checkpoint, a
+    resume to 4, against an uninterrupted 4-epoch run."""
+    import tempfile
+
+    from nnstreamer_tpu_torch.models.lm_serving import base
+
+    samples = np.random.default_rng(1).integers(
+        0, base.cfg.vocab, (TT_TRAIN + TT_VAL, TR_SEQ + 1)).astype(np.int32)
+    with tempfile.TemporaryDirectory() as ck:
+        first = tt_run(2, ck, samples)
+        resumed = tt_run(4, ck, samples)
+    whole = tt_run(4, None, samples)
+    if (first["epochs"], resumed["epochs"], whole["epochs"]) != (2, 4, 4):
+        fail(f"train tensor_trainer: epochs {first['epochs']}, "
+             f"{resumed['epochs']}, {whole['epochs']}")
+    if resumed["losses"][:2] != first["losses"]:
+        fail("train tensor_trainer: the resumed run lost the history")
+    err = max(abs(a - b) / abs(b) for a, b in zip(
+        resumed["losses"] + [resumed["validation_loss"]],
+        whole["losses"] + [whole["validation_loss"]]))
+    if not err <= TT_RTOL or not whole["losses"][-1] < whole["losses"][0]:
+        fail(f"train tensor_trainer: resumed {resumed['losses']} vs whole "
+             f"{whole['losses']} (rel err {err:.3e} > {TT_RTOL}) or no "
+             "decrease")
+    n = (TT_TRAIN + TT_VAL) * 4
+    r = {"first": first, "resumed": resumed, "whole": whole,
+         "loss_rel_err": err, "samples_per_s_whole": n / whole["wall_s"]}
+    print(f"train tensor_trainer (base LM, adamw, batch {TT_BATCH}, "
+          f"{TT_TRAIN} + {TT_VAL} samples an epoch): 2 epochs + resume to 4 "
+          f"= the uninterrupted 4 within rel {err:.3e}; losses "
+          f"{['%.5f' % x for x in whole['losses']]}; validation loss "
+          f"{whole['validation_loss']:.5f}; {r['samples_per_s_whole']:.1f} "
+          "samples/s over the whole line (model build included)")
+    return r
+
+
+def tr_parallel(dev: torch.device) -> dict:
+    """(e) a world-1 NCCL group: meshed steps (ring, ulysses, gspmd) and a
+    1-stage pipeline against the meshless runs."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.models.transformer import (
+        init_params, make_train_step, tree_leaves)
+    from nnstreamer_tpu_torch.parallel import init_multihost, make_mesh
+    from nnstreamer_tpu_torch.parallel.pipeline import (
+        make_pipeline, stack_stage_params)
+
+    init_multihost(f"127.0.0.1:{sv_free_port()}", 1, 0)
+    r: dict = {"backend": dist.get_backend()}
+    try:
+        if r["backend"] != "nccl":
+            fail(f"train parallel: backend {r['backend']}, expected nccl")
+        mesh = make_mesh(None, {"dp": 1, "tp": 1, "sp": 1})
+        cfg = base.cfg
+        params = init_params(cfg, seed=0, device=dev)
+        toks = tr_tokens(cfg.vocab)
+        step0, _, _ = make_train_step(cfg, None, lr=TR_LR)
+        want, want_loss = step0(params, torch.from_numpy(toks).to(dev))
+        want_d = [w - p for w, p in zip(tree_leaves(want),
+                                        tree_leaves(params))]
+        del want
+        for impl in ("ring", "ulysses", "gspmd"):
+            step, shard, sharding = make_train_step(
+                replace(cfg, attn_impl=impl), mesh, lr=TR_LR)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            p, t = shard(params), sharding(toks)
+            e0.record()
+            got, loss = step(p, t)
+            e1.record()
+            e1.synchronize()
+            loss_err = abs(float(loss) - float(want_loss)) / float(want_loss)
+            d_err, per = tr_grad_errs(
+                [g - q for g, q in zip(tree_leaves(got), tree_leaves(params))],
+                want_d)
+            del got
+            if not loss_err <= TR_LOSS_RTOL or not d_err <= TR_GRAD_RTOL \
+                    or not max(per.values()) <= TR_LEAF_RTOL:
+                fail(f"train parallel {impl}: loss rel err {loss_err:.3e}, "
+                     f"update rel L2 {d_err:.3e}, worst leaf "
+                     f"{max(per.values()):.3e} vs the meshless step")
+            r[impl] = {"loss_rel_err": loss_err, "update_rel_l2": d_err,
+                       "update_rel_l2_worst_leaf": max(per.values()),
+                       "step_ms": e0.elapsed_time(e1)}
+        # a 1-stage GPipe over the pp axis: block 0's MLP on 4 microbatches
+        mesh_pp = make_mesh(None, {"pp": 1})
+        blk = params["blocks"][0]
+        stage = {"w1": blk["w1"], "w2": blk["w2"]}
+
+        def stage_fn(q, x):
+            return x + torch.relu(x @ q["w1"]) @ q["w2"]
+
+        g = torch.Generator(device=dev).manual_seed(5)
+        xs = torch.randn((4, 2, TR_SEQ, cfg.dim), generator=g, device=dev)
+        run = make_pipeline(stage_fn, 1, mesh_pp)
+        stacked = {k: v.detach().requires_grad_(True) for k, v in
+                   stack_stage_params([stage]).items()}
+        ys = run(stacked, xs)
+        gp = torch.autograd.grad((ys ** 2).mean(), list(stacked.values()))
+        plain = {k: v.detach().requires_grad_(True) for k, v in stage.items()}
+        yd = torch.stack([stage_fn(plain, x) for x in xs])
+        gd = torch.autograd.grad((yd ** 2).mean(), list(plain.values()))
+        out_err = tr_rel_l2(ys.detach(), yd.detach())
+        grad_err = max(tr_rel_l2(a[0], b) for a, b in zip(gp, gd))
+        if not out_err <= 1e-6 or not grad_err <= 1e-6:
+            fail(f"train parallel pipeline: outputs rel {out_err:.3e}, grads "
+                 f"rel {grad_err:.3e} vs the plain stage")
+        r["pipeline"] = {"out_rel_l2": out_err, "grad_rel_l2": grad_err}
+    finally:
+        dist.destroy_process_group()
+    print(f"train parallel (world of 1, {r['backend']}): meshed steps equal "
+          "the meshless one — "
+          + "; ".join(f"{k} loss rel {r[k]['loss_rel_err']:.2e}, update rel "
+                      f"{r[k]['update_rel_l2']:.2e}, "
+                      f"{r[k]['step_ms']:.1f} ms"
+                      for k in ("ring", "ulysses", "gspmd"))
+          + f"; 1-stage pipeline outputs rel {r['pipeline']['out_rel_l2']:.1e}"
+          f", grads rel {r['pipeline']['grad_rel_l2']:.1e}")
+    return r
+
+
+def phase_train(report: dict, dev: torch.device) -> None:
+    """Phase 19: training, MoE and the parallel layer (module
+    docstring)."""
+    from nnstreamer_tpu_torch.models.lm_serving import base
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("train: TF32 is on")
+    r = report["train"] = {}
+    r["dense"] = tr_step_check("base dense", base.cfg, dev)
+    torch.cuda.empty_cache()
+    r["moe"] = tr_step_check("base moe8", replace(base.cfg, moe_experts=8),
+                             dev)
+    torch.cuda.empty_cache()
+    r["moe_serving"] = tr_moe_serving(dev)
+    torch.cuda.empty_cache()
+    r["trainer"] = tr_trainer()
+    torch.cuda.empty_cache()
+    r["parallel"] = tr_parallel(dev)
+
+
+def phase_train_alone(report: dict) -> None:
+    """--only train: the kernels built, then phase 19."""
+    phase_build(report)
+    phase_train(report, ST_DEV)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -6821,19 +7340,19 @@ def main() -> None:
     alone = {"fusion": phase_fusion, "streams": phase_streams,
              "plugins": phase_plugins, "tflite": phase_tflite,
              "query": phase_query_alone, "service": phase_service_alone,
-             "trace-loss": phase_trace_loss}
+             "train": phase_train_alone, "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16, 17 or 18 alone (no kernel is checked, no
-        # ok line), or the trace-loss count
+        # phase 13, 14, 15, 16, 17, 18 or 19 alone (no kernel is checked,
+        # no ok line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
              "--only fusion / streams / plugins / tflite / query / service "
-             "for phase 13 / 14 / 15 / 16 / 17 / 18 alone, or --only "
-             "trace-loss)")
+             "/ train for phase 13 / 14 / 15 / 16 / 17 / 18 / 19 alone, or "
+             "--only trace-loss)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -6854,6 +7373,7 @@ def main() -> None:
     phase_tflite(report)
     phase_query(report, prompts, filter_outs)
     phase_service(report, prompts, filter_outs)
+    phase_train(report, dev)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -6907,6 +7427,10 @@ def main() -> None:
         "launches": report["tflite"]["depthwise_fma_launches"],
         **{k: dq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}})
+    # every kernel's launches on the MoE serving line (phase 19c)
+    for k in kernels:
+        k["launches_moe"] = \
+            report["train"]["moe_serving"]["launches"][k["name"]]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,12 +3,19 @@
 //     out[m, n] = fmaf(a[m, K-1], b[K-1, n], ... fmaf(a[m, 0], b[0, n], 0.f))
 //
 // One float32 fused multiply-add per step of K, in K's order: the summation
-// order of XLA:CPU's precision=HIGHEST float32 conv at the shapes listed in
-// models/tflite_import.py::FMA_ORDER_SHAPES, so the port's fake-quant
+// order of XLA:CPU's precision=HIGHEST float32 conv at the shapes listed
+// with one chain in models/tflite_import.py::FMA_ORDERS, so the port's
+// fake-quant
 // executor snaps each of those convs' outputs to the reference's step.
 // What fixes the last bits is each output's chain over K: tiling M and N
 // changes only which thread runs a chain, not its order. A split K, a
 // reduction tree over K or TF32 would give other bits, so none is used.
+// With chains = 2 or 4 (the order XLA takes at other shapes, listed with
+// their order in models/tflite_import.py::FMA_ORDERS) each output keeps
+// that many such chains, chain c over k = c, c + chains, ..., and sums them
+// pairwise: c0 + c1, or (c0 + c1) + (c2 + c3). With kblock > 0 (a multiple
+// of 32; one chain) the chain starts again from 0 at every kblock steps of
+// K and the blocks' sums are added in order: (b0 + b1) + b2 ...
 //
 // Not a TPU kernel's port: the reference's conv is XLA's, not Pallas.
 //
@@ -35,12 +42,14 @@ namespace {
 
 constexpr int kBK = 32;
 
-template <int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN, int CH>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 float* __restrict__ out, long long m_rows, int k_len,
-                int n_cols, bool vec_store) {
+                int n_cols, int kblock, bool vec_store) {
   static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 fragments");
+  static_assert(CH == 1 || CH == 2 || CH == 4, "one, two or four chains");
+  static_assert(kBK % CH == 0, "a K tile starts a round of the chains");
   constexpr int kCols = BN / TN;  // threads along n
   constexpr int kRows = BM / TM;  // threads along m
   constexpr int kThreads = kCols * kRows;
@@ -52,14 +61,32 @@ fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
 
-  float acc[TM][TN];
+  float acc[CH][TM][TN];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[c][i][j] = 0.f;
+
+  // the finished K blocks' sum (kblock > 0)
+  float tot[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) tot[i][j] = 0.f;
 
   for (int k0 = 0; k0 < k_len; k0 += kBK) {
     const int kt = min(kBK, k_len - k0);
+    if (CH == 1 && kblock > 0 && k0 > 0 && k0 % kblock == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          tot[i][j] = tot[i][j] + acc[0][i][j];
+          acc[0][i][j] = 0.f;
+        }
+    }
     for (int e = threadIdx.x; e < BM * kBK; e += kThreads) {
       const int r = e / kBK, c = e % kBK;
       const long long m = m0 + r;
@@ -73,28 +100,52 @@ fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
                      : 0.f;
     }
     __syncthreads();
-    // only the kt real steps: a padded step would add fmaf(0, 0, acc)
-    for (int kk = 0; kk < kt; ++kk) {
-      float ai[TM], bj[TN];
+    // only the kt real steps: a padded step would add fmaf(0, 0, acc);
+    // step k feeds chain k % CH (k0 is a multiple of CH)
+    for (int k4 = 0; k4 < kt; k4 += CH) {
 #pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&as[kk][ty * TM + i]);
-        ai[i] = v.x, ai[i + 1] = v.y, ai[i + 2] = v.z, ai[i + 3] = v.w;
+      for (int c = 0; c < CH; ++c) {
+        const int kk = k4 + c;
+        if (kk >= kt) break;
+        float ai[TM], bj[TN];
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&as[kk][ty * TM + i]);
+          ai[i] = v.x, ai[i + 1] = v.y, ai[i + 2] = v.z, ai[i + 3] = v.w;
+        }
+#pragma unroll
+        for (int g = 0; g < kRuns; ++g) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&bs[kk][g * kRunGap + tx * 4]);
+          bj[4 * g] = v.x, bj[4 * g + 1] = v.y, bj[4 * g + 2] = v.z,
+          bj[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[c][i][j] = fmaf(ai[i], bj[j], acc[c][i][j]);
       }
-#pragma unroll
-      for (int g = 0; g < kRuns; ++g) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&bs[kk][g * kRunGap + tx * 4]);
-        bj[4 * g] = v.x, bj[4 * g + 1] = v.y, bj[4 * g + 2] = v.z,
-        bj[4 * g + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
     }
     __syncthreads();
   }
+
+  // the chains' sum, pairwise: c0 + c1, or (c0 + c1) + (c2 + c3)
+  float res[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if constexpr (CH == 1) {
+        res[i][j] = kblock > 0 ? tot[i][j] + acc[0][i][j] : acc[0][i][j];
+      } else if constexpr (CH == 2) {
+        res[i][j] = acc[0][i][j] + acc[CH - 1][i][j];
+      } else {
+        res[i][j] = (acc[0][i][j] + acc[1][i][j]) +
+                    (acc[CH - 2][i][j] + acc[CH - 1][i][j]);
+      }
+    }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -104,7 +155,7 @@ fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
     for (int g = 0; g < kRuns; ++g) {
       const int n = n0 + g * kRunGap + tx * 4;
       float* o = out + m * n_cols + n;
-      const float* v = &acc[i][4 * g];
+      const float* v = &res[i][4 * g];
       if (vec_store && n + 4 <= n_cols) {
         *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
@@ -116,35 +167,52 @@ fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN, int CH>
 cudaError_t launch(const float* a, const float* b, float* out,
-                   long long m_rows, int k_len, int n_cols,
+                   long long m_rows, int k_len, int n_cols, int kblock,
                    cudaStream_t stream) {
   const long long mb = (m_rows + BM - 1) / BM;
   const int nb = (n_cols + BN - 1) / BN;
   if (mb > 0x7fffffffLL || nb > 65535) return cudaErrorInvalidValue;
   const bool vec = n_cols % 4 == 0 &&
                    reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
-  fma_gemm_kernel<BM, BN, TM, TN>
+  fma_gemm_kernel<BM, BN, TM, TN, CH>
       <<<dim3(static_cast<unsigned>(mb), nb), (BM / TM) * (BN / TN), 0,
-         stream>>>(a, b, out, m_rows, k_len, n_cols, vec);
+         stream>>>(a, b, out, m_rows, k_len, n_cols, kblock, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int nns_fma_gemm(const void* a, const void* b, void* out,
-                            int m_rows, int k_len, int n_cols, void* stream) {
-  if (m_rows < 0 || k_len < 0 || n_cols <= 0)
+                            int m_rows, int k_len, int n_cols, int chains,
+                            int kblock, void* stream) {
+  if (m_rows < 0 || k_len < 0 || n_cols <= 0 ||
+      (chains != 1 && chains != 2 && chains != 4) || kblock < 0 ||
+      kblock % kBK != 0 || (kblock > 0 && chains != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (m_rows == 0) return 0;
   const auto* fa = static_cast<const float*>(a);
   const auto* fb = static_cast<const float*>(b);
   auto* fo = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      n_cols <= 32
-          ? launch<256, 32, 8, 4>(fa, fb, fo, m_rows, k_len, n_cols, st)
-          : launch<64, 64, 4, 8>(fa, fb, fo, m_rows, k_len, n_cols, st);
+  // more chains hold more accumulators: 4 x 4 outputs a thread for them
+  const bool narrow = n_cols <= 32;
+  cudaError_t err;
+  if (chains == 1)
+    err = narrow ? launch<256, 32, 8, 4, 1>(fa, fb, fo, m_rows, k_len, n_cols,
+                                            kblock, st)
+                 : launch<64, 64, 4, 8, 1>(fa, fb, fo, m_rows, k_len, n_cols,
+                                           kblock, st);
+  else if (chains == 2)
+    err = narrow ? launch<128, 32, 4, 4, 2>(fa, fb, fo, m_rows, k_len, n_cols,
+                                            kblock, st)
+                 : launch<64, 64, 4, 4, 2>(fa, fb, fo, m_rows, k_len, n_cols,
+                                           kblock, st);
+  else
+    err = narrow ? launch<128, 32, 4, 4, 4>(fa, fb, fo, m_rows, k_len, n_cols,
+                                            kblock, st)
+                 : launch<64, 64, 4, 4, 4>(fa, fb, fo, m_rows, k_len, n_cols,
+                                           kblock, st);
   return static_cast<int>(err);
 }

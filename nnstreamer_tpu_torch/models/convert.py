@@ -26,7 +26,9 @@ import torch
 
 from ..utils.hw_accel import resolve_device
 
-_BLOCK_KEYS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+_BLOCK_KEYS = ("ln1", "wqkv", "wo", "ln2")
+_FFN_KEYS = ("w1", "w2")
+_MOE_KEYS = ("wr", "w1", "w2")
 
 
 def _tensor(a, device: torch.device,
@@ -46,17 +48,26 @@ def params_from_jax(tree: Dict[str, Any],
                     device: Optional[Union[str, torch.device]] = None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """``tree``: {"embed", "pos", "out_norm", "blocks": [{ln1, wqkv, wo,
-    ln2, w1, w2}, ...]} as numpy arrays. ``dtype`` casts the floating
-    leaves (e.g. torch.bfloat16 for serving); None keeps theirs."""
+    ln2, w1, w2}, ...]} as numpy arrays; an MoE block holds ``moe``: {wr
+    (D, E), w1 (E, D, F), w2 (E, F, D)} in place of w1 and w2. ``dtype``
+    casts the floating leaves (e.g. torch.bfloat16 for serving); None
+    keeps theirs."""
     device = resolve_device(device)
     blocks = []
     for i, blk in enumerate(tree["blocks"]):
-        if "moe" in blk:
-            raise ValueError(f"block {i}: MoE blocks are not ported yet")
-        missing = [k for k in _BLOCK_KEYS if k not in blk]
+        ffn, keys = ((blk["moe"], _MOE_KEYS) if "moe" in blk
+                     else (blk, _FFN_KEYS))
+        missing = ([k for k in _BLOCK_KEYS if k not in blk]
+                   + [k for k in keys if k not in ffn])
         if missing:
             raise KeyError(f"block {i} lacks {missing}")
-        blocks.append({k: _tensor(blk[k], device, dtype) for k in _BLOCK_KEYS})
+        out = {k: _tensor(blk[k], device, dtype) for k in _BLOCK_KEYS}
+        moved = {k: _tensor(ffn[k], device, dtype) for k in keys}
+        if "moe" in blk:
+            out["moe"] = moved
+        else:
+            out.update(moved)
+        blocks.append(out)
     return {"embed": _tensor(tree["embed"], device, dtype),
             "pos": _tensor(tree["pos"], device, dtype),
             "out_norm": _tensor(tree["out_norm"], device, dtype),

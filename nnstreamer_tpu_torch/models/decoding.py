@@ -23,6 +23,10 @@ forward each step.
 serving) and stays dense: it attends a rectangular, offset window of the
 cache, which the flash kernel does not compute.
 
+An MoE model (``cfg.moe_experts``) routes each call's tokens through
+parallel/moe.py: capacity and slots are those of the call's (B, S) or
+(B, 1) tokens, as in the reference.
+
 Not in this package yet: the context-parallel cache and mesh sharding.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
+from ..parallel.moe import moe_ffn
 from .transformer import TransformerConfig, _mm, _rmsnorm
 
 def init_cache(cfg: TransformerConfig, batch: int,
@@ -52,7 +57,12 @@ def _split_heads(cfg: TransformerConfig, t: torch.Tensor) -> torch.Tensor:
     return t.reshape(B, S, cfg.heads, cfg.head_dim).transpose(1, 2)
 
 
-def _ffn(blk, h: torch.Tensor) -> torch.Tensor:
+def _ffn(blk, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The block's FFN: dense, or the switch MoE (parallel/moe.py) over
+    the call's tokens — all of a prompt's at prefill, one a row at
+    decode, as the reference routes them."""
+    if "moe" in blk:
+        return moe_ffn(blk["moe"], h, capacity_factor=cfg.moe_capacity_factor)
     return _mm(torch.relu(_mm(h, blk["w1"])), blk["w2"])
 
 
@@ -86,7 +96,7 @@ def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor,
             o = att @ v
         o = o.transpose(1, 2).reshape(B, S, cfg.dim)
         x = x + _mm(o, blk["wo"])
-        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]), cfg)
     x = _rmsnorm(x[:, S - 1], params["out_norm"])
     return _mm(x, params["embed"].T), cache, S
 
@@ -129,7 +139,7 @@ def prefill_continue(cfg: TransformerConfig, params, tokens: torch.Tensor,
         o = (att @ cv[:, :, :end].float()).transpose(1, 2).reshape(
             B, P, cfg.dim)
         x = x + _mm(o, blk["wo"])
-        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]), cfg)
     x = _rmsnorm(x[:, -1], params["out_norm"])
     return _mm(x, params["embed"].T), cache, end
 
@@ -193,7 +203,7 @@ def decode_step(cfg: TransformerConfig, params, token: torch.Tensor,
             o = att @ cv.float()
         o = o.transpose(1, 2).reshape(B, 1, cfg.dim)
         x = x + _mm(o, blk["wo"])
-        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+        x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]), cfg)
     x = _rmsnorm(x[:, 0], params["out_norm"])
     return _mm(x, params["embed"].T), cache
 

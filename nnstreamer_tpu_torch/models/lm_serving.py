@@ -55,6 +55,7 @@ from .decoding import (
     prefill,
     prefill_continue,
 )
+from ..utils.tree import tree_map
 from .transformer import TransformerConfig, init_params
 
 
@@ -135,10 +136,7 @@ class _LMServingEntry:
         params = init_params(self.cfg, seed=self.seed, device=device)
         if dtype is None:
             return params
-        cast = lambda t: t.to(dtype)  # noqa: E731
-        return {**{k: cast(params[k]) for k in ("embed", "pos", "out_norm")},
-                "blocks": [{k: cast(t) for k, t in b.items()}
-                           for b in params["blocks"]]}
+        return tree_map(lambda t: t.to(dtype), params)
 
     def make(self, device=None):
         device = resolve_device(device)
@@ -351,3 +349,8 @@ base = _LMServingEntry(
                       max_seq=2048, decode_attn="kernel",
                       prefill_attn="kernel"),
     default_steps=64)
+
+# the full-width entry with every FFN a switch MoE of 8 experts (the
+# reference's ``moe_experts`` field; no reference entry names such a model)
+base_moe = _LMServingEntry(replace(base.cfg, moe_experts=8),
+                           default_steps=64)

@@ -18,8 +18,8 @@ by default.
 product as a float64 GEMM rounded to float32: at least full float32
 precision, and untouched by PyTorch's process-wide TF32 switches, which
 the importer neither reads nor sets. The convs listed in
-``FMA_ORDER_SHAPES`` (by batch, spatial size and shape) instead sum in
-XLA:CPU's own order, a chain of float32 FMAs over K (``ops/fma_gemm.py``),
+``FMA_ORDERS`` (by batch, spatial size and shape) instead sum in
+XLA:CPU's own order, chains of float32 FMAs over K (``ops/fma_gemm.py``),
 which gives the reference's float32 conv bit for bit there. ``high`` runs them in float32 as the
 process's switches have it; ``default`` in bfloat16. Depthwise
 convolutions and pools are elementwise float32 multiply-adds in the
@@ -59,7 +59,7 @@ import torch.nn.functional as F
 from ..core import DataType, TensorsInfo
 from ..core.tensors import TensorSpec
 from ..ops.depthwise_fma import depthwise_fma
-from ..ops.fma_gemm import fma_gemm
+from ..ops.fma_gemm import fma_gemm, fmaf
 from ..utils.hw_accel import resolve_device
 from . import tflite_schema
 
@@ -413,7 +413,13 @@ class ScalarCache:
     """0-dim float32 tensors on one device, made on first use. Dividing a
     CUDA tensor by a Python number multiplies by its reciprocal (PyTorch's
     CPU-scalar shortcut), which is not the quotient; dividing by a device
-    tensor is."""
+    tensor is.
+
+    ``recip(v)`` is ``float32(1) / float32(v)`` as such a tensor: XLA's
+    algebraic simplifier rewrites ``y / constant`` into ``y *
+    (1 / constant)``, the reciprocal rounded to float32, and the jitted
+    reference's fake-quant snaps (``round(y / scale)``) run as that
+    product."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -426,6 +432,7 @@ class ScalarCache:
         for t in tensors:
             if t.scale is not None:
                 self(float(t.scale[0]))
+                self.recip(float(t.scale[0]))
         self(6.0)
         for code, _, ins, _ in steps:
             if code == "MEAN" and ins[1] in raw_consts:
@@ -441,23 +448,36 @@ class ScalarCache:
                                            device=self.device)
         return t
 
+    def recip(self, v: float) -> torch.Tensor:
+        return self(float(np.float32(1.0) / np.float32(v)))
+
 
 # (batch, in_h, in_w, kh, kw, stride_h, stride_w, in_c, out_c) of the CONV_2D
 # ops at which the reference's precision=HIGHEST float32 conv on XLA:CPU
-# equals a sequential float32 FMA over K in HWIO order bit for bit: convs of
-# the int8 MobileNet-v2 fixture at batches 1, 4 and 64, each held against
-# the reference by a case of tests/test_torch_tflite_fma.py. XLA's order
-# depends on the size of the product (at batch 1 the fixture's two 1x1
-# convs at 7x7 sum in another order), so nothing else is assumed: every
-# other conv, batch and spatial size keeps the float64 GEMM.
-_FMA_CONVS = (  # (in_hw, kh, kw, stride_h, stride_w, in_c, out_c)
-    (224, 3, 3, 2, 2, 3, 32), (28, 1, 1, 1, 1, 32, 192),
-    (14, 1, 1, 1, 1, 192, 64), (14, 1, 1, 1, 1, 64, 384),
-    (14, 1, 1, 1, 1, 384, 64), (14, 1, 1, 1, 1, 96, 576),
-    (7, 1, 1, 1, 1, 160, 960), (7, 1, 1, 1, 1, 320, 1280))
-FMA_ORDER_SHAPES = frozenset(
-    (batch, hw, hw, *conv) for hw, *conv in _FMA_CONVS
-    for batch in (1, 4, 64) if (batch, hw) != (1, 7))
+# equals float32 FMA chains over K in HWIO order bit for bit, with the
+# order XLA uses there as (chains, kblock) (FMA_ORDERS; ops/fma_gemm.py:
+# one chain, 2 or 4 interleaved chains summed pairwise, or a chain a block
+# of kblock steps, the blocks summed in order): convs of the int8
+# MobileNet-v2 fixture at batches 1, 4 and 64, each held against the
+# reference by a case of tests/test_torch_tflite_fma.py. XLA's order
+# depends on the size of the product (at batch 1 the fixture's 1x1 convs
+# at 7x7 sum in other orders), so nothing else is assumed: every other
+# conv, batch and spatial size keeps the float64 GEMM.
+_FMA_CONVS = {  # (in_hw, kh, kw, stride_h, stride_w, in_c, out_c): order
+    (224, 3, 3, 2, 2, 3, 32): (1, 0), (28, 1, 1, 1, 1, 32, 192): (1, 0),
+    (14, 1, 1, 1, 1, 192, 64): (1, 0), (14, 1, 1, 1, 1, 64, 384): (1, 0),
+    (14, 1, 1, 1, 1, 384, 64): (1, 0), (14, 1, 1, 1, 1, 96, 576): (1, 0),
+    (7, 1, 1, 1, 1, 160, 960): (1, 0), (7, 1, 1, 1, 1, 320, 1280): (1, 0),
+    (112, 1, 1, 1, 1, 16, 96): (2, 0), (28, 1, 1, 1, 1, 144, 32): (2, 0),
+    (28, 1, 1, 1, 1, 192, 32): (2, 0), (14, 1, 1, 1, 1, 384, 96): (2, 0),
+    (14, 1, 1, 1, 1, 576, 96): (2, 0), (7, 1, 1, 1, 1, 576, 160): (2, 0),
+    (7, 1, 1, 1, 1, 960, 160): (2, 0),
+    (112, 1, 1, 1, 1, 32, 16): (4, 0), (56, 1, 1, 1, 1, 24, 144): (4, 0),
+    (56, 1, 1, 1, 1, 96, 24): (4, 0), (56, 1, 1, 1, 1, 144, 24): (4, 0),
+    (7, 1, 1, 1, 1, 960, 320): (1, 512)}
+FMA_ORDERS = {(batch, hw, hw, *conv): order
+              for (hw, *conv), order in _FMA_CONVS.items()
+              for batch in (1, 4, 64) if (batch, hw) != (1, 7)}
 
 
 # (batch, in_h, in_w, kh, kw, stride_h, stride_w, in_c, out_c) of the
@@ -570,7 +590,8 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
             # tensor's representable range — dropping it changes the net
             return torch.clamp(y, (info.min - zp) * scale,
                                (info.max - zp) * scale)
-        q = torch.clamp(torch.round(y / sc(scale)) + zp, info.min, info.max)
+        q = torch.clamp(torch.round(y * sc.recip(scale)) + zp, info.min,
+                        info.max)
         return (q - zp) * scale
 
     def _fq_scale(idx: int) -> Optional[float]:
@@ -611,10 +632,10 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
         w_mat = conv_w.get(idx_w)
         if w_mat is None:  # weights computed in the graph
             w_mat = w.permute(1, 2, 3, 0).reshape(-1, oc)
-        if precision == "highest" and (
-                *x.shape[:3], kh, kw, *cfg["strides"], ic,
-                oc) in FMA_ORDER_SHAPES:
-            return fma_gemm(p, w_mat)
+        order = FMA_ORDERS.get(
+            (*x.shape[:3], kh, kw, *cfg["strides"], ic, oc))
+        if precision == "highest" and order:
+            return fma_gemm(p, w_mat, *order)
         return gemm(p, w_mat)
 
     def fn(*inputs):
@@ -653,7 +674,15 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
                 env[outs[0]] = _fused(cfg["act"], y)
             elif code in ("ADD", "SUB", "MUL", "DIV"):
                 a, b = _in(env, ins[0]), _in(env, ins[1])
-                if code == "ADD":
+                sa = _fq_scale(ins[0])
+                if code == "ADD" and sa is not None and \
+                        _fq_scale(ins[1]) is not None:
+                    # XLA contracts the first operand's dequantizing
+                    # multiply into the add: fmaf(k_a, s_a, b), with k_a
+                    # = q_a - zp_a recovered exactly from a = k_a * s_a
+                    y = fmaf(torch.round(a * sc.recip(sa)),
+                             float(np.float32(sa)), b)
+                elif code == "ADD":
                     y = a + b
                 elif code == "SUB":
                     y = a - b
@@ -864,7 +893,8 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
             y = _in(env, idx)
             t = tensors[idx]
             if t.quantized and not float_output:
-                q = torch.round(y / sc(float(t.scale[0]))) + float(t.zero_point[0])
+                q = (torch.round(y * sc.recip(float(t.scale[0])))
+                     + float(t.zero_point[0]))
                 info = np.iinfo(t.dtype)
                 y = torch.clamp(q, info.min, info.max).to(torch_dtype(t.dtype))
             results.append(y)

@@ -6,7 +6,7 @@ one float32 fused multiply-add per step of K, in K's order. For some conv
 shapes XLA:CPU's ``precision=HIGHEST`` float32 conv (the reference
 importer's) sums in exactly this order, so a quantized graph's fake-quant
 simulation run this way snaps every value to the same step as the
-reference (``models/tflite_import.py::FMA_ORDER_SHAPES`` lists the shapes).
+reference (``models/tflite_import.py::FMA_ORDERS`` lists the shapes).
 
 ``fma_gemm`` is the wrapper. On CPU tensors it runs ``fma_gemm_plain``: each
 step is a float64 product (exact for two float32 factors) and sum, rounded
@@ -20,11 +20,20 @@ rows go in blocks that stay in cache. On CUDA tensors it launches
 chain over K in order in one thread's registers) or raises;
 ``fma_gemm.launches`` counts the launches. The plain version runs on the
 card as well, bit-equal to the kernel.
+
+``chains`` 2 or 4 and ``kblock`` are the orders XLA:CPU takes at other
+shapes (each listed shape's order is in
+``models/tflite_import.py::FMA_ORDERS``): ``chains`` such chains per
+output, chain c over k = c, c + chains, ..., summed pairwise in float32,
+``c0 + c1`` or ``(c0 + c1) + (c2 + c3)``; or (``kblock``, a multiple of
+32, with one chain) a chain over each block of ``kblock`` steps of K, the
+blocks' sums added in order.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -77,11 +86,49 @@ def _fma_step(x: torch.Tensor, acc: torch.Tensor,
     return (bits + step).view(torch.float64).float().double()
 
 
-def fma_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as a chain of correctly rounded float32 FMAs over K."""
+def _check_order(chains: int, kblock: int) -> None:
+    if chains not in CHAINS:
+        raise ValueError(f"fma_gemm: chains must be one of {CHAINS}, "
+                         f"got {chains}")
+    if kblock < 0 or kblock % 32 or (kblock and chains != 1):
+        raise ValueError(f"fma_gemm: kblock {kblock} must be 0 or a "
+                         "multiple of 32, with one chain")
+
+
+CHAINS = (1, 2, 4)
+
+
+def fmaf(x: torch.Tensor, s: float, y: torch.Tensor) -> torch.Tensor:
+    """Elementwise float32 ``fmaf(x, s, y)``, rounded once, of float32
+    tensors ``x`` and ``y`` and a float32 value ``s``, on any device: the
+    float64 product of two float32 values is exact, and the sum is rounded
+    to odd before float32 (``_fma_step`` unscreened, so no value is read
+    back to the host and a CUDA graph can capture it)."""
+    return _fma_step(x.double() * s, y.double(), screen=False).float()
+
+
+def fma_gemm_plain(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
+                   kblock: int = 0) -> torch.Tensor:
+    """``a @ b`` as ``chains`` chains of correctly rounded float32 FMAs
+    over K (chain c over k ≡ c mod ``chains``), summed pairwise; or, with
+    ``kblock``, one chain a block of K, the blocks summed in order."""
     _check(a, b)
+    _check_order(chains, kblock)
+    if kblock and b.shape[0] > kblock:
+        K = b.shape[0]
+        out = fma_gemm_plain(a[..., :kblock], b[:kblock])
+        for k0 in range(kblock, K, kblock):
+            out = out + fma_gemm_plain(a[..., k0:k0 + kblock],
+                                       b[k0:k0 + kblock])
+        return out
+    if chains > 1:
+        parts = [fma_gemm_plain(a[..., c::chains], b[c::chains])
+                 for c in range(chains)]
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        return parts[0]
     K, N = b.shape
-    a2 = a.reshape(-1, K)
+    a2 = a.reshape(math.prod(a.shape[:-1]), K)   # K may be 0 (a short chain)
     M = a2.shape[0]
     b64 = b.double()
     out = torch.empty(M, N, dtype=torch.float32, device=a.device)
@@ -100,31 +147,35 @@ def fma_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _kernel():
     fn = load_kernel("fma_gemm").nns_fma_gemm
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, i, i, i, vp]
+    fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fma_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
+             kblock: int = 0) -> torch.Tensor:
     """a (..., K) float32 times b (K, N) float32 → (..., N) float32, summed
-    over K in order by fused multiply-adds (module docstring)."""
+    over K in order by fused multiply-adds, in ``chains`` chains or blocks
+    of ``kblock`` (module docstring)."""
     _check(a, b)
+    _check_order(chains, kblock)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return fma_gemm_plain(a, b)
+        return fma_gemm_plain(a, b, chains, kblock)
     if a.device.type == "meta":  # shape tracing
         return a.new_empty(a.shape[:-1] + (b.shape[1],))
     if a.device != b.device or a.device.type != "cuda":
         raise ValueError(f"fma_gemm needs a and b on one CUDA device or both "
                          f"on the CPU, got {a.device} and {b.device}")
     K, N = b.shape
-    a2 = a.reshape(-1, K).contiguous()
+    # K may be 0 (a short chain), so the row count is not left to -1.
+    a2 = a.reshape(math.prod(a.shape[:-1]), K).contiguous()
     b = b.contiguous()
     out = torch.empty(a2.shape[0], N, dtype=torch.float32, device=a.device)
     if out.numel():
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             err = _kernel()(a2.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            a2.shape[0], K, N, stream)
+                            a2.shape[0], K, N, chains, kblock, stream)
         if err:
             raise RuntimeError(
                 f"fma_gemm kernel launch failed: CUDA error {err}")

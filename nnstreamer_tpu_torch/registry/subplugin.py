@@ -1,8 +1,7 @@
 """Subplugin registry (L2).
 
 Reference analog: ``gst/nnstreamer/nnstreamer_subplugin.c`` — per-type hash
-tables (FILTER/DECODER/CONVERTER/TRAINER, :139-293; the port has FILTER,
-DECODER and CONVERTER so far) populated by ``.so``
+tables (FILTER/DECODER/CONVERTER/TRAINER, :139-293) populated by ``.so``
 constructors after lazy ``g_module_open``. Python redesign: per-type dicts
 populated by ``@register(kind, name)`` decorators at import time; lazy loading
 resolves a not-yet-registered name by importing (a) the built-in module for
@@ -23,6 +22,7 @@ class SubpluginKind(enum.Enum):
     FILTER = "filter"        # NN framework backends
     DECODER = "decoder"      # tensor_decoder modes
     CONVERTER = "converter"  # tensor_converter external parsers
+    TRAINER = "trainer"      # training backends
 
 
 _REGISTRY: Dict[SubpluginKind, Dict[str, Any]] = {k: {} for k in SubpluginKind}
@@ -43,6 +43,7 @@ _BUILTIN_MODULES: Dict[SubpluginKind, tuple] = {
     ),
     SubpluginKind.DECODER: ("nnstreamer_tpu_torch.decoders",),
     SubpluginKind.CONVERTER: ("nnstreamer_tpu_torch.converters",),
+    SubpluginKind.TRAINER: ("nnstreamer_tpu_torch.trainer.torch_trainer",),
 }
 _scanned: Dict[SubpluginKind, bool] = {k: False for k in SubpluginKind}
 

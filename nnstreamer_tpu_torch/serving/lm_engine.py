@@ -312,7 +312,7 @@ class PagedLMEngine:
             o = self._attend(q, li, bt, visible)
             o = o.transpose(1, 2).reshape(S, n, cfg.dim)
             x = x + _mm(o, blk["wo"])
-            x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]))
+            x = x + _ffn(blk, _rmsnorm(x, blk["ln2"]), cfg)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:

@@ -149,6 +149,21 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.service.procreplica",
     "nnstreamer_tpu_torch.obs.fleet",
     "nnstreamer_tpu_torch.__main__",
+    "nnstreamer_tpu_torch.parallel",
+    "nnstreamer_tpu_torch.parallel.collectives",
+    "nnstreamer_tpu_torch.parallel.mesh",
+    "nnstreamer_tpu_torch.parallel.moe",
+    "nnstreamer_tpu_torch.parallel.context",
+    "nnstreamer_tpu_torch.parallel.pipeline",
+    "nnstreamer_tpu_torch.parallel.shard",
+    "nnstreamer_tpu_torch.parallel.multihost",
+    "nnstreamer_tpu_torch.trainer",
+    "nnstreamer_tpu_torch.trainer.base",
+    "nnstreamer_tpu_torch.trainer.checkpoint",
+    "nnstreamer_tpu_torch.trainer.msgpack_params",
+    "nnstreamer_tpu_torch.trainer.torch_trainer",
+    "nnstreamer_tpu_torch.elements.trainer",
+    "nnstreamer_tpu_torch.utils.tree",
 ]
 # the slice that needs no TensorFlow to import: blocked too when checked
 TFLITE_MODULES = [
@@ -209,7 +224,9 @@ assert get(SubpluginKind.CONVERTER, "python3").NAME == "python3"
 assert {{"videomixer", "compositor", "datareposrc", "datareposink",
          "tensor_src_iio"}} <= set(element_factories())
 assert {QUERY_ELEMENTS!r} <= set(element_factories())
-assert len(element_factories()) == 59
+assert len(element_factories()) == 60
+assert "tensor_trainer" in element_factories()
+assert get(SubpluginKind.TRAINER, "optax") is get(SubpluginKind.TRAINER, "torch")
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "nnstreamer_tpu" or m.startswith("nnstreamer_tpu."))]
 assert not loaded, loaded

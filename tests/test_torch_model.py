@@ -50,9 +50,18 @@ def test_converter_carries_every_leaf(weights):
     np.testing.assert_array_equal(
         bf["embed"].float().numpy(),
         np.asarray(jnp.asarray(tree["embed"], jnp.bfloat16), np.float32))
-    moe = {**tree, "blocks": [{"moe": {}}]}
-    with pytest.raises(ValueError, match="MoE"):
-        params_from_jax(moe, CPU)
+    # an MoE block's router and experts are carried under "moe"; a block
+    # missing leaves is refused
+    rng = np.random.default_rng(0)
+    attn = {k: tree["blocks"][0][k] for k in ("ln1", "wqkv", "wo", "ln2")}
+    experts = {k: rng.standard_normal(s).astype(np.float32) for k, s in (
+        ("wr", (32, 4)), ("w1", (4, 32, 128)), ("w2", (4, 128, 32)))}
+    moe = params_from_jax({**tree, "blocks": [{**attn, "moe": experts}]}, CPU)
+    assert set(moe["blocks"][0]) == {"ln1", "wqkv", "wo", "ln2", "moe"}
+    for key, a in experts.items():
+        np.testing.assert_array_equal(moe["blocks"][0]["moe"][key].numpy(), a)
+    with pytest.raises(KeyError, match="lacks"):
+        params_from_jax({**tree, "blocks": [{"moe": {}}]}, CPU)
 
 
 def test_forward_matches(weights):

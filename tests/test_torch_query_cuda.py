@@ -15,7 +15,7 @@ Phase 17 of chip_smoke.py in small form:
   NNSB with shm;
 * with ``grpc`` blocked, ``tensor_sink_grpc`` posts a bus ERROR naming
   grpc;
-* the fake-quant conv order's kernel (``csrc/fma_gemm.cu``) equals its
+* the fake-quant conv orders' kernel (``csrc/fma_gemm.cu``) equals its
   plain version bit for bit."""
 import json
 import os
@@ -214,3 +214,45 @@ def test_fma_gemm_kernel_equals_its_plain_version(m, k, n):
     assert fma_gemm.launches == before + 1
     assert torch.equal(got, fma_gemm_plain(a, b))
     assert torch.equal(got.cpu(), fma_gemm(a.cpu(), b.cpu()))
+
+
+# the other orders (two or four chains, blocks of K): ragged chains and
+# blocks, both tile shapes
+@pytest.mark.parametrize("m,k,n,chains,kblock", [
+    (1000, 27, 32, 2, 0), (513, 96, 31, 4, 0), (300, 65, 70, 2, 0),
+    (129, 384, 64, 4, 0), (5, 3, 3, 4, 0), (37, 960, 320, 1, 512),
+    (257, 1100, 33, 1, 512), (64, 512, 16, 1, 512)])
+def test_fma_gemm_orders_equal_their_plain_version(m, k, n, chains, kblock):
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm, fma_gemm_plain
+
+    g = torch.Generator(device=DEV).manual_seed(m + k + n + chains)
+    a = torch.randn(m, k, device=DEV, generator=g)
+    b = torch.randn(k, n, device=DEV, generator=g)
+    got = fma_gemm(a, b, chains, kblock)
+    assert torch.equal(got, fma_gemm_plain(a, b, chains, kblock))
+    assert torch.equal(got.cpu(), fma_gemm(a.cpu(), b.cpu(), chains, kblock))
+
+
+# a strided view as ``a``: a channel slice of an NHWC tensor (rows of
+# stride C > K) and a slice of every other column, in each order
+@pytest.mark.parametrize("chains,kblock", [(1, 0), (2, 0), (4, 0), (1, 512)])
+@pytest.mark.parametrize("view", ["channels", "every_other"])
+def test_fma_gemm_reads_a_strided_view_as_its_values(view, chains, kblock):
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm, fma_gemm_plain
+
+    g = torch.Generator(device=DEV).manual_seed(chains + kblock)
+    k, n = 600, 40
+    if view == "channels":
+        wide = torch.randn(2, 9, 11, k + 24, device=DEV, generator=g)
+        a = wide[..., 8:8 + k]
+    else:
+        wide = torch.randn(70, 2 * k, device=DEV, generator=g)
+        a = wide[:, ::2]
+    assert not a.is_contiguous()
+    b = torch.randn(k, n, device=DEV, generator=g)
+    before = fma_gemm.launches
+    got = fma_gemm(a, b, chains, kblock)
+    assert fma_gemm.launches == before + 1
+    assert torch.equal(got, fma_gemm_plain(a.contiguous(), b, chains, kblock))
+    assert torch.equal(got.cpu(),
+                       fma_gemm(a.cpu(), b.cpu(), chains, kblock))

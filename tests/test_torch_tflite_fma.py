@@ -1,17 +1,23 @@
 """The port's sequential-FMA conv order (``ops/fma_gemm.py``,
-``models/tflite_import.py::FMA_ORDER_SHAPES``) against nnstreamer_tpu's
+``models/tflite_import.py::FMA_ORDERS``) against nnstreamer_tpu's
 ``precision=HIGHEST`` float32 conv on XLA:CPU.
 
 * every listed conv (a conv of the int8 MobileNet-v2 fixture at its
-  spatial size, at batch 1, 4 or 64) on seeded inputs: the port's conv
-  equals the reference's jitted ``conv_general_dilated`` bit for bit;
+  spatial size, at batch 1, 4 or 64) on seeded inputs: the port's conv,
+  in the order ``FMA_ORDERS`` lists for it (one, two or four FMA chains
+  over K, or a chain a block of 512), equals the reference's jitted
+  ``conv_general_dilated`` bit for bit;
 * ``fma_gemm_plain`` is the correctly rounded ``fmaf`` chain (checked
   against exact rational arithmetic, a sum that lands inexactly on a
   float32 midpoint included);
 * the full-width fixture's first conv, in the reference's jitted
   fake-quant forward and the port's, gives the same float32 values;
-* the whole fake-quant forward stays within the 5 LSB that ROADMAP §C
-  records for the open fault."""
+* the first depthwise conv's fake-quant snap (the second conv's input)
+  equals the reference's, where XLA multiplies by the scale's float32
+  reciprocal;
+* the whole fake-quant forward equals the jitted reference's on the
+  fixture's 4 frames (0 LSB; ROADMAP §C), the residual ADDs contracted
+  as XLA contracts them."""
 from fractions import Fraction
 
 import numpy as np
@@ -29,8 +35,18 @@ from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm, fma_gemm_plain  # noqa: 
 _HW = {(3, 3, 2, 2, 3, 32): 224, (1, 1, 1, 1, 32, 192): 28,
        (1, 1, 1, 1, 192, 64): 14, (1, 1, 1, 1, 64, 384): 14,
        (1, 1, 1, 1, 384, 64): 14, (1, 1, 1, 1, 96, 576): 14,
-       (1, 1, 1, 1, 160, 960): 7, (1, 1, 1, 1, 320, 1280): 7}
-# the batches each is listed at: at batch 1 XLA sums the two 7x7 convs in
+       (1, 1, 1, 1, 160, 960): 7, (1, 1, 1, 1, 320, 1280): 7,
+       # two chains
+       (1, 1, 1, 1, 16, 96): 112, (1, 1, 1, 1, 144, 32): 28,
+       (1, 1, 1, 1, 192, 32): 28, (1, 1, 1, 1, 384, 96): 14,
+       (1, 1, 1, 1, 576, 96): 14, (1, 1, 1, 1, 576, 160): 7,
+       (1, 1, 1, 1, 960, 160): 7,
+       # four chains
+       (1, 1, 1, 1, 32, 16): 112, (1, 1, 1, 1, 24, 144): 56,
+       (1, 1, 1, 1, 96, 24): 56, (1, 1, 1, 1, 144, 24): 56,
+       # one chain a block of 512
+       (1, 1, 1, 1, 960, 320): 7}
+# the batches each is listed at: at batch 1 XLA sums the 7x7 convs in
 # another order
 _CASES = [(b, shape) for shape in sorted(_HW) for b in (1, 4, 64)
           if (b, _HW[shape]) != (1, 7)]
@@ -53,17 +69,18 @@ def _ref_conv(x, w_hwio, strides):
 def _port_conv(x, w_hwio, strides):
     kh, kw, ic, oc = w_hwio.shape
     xt = torch.from_numpy(x)
+    order = P.FMA_ORDERS[(*x.shape[:3], kh, kw, *strides, ic, oc)]
     if kh == kw == 1 and tuple(strides) == (1, 1):
         p = xt
     else:
         p = P.im2col(xt, kh, kw, strides, (1, 1), "SAME", 0.0)
-    return fma_gemm(p.contiguous(),
-                    torch.from_numpy(w_hwio.reshape(-1, oc))).numpy()
+    return fma_gemm(p.contiguous(), torch.from_numpy(w_hwio.reshape(-1, oc)),
+                    *order).numpy()
 
 
 def test_every_listed_shape_has_a_case():
     assert {(b, _HW[s], _HW[s], *s) for b, s in _CASES} == \
-        set(P.FMA_ORDER_SHAPES)
+        set(P.FMA_ORDERS)
 
 
 @pytest.mark.parametrize("case", _CASES, ids=_case_id)
@@ -119,6 +136,40 @@ def test_plain_version_is_the_correctly_rounded_fma_chain():
     assert got[39, 4] == np.float32(9.100144386291504)
 
 
+@pytest.mark.parametrize("chains,kblock", [(2, 0), (4, 0), (1, 512)])
+def test_plain_orders_compose_from_single_chains(chains, kblock):
+    """Two / four chains are single chains over k ≡ c (mod chains),
+    summed pairwise; blocks are single chains over each block of K,
+    summed in order."""
+    g = torch.Generator().manual_seed(chains + kblock)
+    a = torch.randn(37, 1100, generator=g)
+    b = torch.randn(1100, 33, generator=g)
+    got = fma_gemm_plain(a, b, chains, kblock)
+    if kblock:
+        parts = [fma_gemm_plain(a[:, k:k + kblock], b[k:k + kblock])
+                 for k in range(0, 1100, kblock)]
+        want = (parts[0] + parts[1]) + parts[2]
+    else:
+        parts = [fma_gemm_plain(a[:, c::chains], b[c::chains])
+                 for c in range(chains)]
+        want = (parts[0] + parts[1] if chains == 2
+                else (parts[0] + parts[1]) + (parts[2] + parts[3]))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        fma_gemm_plain(a, b, 3)
+    with pytest.raises(ValueError):
+        fma_gemm_plain(a, b, 2, 512)
+
+
+def test_plain_chains_longer_than_k():
+    """Four chains over K = 3: the last chain is empty (zero)."""
+    g = torch.Generator().manual_seed(1)
+    a, b = torch.randn(5, 3, generator=g), torch.randn(3, 3, generator=g)
+    one = [a[:, k:k + 1] * b[k:k + 1] for k in range(3)]
+    want = (one[0] + one[1]) + (one[2] + torch.zeros(5, 3))
+    assert torch.equal(fma_gemm_plain(a, b, 4), want)
+
+
 def test_fixture_first_conv_equals_the_jitted_reference():
     import nnstreamer_tpu.models.tflite_import as R
     from pathlib import Path
@@ -158,12 +209,58 @@ def test_fixture_first_conv_equals_the_jitted_reference():
     np.testing.assert_array_equal(seen[0], want)
 
 
+def test_fixture_first_snap_equals_the_jitted_reference():
+    """Op 1's output snapped to its grid, as the second conv reads it:
+    the jitted reference's ``round(y / scale)`` runs as ``y * (1 /
+    scale)`` with the reciprocal rounded to float32 (XLA's algebraic
+    simplifier), and the port's snap multiplies by the same float32."""
+    import nnstreamer_tpu.models.tflite_import as R
+    from pathlib import Path
+    model = str(Path(__file__).resolve().parent / "fixtures"
+                / "mobilenet_v2_1.0_224_int8.tflite")
+    frames = np.random.default_rng(0).integers(
+        -128, 128, (4, 224, 224, 3)).astype(np.int8)
+    opts = {"quantized_exec": "fake-quant", "batch": "4"}
+    rfn, _, _ = R.load_tflite(model, opts)
+    orig_conv = jax.lax.conv_general_dilated
+
+    def second_conv_input(x):
+        seen = []
+
+        def conv(lhs, *a, **k):
+            seen.append(lhs)
+            return orig_conv(lhs, *a, **k)
+        jax.lax.conv_general_dilated = conv
+        try:
+            rfn(x)
+        finally:
+            jax.lax.conv_general_dilated = orig_conv
+        return seen[1]
+    want = np.asarray(jax.jit(second_conv_input)(frames))
+    orig_fma = P.fma_gemm
+    seen = []
+
+    def recording(a, *args):
+        if a.device.type == "cpu":
+            seen.append(a.numpy().copy())
+        return orig_fma(a, *args)
+    P.fma_gemm = recording
+    try:
+        pfn, _, _ = P.load_tflite(model, opts, device="cpu")
+        pfn(torch.from_numpy(frames))
+    finally:
+        P.fma_gemm = orig_fma
+    # ops 0 and 2 are the first two convs (both in FMA_ORDERS): op 2 reads
+    # op 1's snap
+    np.testing.assert_array_equal(seen[1].reshape(want.shape), want)
+
+
 def test_full_width_fake_quant_no_further_than_recorded():
-    """The open fault as ROADMAP §C records it: on the fixture's 4 frames
-    the port's fake-quant is 5 LSB from the jitted reference (4 on the
-    first 2 frames), since the depthwise convs sum in XLA's FMA order
-    (``tests/test_torch_tflite_dw_fma.py``). The 2 LSB asked does not
-    hold; this holds the distance from growing."""
+    """The fault ROADMAP §C records, closed: on the fixture's 4 frames the
+    port's fake-quant equals the jitted reference (0 LSB), with every conv
+    in XLA's order (``FMA_ORDERS``, ``tests/test_torch_tflite_dw_fma.py``
+    for the depthwise ones), the snaps multiplying by the scale's float32
+    reciprocal and the residual ADDs contracted into an FMA."""
     import nnstreamer_tpu.models.tflite_import as R
     from pathlib import Path
     model = str(Path(__file__).resolve().parent / "fixtures"
@@ -175,5 +272,5 @@ def test_full_width_fake_quant_no_further_than_recorded():
     pfn, _, _ = P.load_tflite(model, opts, device="cpu")
     want = np.asarray(jax.jit(rfn)(frames)[0]).astype(np.int64)
     got = pfn(torch.from_numpy(frames))[0].numpy().astype(np.int64)
-    assert int(np.abs(got - want).max()) <= 5
-    assert int(np.abs(got[:2] - want[:2]).max()) <= 4
+    assert int(np.abs(got - want).max()) <= 0
+    assert int(np.abs(got[:2] - want[:2]).max()) <= 0
