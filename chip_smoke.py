@@ -300,13 +300,19 @@ phase fails:
     nothing reaches the sink). (e) ``datareposrc`` (shuffled, 2 epochs)
     feeds the int8 filter with ``use-native`` true and false: the same
     samples in the same order, the same outputs; frames/s. fake-quant's
-    convs at the shapes of ``FMA_ORDERS`` run ``csrc/fma_gemm.cu``
-    (the reference's XLA:CPU summation order: one, two or four chains,
-    or one chain a block of K): it must launch once a listed conv a
-    forward, and equal its plain version bit for bit at every shape and
-    order of a forward, on the line's own operands, and give the same
-    bits on those operands as a strided view (times for each
-    shape and a forward beside the bound and ``torch.matmul``'s).
+    convs and FULLY_CONNECTED at the shapes of ``FMA_ORDERS``, and its
+    MEAN at those of ``MEAN_FMA_SHAPES`` (``mean_fma``), run
+    ``csrc/fma_gemm.cu`` (the reference's XLA:CPU summation order: one,
+    two or four chains, or one chain a block of K): it must launch once a
+    listed op a forward, and equal its plain version bit for bit at every
+    shape and order of a forward, on the line's own operands, and give the
+    same bits on those operands as a strided view (times, the tile the
+    kernel picked and the ratios for each shape and a forward beside the
+    bound and ``torch.matmul``'s). The card's batch-64 fake-quant output
+    on the host line's first batch equals the jitted reference's,
+    committed as ``tests/fixtures/
+    mobilenet_v2_1.0_224_int8_fake_quant_b64.npz`` (0 LSB, the distance
+    of the port's CPU run, ROADMAP §C).
     fake-quant's depthwise convs at the shapes of
     ``DEPTHWISE_FMA_SHAPES`` run ``csrc/depthwise_fma.cu`` (XLA:CPU's
     contracted order): it must launch once a listed op a forward, and
@@ -5006,13 +5012,15 @@ def tf_run(mode: str) -> dict:
 
 
 def tf_fma_convs() -> dict:
-    """{(M, K, N, chains, kblock): convs a forward} of the fixture's
-    CONV_2D steps that sum in XLA's FMA order at batch TF_BATCH, as GEMMs
-    (M, K) x (K, N) in that order."""
+    """{(M, K, N, chains, kblock): launches a forward} of the fixture's
+    steps that sum in XLA's FMA order at batch TF_BATCH, as GEMMs (M, K) x
+    (K, N) in that order: the listed CONV_2Ds and FULLY_CONNECTED, and the
+    MEAN of a listed shape (one chain over the window, a column of its
+    input's scale)."""
     from collections import Counter
 
-    from nnstreamer_tpu_torch.models.tflite_import import (FMA_ORDERS,
-                                                           read_model)
+    from nnstreamer_tpu_torch.models.tflite_import import (
+        FMA_ORDERS, MEAN_FMA_SHAPES, read_model)
 
     steps, tensors, *_ = read_model(str(TF_MODEL))
     convs = Counter()
@@ -5025,26 +5033,39 @@ def tf_fma_convs() -> dict:
                                     *cfg["strides"], ic, oc))
             if order:
                 convs[(TF_BATCH * oh * ow, kh * kw * ic, oc, *order)] += 1
+        elif code == "FULLY_CONNECTED":
+            n, k = tensors[ins[1]].shape
+            order = FMA_ORDERS.get((TF_BATCH, 1, 1, 1, 1, 1, 1, k, n))
+            if order:
+                convs[(TF_BATCH, k, n, *order)] += 1
+        elif code == "MEAN":
+            _, h, w, c = tensors[ins[0]].shape
+            if (TF_BATCH, h, w, c) in MEAN_FMA_SHAPES:
+                convs[(TF_BATCH * c, h * w, 1, 1, 0)] += 1
     return dict(convs)
 
 
 def tf_fma_kernel(fake_quant_fn, convs: dict) -> dict:
     """fma_gemm against its plain version, bit for bit, at every shape the
-    fake-quant line gives it, on that line's own operands (op 0's im2col
-    and the 1x1 convs' activations of one batch-64 forward, caught at the
-    wrapper). Kernel, plain and ``torch.matmul`` (TF32 off) times and the
-    bound for each shape, and summed over one forward's launches."""
+    fake-quant line gives it, on that line's own operands (op 0's im2col,
+    the 1x1 convs' and the FC's activations and the MEAN's window of one
+    batch-64 forward, caught at the wrapper). Kernel, plain and
+    ``torch.matmul`` (TF32 off) times, the bound and the tile the kernel
+    picked for each shape, and the times summed over one forward's
+    launches."""
     import nnstreamer_tpu_torch.models.tflite_import as ti
-    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm, fma_gemm_plain
+    from nnstreamer_tpu_torch.ops.fma_gemm import (fma_gemm, fma_gemm_plain,
+                                                   tile_for)
 
     n0 = fma_gemm.launches
     operands = {}
 
     def catch(a, b, chains=1, kblock=0):
+        # in the layout the forward gives them (op 0's, the MEAN's and the
+        # FC's rows lie on a padded pitch)
         key = (a.numel() // a.shape[-1], *b.shape, chains, kblock)
         operands.setdefault(key, []).append(
-            (a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous(), chains,
-             kblock))
+            (a.reshape(-1, a.shape[-1]), b, chains, kblock))
         return fma_gemm(a, b, chains, kblock)
     ti.fma_gemm = catch
     try:
@@ -5080,12 +5101,15 @@ def tf_fma_kernel(fake_quant_fn, convs: dict) -> dict:
               "operations": 2 * M * N * K / F32_FLOP_PER_S * 1e3}
         one = {"shape_mkn": [M, K, N], "chains": chains, "kblock": kblock,
                "per_forward": len(args),
+               "tile": tile_for(M, K, N, chains, kblock),
                "ms": time_ms(fma_gemm, args, reps=5, inner=10),
                "plain_ms": time_ms(fma_gemm_plain, args, reps=3, inner=1),
                "library_ms": time_ms(lambda a, b, *_: torch.matmul(a, b),
                                      args, reps=5, inner=10),
                "bound_ms": max(by.values()),
                "bound_by": max(by, key=by.get)}
+        one["ms_over_library"] = one["ms"] / one["library_ms"]
+        one["bound_share"] = one["bound_ms"] / one["ms"]
         shapes.append(one)
         for k in total:
             total[k] += len(args) * one[k]
@@ -5127,6 +5151,7 @@ def tf_dw_kernel(fake_quant_fn, dws: dict) -> dict:
     import nnstreamer_tpu_torch.models.tflite_import as ti
     from nnstreamer_tpu_torch.ops.depthwise_fma import (depthwise_fma,
                                                         depthwise_fma_plain)
+    from nnstreamer_tpu_torch.ops.depthwise_fma import tile_for as dw_tile_for
 
     n0 = depthwise_fma.launches
     operands = {}
@@ -5168,6 +5193,9 @@ def tf_dw_kernel(fake_quant_fn, dws: dict) -> dict:
                      a[1][0].permute(2, 0, 1).unsqueeze(1).contiguous())
                     for a in args]
         one = {"shape_hwc_stride": [h, w_, c, st], "per_forward": len(args),
+               "tile": dw_tile_for(TF_BATCH, oh, ow, c, st, torch.cuda
+                                   .get_device_properties(x.device)
+                                   .multi_processor_count),
                "ms": time_ms(depthwise_fma, args, reps=5, inner=10),
                "plain_ms": time_ms(depthwise_fma_plain, args, reps=3,
                                    inner=1),
@@ -5176,6 +5204,8 @@ def tf_dw_kernel(fake_quant_fn, dws: dict) -> dict:
                                            groups=c), lib_args,
                    reps=5, inner=10),
                "bound_ms": max(by.values()), "bound_by": max(by, key=by.get)}
+        one["ms_over_library"] = one["ms"] / one["library_ms"]
+        one["bound_share"] = one["bound_ms"] / one["ms"]
         shapes.append(one)
         for k in total:
             total[k] += len(args) * one[k]
@@ -5184,6 +5214,34 @@ def tf_dw_kernel(fake_quant_fn, dws: dict) -> dict:
     depthwise_fma.launches = n0     # comparison launches do not count
     return {"max_abs_err": err, **total, "bound_by": max(side, key=side.get),
             "launches_per_forward": sum(dws.values()), "shapes": shapes}
+
+
+TF_REFERENCE_B64 = (ROOT / "tests" / "fixtures"
+                    / "mobilenet_v2_1.0_224_int8_fake_quant_b64.npz")
+# fake-quant at batch 64 vs the jitted reference on its fixture's frames:
+# the port's CPU run is 0 LSB from it (ROADMAP §C)
+TF_REFERENCE_LSB = 0
+
+
+def tf_reference_b64(fake_quant_fn, frames: np.ndarray) -> dict:
+    """The card's fake-quant output on ``frames`` (the host line's first
+    batch, which the fixture's seed and bounds make again) against the
+    jitted reference's, committed: at most TF_REFERENCE_LSB apart."""
+    ref = np.load(TF_REFERENCE_B64)
+    if (int(ref["seed"]), int(ref["low"]), int(ref["high"])) != (0, 0, 127) \
+            or json.loads(str(ref["options"])) != {
+                "quantized_exec": "fake-quant", "batch": str(TF_BATCH)}:
+        fail(f"tflite reference: {TF_REFERENCE_B64.name} was made from other "
+             "frames or options than the host line's first batch")
+    got = fake_quant_fn(torch.from_numpy(frames).to(ST_DEV))[0].cpu().numpy()
+    d = np.abs(got.astype(np.int64) - ref["out"].astype(np.int64))
+    res = {"max_lsb": int(d.max()), "differ": int((d > 0).sum()),
+           "values": int(d.size)}
+    if got.shape != ref["out"].shape or res["max_lsb"] > TF_REFERENCE_LSB:
+        fail(f"tflite fake-quant: batch-{TF_BATCH} output on the card is "
+             f"{res['max_lsb']} LSB from the jitted reference "
+             f"({res['differ']} values apart; limit {TF_REFERENCE_LSB})")
+    return res
 
 
 def tf_tiny(native_fn_of) -> dict:
@@ -5431,10 +5489,16 @@ def phase_tflite(report: dict) -> None:
           f"operands; a forward's {fq['launches_per_forward']} launches take "
           f"{fq['ms']:.6f} ms (plain {fq['plain_ms']:.3f}, torch.matmul "
           f"{fq['library_ms']:.6f}, bound {fq['bound_ms']:.6f} ms by "
-          f"{fq['bound_by']}); per shape: "
-          + "; ".join(f"{tuple(x['shape_mkn'])} x{x['per_forward']} "
-                      f"{x['ms']:.6f} / bound {x['bound_ms']:.6f} / matmul "
-                      f"{x['library_ms']:.6f} ms" for x in fq["shapes"]))
+          f"{fq['bound_by']}; {fq['ms'] / fq['library_ms']:.3f} x matmul, "
+          f"{fq['bound_ms'] / fq['ms']:.3f} of the bound); per shape "
+          "(M, K, N, chains, kblock) x launches: ms / bound / matmul, ms over "
+          "matmul's, bound over ms, tile (BM, BN, TM, TN, split): "
+          + "; ".join(f"{(*x['shape_mkn'], x['chains'], x['kblock'])} "
+                      f"x{x['per_forward']} {x['ms']:.6f} / "
+                      f"{x['bound_ms']:.6f} / {x['library_ms']:.6f}, "
+                      f"{x['ms_over_library']:.3f}, {x['bound_share']:.3f}, "
+                      f"{tuple(x['tile'][f] for f in ('bm', 'bn', 'tm', 'tn', 'split'))}"
+                      for x in fq["shapes"]))
     r["depthwise_fma"] = dq = tf_dw_kernel(fns["fake-quant"], dws)
     print(f"tflite ({smi}) depthwise_fma: {r['depthwise_fma_launches']} "
           f"launches in the fake-quant line; = its plain version bit for bit "
@@ -5442,11 +5506,24 @@ def phase_tflite(report: dict) -> None:
           f"on its operands; a forward's {dq['launches_per_forward']} "
           f"launches take {dq['ms']:.6f} ms (plain {dq['plain_ms']:.3f}, "
           f"grouped conv2d {dq['library_ms']:.6f}, bound "
-          f"{dq['bound_ms']:.6f} ms by {dq['bound_by']}); per shape: "
+          f"{dq['bound_ms']:.6f} ms by {dq['bound_by']}; "
+          f"{dq['ms'] / dq['library_ms']:.3f} x conv2d, "
+          f"{dq['bound_ms'] / dq['ms']:.3f} of the bound); per shape (H, W, "
+          "C, stride) x launches: ms / bound / conv2d, ms over conv2d's, "
+          "bound over ms, tile (TH, TW, CB, rows): "
           + "; ".join(f"{tuple(x['shape_hwc_stride'])} x{x['per_forward']} "
-                      f"{x['ms']:.6f} / bound {x['bound_ms']:.6f} / conv2d "
-                      f"{x['library_ms']:.6f} ms" for x in dq["shapes"]))
+                      f"{x['ms']:.6f} / {x['bound_ms']:.6f} / "
+                      f"{x['library_ms']:.6f}, {x['ms_over_library']:.3f}, "
+                      f"{x['bound_share']:.3f}, "
+                      f"{tuple(x['tile'][f] for f in ('th', 'tw', 'cb', 'rows'))}"
+                      for x in dq["shapes"]))
     host = tf_host_frames(TF_WARM + TF_MEASURED)
+    r["reference_b64"] = tf_reference_b64(fns["fake-quant"], host[0])
+    print(f"tflite ({smi}) fake-quant at batch {TF_BATCH} on the card = "
+          f"the jitted reference's committed output on the host line's "
+          f"first batch: {r['reference_b64']['max_lsb']} LSB, "
+          f"{r['reference_b64']['differ']} of {r['reference_b64']['values']}"
+          " values apart")
     for k, out in enumerate(runs["int8-native"]["raw"]):
         got = fns["int8"](torch.from_numpy(host[k]).to(ST_DEV))[0]
         if not torch.equal(got.cpu(), out):

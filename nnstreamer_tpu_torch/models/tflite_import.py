@@ -20,7 +20,10 @@ precision, and untouched by PyTorch's process-wide TF32 switches, which
 the importer neither reads nor sets. The convs listed in
 ``FMA_ORDERS`` (by batch, spatial size and shape) instead sum in
 XLA:CPU's own order, chains of float32 FMAs over K (``ops/fma_gemm.py``),
-which gives the reference's float32 conv bit for bit there. ``high`` runs them in float32 as the
+which gives the reference's float32 conv bit for bit there; so does the
+FULLY_CONNECTED at the batches it lists, and the fake-quantized MEAN of
+``MEAN_FMA_SHAPES`` sums its window as XLA:CPU does (:func:`mean_fma`).
+``high`` runs them in float32 as the
 process's switches have it; ``default`` in bfloat16. Depthwise
 convolutions and pools are elementwise float32 multiply-adds in the
 reference's order; in fake-quant mode the depthwise convs listed in
@@ -59,7 +62,7 @@ import torch.nn.functional as F
 from ..core import DataType, TensorsInfo
 from ..core.tensors import TensorSpec
 from ..ops.depthwise_fma import depthwise_fma
-from ..ops.fma_gemm import fma_gemm, fmaf
+from ..ops.fma_gemm import fma_gemm, fmaf, padded_rows
 from ..utils.hw_accel import resolve_device
 from . import tflite_schema
 
@@ -434,12 +437,16 @@ class ScalarCache:
                 self(float(t.scale[0]))
                 self.recip(float(t.scale[0]))
         self(6.0)
-        for code, _, ins, _ in steps:
+        for code, _, ins, outs in steps:
             if code == "MEAN" and ins[1] in raw_consts:
                 shape = tensors[ins[0]].shape
                 axes = np.atleast_1d(raw_consts[ins[1]]).reshape(-1)
                 if all(-len(shape) <= int(a) < len(shape) for a in axes):
-                    self(float(np.prod([shape[int(a)] for a in axes])))
+                    n = float(np.prod([shape[int(a)] for a in axes]))
+                    self.recip(n)
+                    t = tensors[outs[0]]
+                    if t.scale is not None:
+                        self(fold_recips(n, float(t.scale[0])))
 
     def __call__(self, v: float) -> torch.Tensor:
         t = self._made.get(v)
@@ -450,6 +457,36 @@ class ScalarCache:
 
     def recip(self, v: float) -> torch.Tensor:
         return self(float(np.float32(1.0) / np.float32(v)))
+
+
+def fold_recips(n: float, scale: float) -> float:
+    """``float32(1 / n) * float32(1 / scale)`` rounded to float32: XLA's
+    simplifier folds a MEAN's ``* (1 / n)`` into the snap's ``* (1 /
+    scale)`` that follows it, so the sum is multiplied once."""
+    one = np.float32(1.0)
+    return float((one / np.float32(n)) * (one / np.float32(scale)))
+
+
+# (batch, h, w, c) of the NHWC inputs whose MEAN over (h, w), fed a
+# fake-quantized input k * s, XLA:CPU sums as one chain of contracted
+# dequantizing FMAs, fmaf(k, s, acc), over the window in (h, w) order (the
+# reduce fused with the snap before it), then multiplies by float32(1 /
+# (h*w)): the fixture's global pool at batches 1, 4 and 64, held by
+# tests/test_torch_tflite_fma.py. Nothing else is assumed.
+MEAN_FMA_SHAPES = frozenset((batch, 7, 7, 1280) for batch in (1, 4, 64))
+
+
+def mean_fma(k: torch.Tensor, s: float) -> torch.Tensor:
+    """The sum over axes 1 and 2 of NHWC ``k * s`` (``k`` integer-valued
+    float32, ``s`` a float32 scale) as one ``fmaf(k, s, acc)`` chain over
+    the window in (h, w) order: an (N*C, h*w) x (h*w, 1) ``fma_gemm`` whose
+    column is ``s``. Returns (N, C)."""
+    n, h, w, c = (int(d) for d in k.shape)
+    rows = padded_rows(n * c, h * w, k.device)
+    rows.view(n, c, h, w).copy_(k.permute(0, 3, 1, 2))
+    col = torch.full((h * w, 1), float(np.float32(s)), dtype=torch.float32,
+                     device=k.device)
+    return fma_gemm(rows, col).reshape(n, c)
 
 
 # (batch, in_h, in_w, kh, kw, stride_h, stride_w, in_c, out_c) of the CONV_2D
@@ -478,6 +515,17 @@ _FMA_CONVS = {  # (in_hw, kh, kw, stride_h, stride_w, in_c, out_c): order
 FMA_ORDERS = {(batch, hw, hw, *conv): order
               for (hw, *conv), order in _FMA_CONVS.items()
               for batch in (1, 4, 64) if (batch, hw) != (1, 7)}
+# at batch 1 two of the 7x7 convs take other K blocks; the other three
+# sum their first 128 or 512 columns in one order and the rest in another
+# (ROADMAP §C), so they stay unlisted
+FMA_ORDERS.update({(1, 7, 7, 1, 1, 1, 1, 320, 1280): (1, 128),
+                   (1, 7, 7, 1, 1, 1, 1, 960, 320): (1, 512)})
+# the FULLY_CONNECTED (batch, 1280) x (1280, 1001), keyed as a 1x1 conv of
+# a 1x1 input: one chain at batch 1, four at batch 64. At batch 4 its
+# first 960 columns sum in K blocks of 512 and its last 41 in an order not
+# found (ROADMAP §C), so it stays unlisted.
+FMA_ORDERS.update({(1, 1, 1, 1, 1, 1, 1, 1280, 1001): (1, 0),
+                   (64, 1, 1, 1, 1, 1, 1, 1280, 1001): (4, 0)})
 
 
 # (batch, in_h, in_w, kh, kw, stride_h, stride_w, in_c, out_c) of the
@@ -521,12 +569,19 @@ def _gemm_float(precision: str):
     return torch.matmul
 
 
-def im2col(x, kh: int, kw: int, strides, dilation, padding: str, pad_value):
-    """NHWC patches (N, oh, ow, kh*kw*C), K ordered (ky, kx, c)."""
+def im2col(x, kh: int, kw: int, strides, dilation, padding: str, pad_value,
+           pitched: bool = False):
+    """NHWC patches (N, oh, ow, kh*kw*C), K ordered (ky, kx, c).
+    ``pitched``: rows a multiple of 4 floats apart (zeros past K), so that
+    ``fma_gemm``'s kernel copies them in 16-byte runs."""
     n, h, w, c = x.shape
     oh, ow, pads = explicit_padding(h, w, kh, kw, strides, dilation, padding)
     cols = window_taps(pad_nhwc(x, pads, pad_value), kh, kw, oh, ow, strides,
                        dilation)
+    k = kh * kw * int(c)
+    if pitched and k % 4:
+        cols = cols + [x.new_zeros(n, oh, ow, -k % 4)]
+        return torch.cat(cols, dim=-1)[..., :k]
     return torch.cat(cols, dim=-1) if len(cols) > 1 else cols[0]
 
 
@@ -559,7 +614,13 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
             oc = int(w.shape[0])
             conv_w[ins[1]] = w.permute(1, 2, 3, 0).reshape(-1, oc).contiguous()
         elif code == "FULLY_CONNECTED" and ins[1] in dev_consts:
-            conv_w[ins[1]] = dev_consts[ins[1]].t().contiguous()
+            # (K, N) on a pitch of a multiple of 4 floats, for fma_gemm's
+            # 16-byte copies (N = 1001 in the fixture)
+            w_t = dev_consts[ins[1]].t()
+            k, n = (int(d) for d in w_t.shape)
+            pitched = w_t.new_zeros(k, -(-n // 4) * 4)
+            pitched[:, :n] = w_t
+            conv_w[ins[1]] = pitched[:, :n]
     gemm = _gemm_float(precision)
     sc = ScalarCache(device)
     sc.prefill(steps, tensors, raw_consts)
@@ -570,14 +631,20 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
             return _as_torch(v, device) if isinstance(v, np.ndarray) else v
         return dev_consts[idx]
 
-    def _fake_quant(idx: int, y):
+    def _fake_quant(idx: int, y, n: Optional[float] = None):
         """Emulate integer inference on an activation tensor: round to the
         tensor's quantization grid and saturate to its integer range. In
         quantized tflite graphs the activation clamp (e.g. relu6) lives in
         the OUTPUT tensor's quantization range, not the fused-activation
         field — without this, out-of-range values propagate un-saturated
-        and the float simulation diverges from the interpreter."""
+        and the float simulation diverges from the interpreter. ``n``: a
+        MEAN's count, ``y`` its sum; the snap then multiplies once, by
+        :func:`fold_recips`, as XLA folds the two reciprocals."""
         t = tensors[idx]
+        snapped = t.quantized and t.dtype in (np.uint8, np.int8) and \
+            q_exec != "float"
+        if n is not None and not snapped:
+            y = y * sc.recip(n)
         if not (t.quantized and t.dtype in (np.uint8, np.int8)):
             return y
         if not isinstance(y, torch.Tensor) or not y.is_floating_point():
@@ -590,8 +657,8 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
             # tensor's representable range — dropping it changes the net
             return torch.clamp(y, (info.min - zp) * scale,
                                (info.max - zp) * scale)
-        q = torch.clamp(torch.round(y * sc.recip(scale)) + zp, info.min,
-                        info.max)
+        mul = sc.recip(scale) if n is None else sc(fold_recips(n, scale))
+        q = torch.clamp(torch.round(y * mul) + zp, info.min, info.max)
         return (q - zp) * scale
 
     def _fq_scale(idx: int) -> Optional[float]:
@@ -624,17 +691,18 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
     def _conv(env, x, idx_w, cfg):
         w = _in(env, idx_w)
         oc, kh, kw, ic = (int(d) for d in w.shape)
+        order = FMA_ORDERS.get(
+            (*x.shape[:3], kh, kw, *cfg["strides"], ic, oc))
+        fma = precision == "highest" and order
         if kh == kw == 1 and tuple(cfg["strides"]) == (1, 1):
             p = x
         else:
             p = im2col(x, kh, kw, cfg["strides"], cfg["dilation"],
-                       cfg["padding"], 0.0)
+                       cfg["padding"], 0.0, pitched=bool(fma))
         w_mat = conv_w.get(idx_w)
         if w_mat is None:  # weights computed in the graph
             w_mat = w.permute(1, 2, 3, 0).reshape(-1, oc)
-        order = FMA_ORDERS.get(
-            (*x.shape[:3], kh, kw, *cfg["strides"], ic, oc))
-        if precision == "highest" and order:
+        if fma:
             return fma_gemm(p, w_mat, *order)
         return gemm(p, w_mat)
 
@@ -668,7 +736,11 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
                 w = conv_w.get(ins[1])
                 if w is None:
                     w = _in(env, ins[1]).t()
-                y = gemm(x.reshape(x.shape[0], -1), w)
+                x = x.reshape(x.shape[0], -1)
+                order = FMA_ORDERS.get((x.shape[0], 1, 1, 1, 1, 1, 1,
+                                        *w.shape))
+                y = fma_gemm(x, w, *order) if precision == "highest" and \
+                    order else gemm(x, w)
                 if len(ins) > 2 and ins[2] >= 0:
                     y = y + _in(env, ins[2])
                 env[outs[0]] = _fused(cfg["act"], y)
@@ -698,9 +770,20 @@ def build_float_fn(steps, tensors: List[_Tensor], consts: Dict[int, np.ndarray],
             elif code == "MEAN":
                 axes = tuple(int(a) for a in np.atleast_1d(_const(ins[1])))
                 x = _in(env, ins[0])
-                n = int(np.prod([x.shape[a] for a in axes]))
-                env[outs[0]] = x.sum(dim=axes, keepdim=cfg["keepdims"]) / sc(
-                    float(n))
+                n = float(np.prod([x.shape[a] for a in axes]))
+                s_in = _fq_scale(ins[0])
+                if s_in is not None and precision == "highest" and \
+                        sorted(a % x.dim() for a in axes) == [1, 2] and \
+                        tuple(x.shape) in MEAN_FMA_SHAPES:
+                    y = mean_fma(torch.round(x * sc.recip(s_in)), s_in)
+                    if cfg["keepdims"]:
+                        y = y[:, None, None, :]
+                    # snapped at once, by the folded reciprocal; the
+                    # loop's snap below then leaves it as it is
+                    env[outs[0]] = _fake_quant(outs[0], y, n)
+                else:
+                    env[outs[0]] = x.sum(dim=axes, keepdim=cfg["keepdims"]) \
+                        * sc.recip(n)
             elif code == "PAD":
                 pads = np.asarray(_const(ins[1])).reshape(-1, 2)
                 flat = [int(v) for p in pads[::-1] for v in p]

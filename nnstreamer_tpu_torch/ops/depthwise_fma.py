@@ -19,10 +19,12 @@ order, so a fake-quant forward snaps each such op to the reference's step.
 (a float64 product and sum, redone by rounding to odd where rounding twice
 would differ from one ``fmaf``); the plain version takes any window. On
 CUDA tensors it launches ``csrc/depthwise_fma.cu`` (``__fmaf_rn`` in that
-order), which is built for what the listed shapes need: a 3x3 window,
-undilated, channel multiplier 1, stride 1 or 2. Anything else on the card
-raises, as does a launch that fails; ``depthwise_fma.launches`` counts the
-launches.
+order; persistent blocks over output tiles, each tile's input staged by a
+three-slot ``cp.async`` ring, 4 channels a thread; ``tile_for`` picks the
+tile), which is built for what the listed shapes need: a 3x3 window,
+undilated, channel multiplier 1, stride 1 or 2 (a C that is not a
+multiple of 4 is zero-padded to one). Anything else on the card raises, as does a launch that fails;
+``depthwise_fma.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -124,9 +126,100 @@ def depthwise_fma_plain(x: torch.Tensor, w: torch.Tensor, strides,
 def _kernel():
     fn = load_kernel("depthwise_fma").nns_depthwise_fma
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + \
-        [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# an SM's shared memory for blocks (bytes), its threads, a block's threads;
+# the kernel's ring holds 2 to 4 tiles' inputs, all but one in flight
+_SMEM_SM, _THREADS_SM, _THREADS_MAX = 227 * 1024, 2048, 512
+_SLOTS = (2, 3, 4)
+# The tile measured fastest (ops/tune_fake_quant.py on an H100 SXM, 700 W)
+# at each depthwise shape of a batch-64 fake-quant forward of the int8
+# MobileNet-v2 fixture: (N, OH, OW, C, stride): (TH, TW, CB, rows, slots)
+_TUNED = {
+    (64, 7, 7, 960, 1): (7, 7, 64, 7, 3),
+    (64, 14, 14, 384, 1): (14, 14, 32, 14, 2),
+    (64, 14, 14, 576, 1): (14, 7, 64, 14, 2),
+    (64, 7, 7, 576, 2): (7, 7, 96, 4, 2),
+    (64, 28, 28, 192, 1): (28, 28, 16, 14, 2),
+    (64, 14, 14, 192, 2): (8, 7, 32, 4, 2),
+    (64, 56, 56, 144, 1): (14, 7, 72, 7, 2),
+    (64, 28, 28, 144, 2): (14, 7, 48, 4, 2),
+    (64, 112, 112, 32, 1): (14, 7, 32, 7, 3),
+    (64, 56, 56, 96, 2): (8, 8, 96, 4, 2),
+}
+# bytes an SM should have in flight to keep its share of the memory busy
+_INFLIGHT = 48 * 1024
+
+
+def _sizes(n: int, cap: int):
+    """Whole spans of ``n``, then the widths that split it into a few
+    tiles, largest first, none above ``cap``."""
+    out = {n} if n <= cap else set()
+    out |= {d for d in (32, 28, 16, 14, 8, 7, 4) if d < n and d <= cap}
+    return sorted(out, reverse=True)
+
+
+def tile_shape(n: int, oh: int, ow: int, c: int, stride: int, sms: int,
+               th: int, tw: int, cb: int, rows: int, slots: int) -> dict:
+    """A tile's fields as the kernel takes them, with its threads and the
+    grid: the tiles, or the blocks the card holds at once, the fewer."""
+    in_h, in_w = (th - 1) * stride + 3, (tw - 1) * stride + 3
+    threads = cb // 4 * tw * -(-th // rows)
+    per_sm = min(_SMEM_SM // (slots * in_h * in_w * cb * 4),
+                 _THREADS_SM // threads)
+    tiles = n * -(-oh // th) * -(-ow // tw) * -(-c // cb)
+    return {"th": th, "tw": tw, "cb": cb, "rows": rows, "slots": slots,
+            "threads": threads, "grid": min(tiles, sms * per_sm)}
+
+
+@functools.lru_cache(maxsize=None)
+def tile_for(n: int, oh: int, ow: int, c: int, stride: int,
+             sms: int) -> dict:
+    """The kernel's tile for an (n, oh, ow, c) output at ``stride`` on a
+    card of ``sms`` SMs (:func:`tile_shape`'s fields): ``_TUNED``'s for its
+    shapes; else the one that minimizes a model of the busiest SM's bytes:
+    every tile it runs reads its input, halo and padding included, and
+    writes its outputs, slowed where the SM's resident blocks keep fewer
+    than 48 KiB in flight or hold fewer than 256 threads, and where a
+    pixel's run of channels is short (at least 64 bytes where C allows,
+    128 or more preferred)."""
+    tuned = _TUNED.get((n, oh, ow, c, stride))
+    if tuned:
+        return tile_shape(n, oh, ow, c, stride, sms, *tuned)
+    best = None
+    cbs = [cb for cb in range(min(c, 16), min(c, 192) + 1, 4)
+           if c % cb == 0]
+    for th in _sizes(oh, 32):
+        for tw in _sizes(ow, 32):
+            in_h, in_w = (th - 1) * stride + 3, (tw - 1) * stride + 3
+            for cb in cbs:
+                stage = in_h * in_w * cb * 4
+                for runs in (1, 2, 4, 8):
+                    rows = -(-th // runs)
+                    threads = cb // 4 * tw * -(-th // rows)
+                    for slots in _SLOTS:
+                        if threads > _THREADS_MAX or \
+                                slots * stage > _SMEM_SM:
+                            continue
+                        t = tile_shape(n, oh, ow, c, stride, sms, th, tw,
+                                       cb, rows, slots)
+                        tiles = n * -(-oh // th) * -(-ow // tw) * (c // cb)
+                        busy = min(t["grid"] // sms or 1, -(-tiles // sms))
+                        moved = stage + th * tw * cb * 4
+                        slow = max(1.0, _INFLIGHT /
+                                   (busy * (slots - 1) * stage),
+                                   256 / (busy * threads)) * (1 + 4 / cb)
+                        cost = -(-tiles // sms) * moved * slow
+                        key = (cost, -threads, slots)
+                        if best is None or key < best[0]:
+                            best = (key, t)
+    if best is None:
+        raise ValueError(f"depthwise_fma: no tile for a ({n}, {oh}, {ow}, "
+                         f"{c}) output at stride {stride}")
+    return best[1]
 
 
 def depthwise_fma(x: torch.Tensor, w: torch.Tensor, strides, dilation, pads,
@@ -159,20 +252,32 @@ def depthwise_fma(x: torch.Tensor, w: torch.Tensor, strides, dilation, pads,
     if direct not in (-1, 4):
         raise ValueError(f"depthwise_fma's kernel reassociates the centre "
                          f"tap alone; pads {pads} make it tap {direct}")
-    x = x.contiguous()
-    w = w.contiguous()
-    out = torch.empty(n, oh, ow, oc, dtype=torch.float32, device=x.device)
+    # the kernel reads and writes 16-byte runs of 4 channels: other
+    # channel counts are zero-padded to a multiple of 4 (each channel's
+    # chain is its own) and cut back after
+    c4 = -(-c // 4) * 4
+    if c4 != c:
+        x, w = F.pad(x, (0, c4 - c)), F.pad(w, (0, c4 - c))
+    x = x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format)
+    w = w.contiguous() if w.data_ptr() % 16 == 0 else w.clone(
+        memory_format=torch.contiguous_format)
+    out = torch.empty(n, oh, ow, c4, dtype=torch.float32, device=x.device)
     if out.numel():
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        t = tile_for(n, oh, ow, c4, int(strides[0]), sms)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h,
-                            wd, c, oh, ow, strides[0], pt, pl, direct,
-                            0.0 if in_scale is None else in_scale, stream)
+                            wd, c4, oh, ow, strides[0], pt, pl, direct,
+                            0.0 if in_scale is None else in_scale, t["th"],
+                            t["tw"], t["cb"], t["rows"], t["slots"],
+                            t["grid"], stream)
         if err:
             raise RuntimeError(
                 f"depthwise_fma kernel launch failed: CUDA error {err}")
         depthwise_fma.launches += 1
-    return out
+    return out if c4 == c else out[..., :c]
 
 
 depthwise_fma.launches = 0

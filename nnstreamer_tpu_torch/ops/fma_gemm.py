@@ -16,10 +16,12 @@ subnormal range); there the step is redone exactly, rounding to odd with a
 two-sum error term, which is the correctly rounded ``fmaf`` (53 bits
 carry more than the 24 + 2 that rounding to odd needs). On the CPU the
 rows go in blocks that stay in cache. On CUDA tensors it launches
-``csrc/fma_gemm.cu`` (M x N tiles in shared memory, each output's ``fmaf``
-chain over K in order in one thread's registers) or raises;
-``fma_gemm.launches`` counts the launches. The plain version runs on the
-card as well, bit-equal to the kernel.
+``csrc/fma_gemm.cu`` (persistent blocks over M x N tiles fed by a
+``cp.async`` ring of A and B slabs, each output's ``fmaf`` chain over K in
+order in one thread's registers; ``tile_for`` names the tile it picks for
+a shape; ``padded_rows`` lays rows out on the pitch its 16-byte copies
+take) or raises; ``fma_gemm.launches`` counts the launches. The plain
+version runs on the card as well, bit-equal to the kernel.
 
 ``chains`` 2 or 4 and ``kblock`` are the orders XLA:CPU takes at other
 shapes (each listed shape's order is in
@@ -145,11 +147,62 @@ def fma_gemm_plain(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
 
 @functools.cache
 def _kernel():
-    fn = load_kernel("fma_gemm").nns_fma_gemm
+    lib = load_kernel("fma_gemm")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return fn
+    ll = ctypes.c_longlong
+    lib.nns_fma_gemm.argtypes = [vp, vp, vp, i, i, i, ll, ll, i, i, i, vp]
+    lib.nns_fma_gemm.restype = i
+    lib.nns_fma_gemm_config.argtypes = [i, i, i, i, i, i]
+    lib.nns_fma_gemm_config.restype = i
+    lib.nns_fma_gemm_describe.argtypes = [i, ctypes.POINTER(i)]
+    lib.nns_fma_gemm_describe.restype = i
+    return lib
+
+
+_TILE_FIELDS = ("bm", "bn", "tm", "tn", "chains", "split", "kblocks",
+                "stages", "threads")
+
+
+def tile_table() -> list:
+    """The kernel's tiles (``_TILE_FIELDS`` each), in its table's order."""
+    lib = _kernel()
+    shape = (ctypes.c_int * len(_TILE_FIELDS))()
+    n = lib.nns_fma_gemm_describe(0, shape)
+    out = []
+    for i in range(n):
+        lib.nns_fma_gemm_describe(i, shape)
+        out.append(dict(zip(_TILE_FIELDS, shape)))
+    return out
+
+
+def tile_for(m: int, k: int, n: int, chains: int = 1, kblock: int = 0,
+             device=None) -> dict:
+    """The tile the kernel runs an (m, k) x (k, n) product in, in the
+    given order, on the current (or given) CUDA device: its index in
+    :func:`tile_table` and its fields."""
+    lib = _kernel()
+    with torch.cuda.device(device):
+        idx = lib.nns_fma_gemm_config(m, k, n, chains, kblock, -1)
+    if idx < 0:
+        raise ValueError(f"fma_gemm: no tile for ({m}, {k}) x ({k}, {n}), "
+                         f"{chains} chains, blocks of {kblock}")
+    return {"index": idx, **tile_table()[idx]}
+
+
+def _rows(x: torch.Tensor):
+    """``x`` (rows, cols) and its row pitch for the kernel: rows of unit
+    stride are read where they lie (a channel slice, a padded pitch) if
+    the storage holds each row's floats up to its next multiple of 4 (the
+    kernel's 16-byte copies read that far); anything else is copied
+    dense."""
+    rows, cols = x.shape
+    if rows > 1 and cols and x.stride(-1) == 1 and x.stride(0) >= cols:
+        pitch = x.stride(0)
+        end = x.storage_offset() + (rows - 1) * pitch + -(-cols // 4) * 4
+        if pitch % 4 or end * 4 <= x.untyped_storage().nbytes():
+            return x, pitch
+    x = x.contiguous()
+    return x, cols
 
 
 def fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
@@ -168,14 +221,15 @@ def fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
                          f"on the CPU, got {a.device} and {b.device}")
     K, N = b.shape
     # K may be 0 (a short chain), so the row count is not left to -1.
-    a2 = a.reshape(math.prod(a.shape[:-1]), K).contiguous()
-    b = b.contiguous()
+    a2, lda = _rows(a.reshape(math.prod(a.shape[:-1]), K))
+    b2, ldb = _rows(b)
     out = torch.empty(a2.shape[0], N, dtype=torch.float32, device=a.device)
     if out.numel():
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = _kernel()(a2.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            a2.shape[0], K, N, chains, kblock, stream)
+            err = _kernel().nns_fma_gemm(
+                a2.data_ptr(), b2.data_ptr(), out.data_ptr(), a2.shape[0], K,
+                N, lda, ldb, chains, kblock, -1, stream)
         if err:
             raise RuntimeError(
                 f"fma_gemm kernel launch failed: CUDA error {err}")
@@ -184,3 +238,12 @@ def fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
 
 
 fma_gemm.launches = 0
+
+
+def padded_rows(rows: int, k: int, device) -> torch.Tensor:
+    """An uninitialised (rows, k) float32 view whose rows lie a multiple of
+    4 floats apart (the kernel then copies them in 16-byte runs, whatever
+    k is; the floats past k are never a step of a chain)."""
+    pitch = -(-k // 4) * 4
+    return torch.empty(rows, pitch, dtype=torch.float32,
+                       device=device)[:, :k]

@@ -338,8 +338,12 @@ def _bridge_run(pkg: str, n_clients: int = 4):
         from nnstreamer_tpu.serving import Scheduler as S
     caps = C.new("other/tensors")
     server = QS(port=0, caps=caps)
-    sched = S(lambda x: (x * 2 + 1,), bucket_sizes=(1, 2, 4),
-              max_wait_s=0.25, name=f"t-qbridge-{pkg}")
+    # one bucket of 4 rows: 1-3 queued rows are never a bucket boundary,
+    # so neither batcher flushes them early (an idle worker flushes a cell
+    # only on a boundary), and the 4th row fills the bucket at once; the
+    # long max_wait only bounds a run whose clients never all send
+    sched = S(lambda x: (x * 2 + 1,), bucket_sizes=(n_clients,),
+              max_wait_s=5.0, name=f"t-qbridge-{pkg}")
     server.attach_scheduler(sched)
     results = {}
     barrier = threading.Barrier(n_clients, timeout=WAIT)

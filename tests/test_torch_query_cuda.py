@@ -16,7 +16,9 @@ Phase 17 of chip_smoke.py in small form:
 * with ``grpc`` blocked, ``tensor_sink_grpc`` posts a bus ERROR naming
   grpc;
 * the fake-quant conv orders' kernel (``csrc/fma_gemm.cu``) equals its
-  plain version bit for bit."""
+  plain version bit for bit: in every order, on ragged M and N, unaligned
+  K, K shorter than the chains, a K block's tail, the FULLY_CONNECTED's
+  and the MEAN's shapes, and in every tile of its table."""
 import json
 import os
 import subprocess
@@ -256,3 +258,73 @@ def test_fma_gemm_reads_a_strided_view_as_its_values(view, chains, kblock):
     assert torch.equal(got, fma_gemm_plain(a.contiguous(), b, chains, kblock))
     assert torch.equal(got.cpu(),
                        fma_gemm(a.cpu(), b.cpu(), chains, kblock))
+
+
+# the redesigned kernel, in each order: M and N that fill no tile, K that
+# is not a multiple of 4 (op 0's 27, the MEAN's 49), K shorter than the
+# chains, a K block's tail, the FULLY_CONNECTED's shapes (batch 64 and 1)
+# and the MEAN's (N = 1)
+@pytest.mark.parametrize("m,k,n,chains,kblock", [
+    (1001, 27, 33, 1, 0), (1001, 27, 33, 2, 0), (1001, 27, 33, 4, 0),
+    (333, 49, 1, 1, 0), (5120, 49, 1, 1, 0), (77, 13, 70, 2, 0),
+    (77, 13, 70, 4, 0), (65, 3, 17, 4, 0), (65, 1, 17, 2, 0),
+    (130, 1100, 70, 1, 512), (130, 1056, 33, 1, 512), (99, 1280, 40, 1, 128),
+    (64, 1280, 1001, 4, 0), (1, 1280, 1001, 1, 0), (3136, 960, 320, 1, 512),
+    (12544, 24, 144, 4, 0)])
+def test_fma_gemm_redesigned_kernel_equals_its_plain_version(m, k, n, chains,
+                                                            kblock):
+    from nnstreamer_tpu_torch.ops.fma_gemm import fma_gemm, fma_gemm_plain
+
+    g = torch.Generator(device=DEV).manual_seed(m * 7 + k + n + chains)
+    a = torch.randn(m, k, device=DEV, generator=g)
+    b = torch.randn(k, n, device=DEV, generator=g)
+    before = fma_gemm.launches
+    got = fma_gemm(a, b, chains, kblock)
+    assert fma_gemm.launches == before + 1
+    assert torch.equal(got, fma_gemm_plain(a, b, chains, kblock))
+
+
+# rows on a padded pitch (op 0's im2col, the MEAN's window, the FC's
+# weights), read where they lie with 16-byte copies, in each order
+@pytest.mark.parametrize("m,k,n,chains,kblock", [
+    (1001, 27, 1001, 1, 0), (513, 49, 1, 1, 0), (64, 130, 1001, 4, 0),
+    (77, 1031, 35, 1, 512), (300, 45, 33, 2, 0)])
+def test_fma_gemm_reads_padded_pitches_as_their_values(m, k, n, chains,
+                                                       kblock):
+    from nnstreamer_tpu_torch.ops.fma_gemm import (fma_gemm, fma_gemm_plain,
+                                                   padded_rows)
+
+    g = torch.Generator(device=DEV).manual_seed(m + k + n)
+    a, b = padded_rows(m, k, DEV), padded_rows(k, n, DEV)
+    a.copy_(torch.randn(m, k, device=DEV, generator=g))
+    b.copy_(torch.randn(k, n, device=DEV, generator=g))
+    assert a.stride(0) % 4 == 0 and b.stride(0) % 4 == 0
+    before = fma_gemm.launches
+    got = fma_gemm(a, b, chains, kblock)
+    assert fma_gemm.launches == before + 1
+    assert torch.equal(got, fma_gemm_plain(a.contiguous(), b.contiguous(),
+                                           chains, kblock))
+
+
+# every tile of the kernel's table, on a ragged shape in its order
+def test_fma_gemm_every_tile_equals_its_plain_version():
+    from nnstreamer_tpu_torch.ops.fma_gemm import (_kernel, fma_gemm_plain,
+                                                   tile_table)
+
+    lib = _kernel()
+    g = torch.Generator(device=DEV).manual_seed(5)
+    wrong = []
+    table = tile_table()
+    assert table
+    for i, t in enumerate(table):
+        k, kblock = (600, 128) if t["kblocks"] else (75, 0)
+        a = torch.randn(301, k, device=DEV, generator=g)
+        b = torch.randn(k, 37, device=DEV, generator=g)
+        out = torch.empty(301, 37, device=DEV)
+        err = lib.nns_fma_gemm(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), 301, k, 37, k, 37,
+            t["chains"], kblock, i, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, (i, t, err)
+        if not torch.equal(out, fma_gemm_plain(a, b, t["chains"], kblock)):
+            wrong.append((i, t))
+    assert not wrong

@@ -16,7 +16,11 @@ fixture at batch 8 and the tiny per-channel fixture:
   dispatches;
 * int8-native takes card inputs and gives host outputs;
 * datareposrc use-native=true reads the same samples in the same order
-  as use-native=false."""
+  as use-native=false;
+* the depthwise FMA kernel equals its plain version bit for bit, one
+  launch a call, at each stride, on 7x7 and 112x112 images and channel
+  counts that are multiples of 4 but not of 32 (and one that is not a
+  multiple of 4)."""
 from pathlib import Path
 
 import numpy as np
@@ -210,6 +214,36 @@ def test_depthwise_fma_kernel_equals_its_plain_version(n, hw, c, stride,
     assert torch.equal(got, depthwise_fma_plain(*args))
     cpu = depthwise_fma(x.cpu(), w.cpu(), *args[2:])
     assert torch.equal(got.cpu(), cpu)
+
+
+# the redesigned kernel's tiles: each stride, whole small images and
+# wide tiles of large ones, channel runs that fill no 32-channel block
+@pytest.mark.parametrize("stride", (1, 2))
+@pytest.mark.parametrize("n,hw,c,scale", [
+    (3, 7, 960, 0.05), (2, 7, 20, 0.03), (2, 112, 32, 0.0204),
+    (1, 112, 36, None), (2, 56, 44, 0.02), (2, 14, 12, None),
+    (1, 30, 6, 0.05)])
+def test_depthwise_fma_kernel_tiles_equal_its_plain_version(n, hw, c, scale,
+                                                           stride):
+    from nnstreamer_tpu_torch.models.tflite_import import explicit_padding
+    from nnstreamer_tpu_torch.ops.depthwise_fma import (depthwise_fma,
+                                                        depthwise_fma_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(hw * c + stride)
+    if scale is None:
+        x = torch.randn(n, hw, hw, c, device="cuda", generator=g)
+    else:  # a fake-quantized activation k * s
+        q = torch.randint(-255, 256, (n, hw, hw, c), device="cuda",
+                          generator=g).float()
+        x = q * torch.tensor(scale, device="cuda")
+    w = torch.randn(1, 3, 3, c, device="cuda", generator=g) / 3
+    oh, ow, pads = explicit_padding(hw, hw, 3, 3, (stride, stride), (1, 1),
+                                    "SAME")
+    args = (x, w, (stride, stride), (1, 1), pads, (oh, ow), scale)
+    before = depthwise_fma.launches
+    got = depthwise_fma(*args)
+    assert depthwise_fma.launches == before + 1
+    assert torch.equal(got, depthwise_fma_plain(*args))
 
 
 # the kernel is built for the listed shapes' window alone; the plain

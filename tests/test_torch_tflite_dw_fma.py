@@ -12,7 +12,13 @@ jitted ``depthwise_shift_add`` on XLA:CPU.
 * on a plain float input the jitted reference is the FMA chain without
   the reassociated tap;
 * ``depthwise_fma_plain`` is the correctly rounded chain (exact rational
-  arithmetic on a small case, the reassociated tap included)."""
+  arithmetic on a small case, the reassociated tap included);
+* the kernel's centre tap recovers k as ``rint(x * float32(1 / s))``:
+  that is k for every k in [-255, 255] at each of the fixture's
+  depthwise input scales (and ``round(x / s)``, the plain version's);
+* the kernel's tile (``tile_for``) fits the card at every listed shape:
+  whole 16-byte channel runs, at most 512 threads, its ring's two to four
+  slots of input in shared memory."""
 from fractions import Fraction
 
 import numpy as np
@@ -24,7 +30,7 @@ import jax  # noqa: E402
 import nnstreamer_tpu.models.tflite_import as R  # noqa: E402
 import nnstreamer_tpu_torch.models.tflite_import as P  # noqa: E402
 from nnstreamer_tpu_torch.ops.depthwise_fma import (  # noqa: E402
-    depthwise_fma_plain, direct_tap)
+    depthwise_fma_plain, direct_tap, tile_for)
 
 # (in_hw, stride, channels) of the fixture's depthwise convs (3x3, SAME)
 _SHAPES = sorted({(s[1], s[5], s[7]) for s in P.DEPTHWISE_FMA_SHAPES})
@@ -137,3 +143,42 @@ def test_plain_version_is_the_correctly_rounded_chain():
             acc = _fmaf(a, b, acc)
         want[idx] = acc
     np.testing.assert_array_equal(got, want)
+
+
+def _fixture_depthwise_input_scales():
+    from pathlib import Path
+    model = str(Path(__file__).resolve().parent / "fixtures"
+                / "mobilenet_v2_1.0_224_int8.tflite")
+    steps, tensors, *_ = P.read_model(model)
+    return sorted({float(tensors[ins[0]].scale[0])
+                   for code, _, ins, _ in steps
+                   if code == "DEPTHWISE_CONV_2D"})
+
+
+def test_centre_tap_reciprocal_recovers_every_k():
+    """float32(k * s) * float32(1 / s), rounded to an integer, is k: three
+    roundings of 2^-24 keep it within 3 * 255 * 2^-24 of k, far from a
+    half; the kernel takes it for the IEEE division it used before."""
+    scales = _fixture_depthwise_input_scales()
+    assert len(scales) >= 2
+    k = np.arange(-255, 256, dtype=np.float32)
+    for s in map(np.float32, scales):
+        x = (k * s).astype(np.float32)
+        inv = np.float32(1) / s
+        assert np.array_equal(np.rint((x * inv).astype(np.float32)), k)
+        assert np.array_equal(np.rint(x / s), k)
+
+
+@pytest.mark.parametrize("batch", (1, 4, 64))
+def test_kernel_tile_fits_the_card_at_every_listed_shape(batch):
+    for hw, st, c in _SHAPES:
+        oh = -(-hw // st)
+        t = tile_for(batch, oh, oh, c, st, 132)
+        in_h, in_w = (t["th"] - 1) * st + 3, (t["tw"] - 1) * st + 3
+        assert c % t["cb"] == 0 and t["cb"] % 4 == 0
+        assert t["threads"] == t["cb"] // 4 * t["tw"] * -(-t["th"] //
+                                                          t["rows"])
+        assert 64 <= t["threads"] <= 512 and 2 <= t["slots"] <= 4
+        assert t["slots"] * in_h * in_w * t["cb"] * 4 <= 227 * 1024
+        tiles = batch * -(-oh // t["th"]) * -(-oh // t["tw"]) * (c // t["cb"])
+        assert 1 <= t["grid"] <= tiles
