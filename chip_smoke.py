@@ -415,11 +415,47 @@ phase fails:
     leaf, the ring's); a 1-stage GPipe of block 0's MLP, outputs and
     gradients equal to the plain stage's.
 
+20. the AOT plane (also ``--only aot``): ``aot/`` (``torch.export``
+    artifacts in a compile cache, ``NNS_AOT_CACHE``), the ``nns::``
+    kernel ops and ``framework=torch-export``. Every cold/warm pair runs
+    its warm side in a fresh interpreter (``chip_smoke.py --aot-child``).
+    (a) phase 13b's fused device line (bf16, batch 64): a first process
+    exports the segment (``aot_exports`` 1) after one without the cache
+    (the baseline first batch), a second hits it
+    (``aot_hits`` 1, no export) and captures one CUDA graph over the
+    loaded module; both processes' logits bit-equal to the live line's
+    (no cache), and batch 32 through the same poly artifact bit-equal
+    to the live stages. (b) the full-width int8 fixture in fake-quant
+    mode as a singleton filter (``appsrc ! tensor_filter ! tensor_sink``,
+    the torch backend's ``_aot_resolve``): exported, then hit; the
+    program holds 37 ``nns::fma_gemm`` and 17 ``nns::depthwise_fma``
+    nodes and a forward through it launches the kernels 37 and 17
+    times; its batch-64 output 0 LSB from the committed reference. (c)
+    one-op modules of ``nns::decode_attention`` (phase 3's shapes, pos
+    543) and ``nns::flash_attention`` ((8, 16, 512, 64), causal),
+    exported here and loaded in a fresh process: bit-equal to the direct
+    call, one launch each; the host µs of a decode call direct and
+    through the op dispatcher. (d) two process replicas of (a)'s stage,
+    without the cache and then with an empty one: each replica's first
+    batch (its warmup request before READY) — the second pool's two
+    export (cold), the one respawned after a SIGKILL loads (warm) — and
+    SIGKILL → readmit in each pool; a flexible-caps replica that warms up
+    from the artifact's recorded inputs (no ``warmup_skipped`` flight
+    event); every answer the live stage's. (e) (a)'s model saved by
+    ``backends.pt2_backend.export_callable`` and served by
+    ``tensor_filter framework=torch-export``, fused with the transform
+    and unfused: logits bit-equal to (a)'s live line. A stage expected
+    to export that serves live fails the phase. Artifact bytes, export
+    and load s, first-batch ms and readmit s are printed, and phase 10's
+    dense step ms (the nns:: ops registered; eager calls bypass the op
+    dispatcher).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
 plugins``, ``--only tflite``, ``--only query``, ``--only service``,
-``--only train``) runs phase 13 (14, 15, 16, 17, 18, 19) alone and prints its report as the last
+``--only train``, ``--only aot``) runs phase 13 (14, 15, 16, 17, 18, 19,
+20) alone and prints its report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
@@ -7397,7 +7433,582 @@ def phase_train_alone(report: dict) -> None:
     phase_train(report, ST_DEV)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the AOT plane (aot/, the nns:: ops, the torch-export backend)
+# ---------------------------------------------------------------------------
+
+# (a)'s line: phase 13b's fused device line, bf16, batch 64
+AO_BUFS = 3
+AO_LINE = FU_MB_LINE.format(b=MB_BATCH, n=AO_BUFS)
+# the second batch the same poly artifact serves
+AO_BATCH2 = 32
+AO_CHILD_TIMEOUT = 420.0
+# (d): the pool's stage (the transform and the filter fuse in each
+# replica) and its caps; batches through each pool, the kill at batch 2
+AO_STAGE = (f"tensor_transform mode=arithmetic option={FU_NORM} ! "
+            f"tensor_filter framework=torch model={FU_MB_MODEL}")
+AO_POOL_CAPS = ("other/tensors,format=static,"
+                f"dimensions=3:224:224:{MB_BATCH},types=uint8")
+AO_POOL_BATCHES, AO_KILL_AT = 5, 2
+# (c): phase 3's shapes; the op dispatcher's host cost over this many
+# calls
+AO_DISPATCH_CALLS = 200
+
+
+def ao_child_run(mode: str, out_dir: Path, cache: Optional[Path]) -> dict:
+    """``chip_smoke.py --aot-child MODE DIR`` in a fresh interpreter (no
+    Python state carried over), with NNS_AOT_CACHE set to ``cache`` (or
+    unset); its last stdout line is its JSON result."""
+    import os
+
+    env = dict(os.environ)
+    env.pop("NNS_AOT_CACHE", None)
+    if cache is not None:
+        env["NNS_AOT_CACHE"] = str(cache)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--aot-child", mode, str(out_dir)], env=env,
+                       capture_output=True, text=True,
+                       timeout=AO_CHILD_TIMEOUT, cwd=str(ROOT))
+    if r.returncode != 0:
+        fail(f"aot: child {mode} exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    res["process_s"] = time.perf_counter() - t0
+    # the child's warnings (an artifact evicted, an export refused)
+    res["warnings"] = [ln[-400:] for ln in r.stderr.splitlines()
+                       if "WARNING" in ln or "refused" in ln
+                       or "rejected" in ln][-8:]
+    return res
+
+
+def ao_timed(mod, name: str, log: dict):
+    """Wrap ``mod.name`` to add its wall time to ``log[name]``."""
+    real = getattr(mod, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            log[name] = log.get(name, 0.0) + time.perf_counter() - t0
+    setattr(mod, name, timed)
+
+
+def ao_child(mode: str, out_dir: Path) -> None:
+    """The child side of phase 20 (one mode a process; prints one JSON
+    line)."""
+    import os
+
+    from nnstreamer_tpu_torch import aot
+    from nnstreamer_tpu_torch.aot import cache as aot_cache
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    times: dict = {}
+    ao_timed(aot, "export_stage", times)
+    ao_timed(aot_cache.CompileCache, "load", times)
+    res: dict = {"mode": mode}
+    if mode == "line":
+        from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+        pipe = parse_launch(AO_LINE)
+        outs, first = [], []
+        sink = pipe.get("out")
+        sink.connect(lambda buf: (first.append(time.perf_counter())
+                                  if not first else None,
+                                  outs.append(buf.tensors[0])))
+        t0 = time.perf_counter()
+        pipe.play()
+        msg = pipe.wait(timeout=600)
+        (seg,) = pipe.fused_segments
+        res["stats"] = {k: seg.stats[k] for k in (
+            "aot_hits", "aot_exports", "aot_refused", "retraces",
+            "dispatches")}
+        res["first_batch_ms"] = 1e3 * (first[0] - t0) if first else None
+        res["on_card"] = all(o.is_cuda for o in outs)
+        np.save(out_dir / f"line_{os.getpid()}.npy",
+                np.stack([o.view(torch.int16).cpu().numpy()
+                          for o in outs]))
+        res["logits"] = str(out_dir / f"line_{os.getpid()}.npy")
+        served = seg._call
+        loaded = getattr(served, "loaded", None)
+        if loaded is not None:
+            res["poly"] = loaded.poly
+            res["batch_range"] = loaded.batch_range
+            # a second batch through the same artifact vs the live stages
+            gen = torch.Generator(device=ST_DEV).manual_seed(AO_BATCH2)
+            x = torch.randint(0, 127, (AO_BATCH2, 224, 224, 3),
+                              generator=gen, device=ST_DEV,
+                              dtype=torch.uint8)
+            stages = [el.fusion_stage() for el in seg.elements]
+            xs = (x,)
+            res["compatible_b2"] = loaded.compatible((xs,))
+            got = served(xs)[0]
+            for st in stages:
+                xs = st(xs)
+            res["b2_equal"] = bool(torch.equal(got.view(torch.int16),
+                                               xs[0].view(torch.int16)))
+        pipe.stop()
+        res["eos"] = str(msg.type)
+    elif mode == "tflite":
+        from nnstreamer_tpu_torch.ops import depthwise_fma, fma_gemm
+        from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+        frames = tf_host_frames(1)[0]
+        caps = ("other/tensors,format=static,"
+                f"dimensions=3:224:224:{TF_BATCH},types=int8")
+        pipe = parse_launch(
+            f"appsrc name=in caps={caps} ! tensor_filter name=f "
+            f"framework=torch model={TF_MODEL} "
+            f"custom=quantized_exec:fake-quant,batch:{TF_BATCH} ! "
+            "tensor_sink name=out max-stored=4")
+        pipe.play()
+        src, sink = pipe.get("in"), pipe.get("out")
+        t0 = time.perf_counter()
+        src.push_buffer(frames)
+        first = sink.pull(timeout=600)
+        res["first_batch_ms"] = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        n0 = (fma_gemm.fma_gemm.launches,
+              depthwise_fma.depthwise_fma.launches)
+        src.push_buffer(frames)
+        second = sink.pull(timeout=600)
+        torch.cuda.synchronize()
+        res["launches_per_forward"] = {
+            "fma_gemm": fma_gemm.fma_gemm.launches - n0[0],
+            "depthwise_fma": depthwise_fma.depthwise_fma.launches - n0[1]}
+        be = pipe.get("f").backend
+        res["aot_state"] = be.aot_state()
+        loaded = getattr(be._served[1], "loaded", None)
+        if loaded is not None:
+            res["poly"] = loaded.poly
+            names = [str(n.target) for n in loaded.program.graph.nodes
+                     if n.op == "call_function"]
+            res["nodes"] = {k: names.count(f"nns.{k}.default")
+                            for k in ("fma_gemm", "depthwise_fma")}
+        ref = np.load(TF_REFERENCE_B64)
+        for name, out in (("first", first), ("second", second)):
+            got = out.tensors[0].cpu().numpy()
+            d = np.abs(got.astype(np.int64)
+                       - ref["out"].astype(np.int64))
+            res[f"max_lsb_{name}"] = int(d.max()) \
+                if got.shape == ref["out"].shape else None
+        src.end_of_stream()
+        pipe.wait(timeout=60)
+        pipe.stop()
+    elif mode == "ops":
+        from nnstreamer_tpu_torch.ops import decode_attention, flash_attention
+
+        inputs = ao_op_inputs()
+        for name, fn in (("decode_attention",
+                          decode_attention.decode_attention),
+                         ("flash_attention",
+                          flash_attention.flash_attention)):
+            t0 = time.perf_counter()
+            loaded = aot.load_artifact((out_dir / f"{name}.pt2")
+                                       .read_bytes())
+            load_s = time.perf_counter() - t0
+            args = inputs[name]
+            direct = ao_op_call(name, fn, args)
+            torch.cuda.synchronize()
+            n0 = fn.launches
+            got = loaded.call(*args)[0]
+            torch.cuda.synchronize()
+            nodes = sorted({str(n.target) for n in loaded.program.graph.nodes
+                            if n.op == "call_function"})
+            res[name] = {"equal": bool(torch.equal(got, direct)),
+                         "launches": fn.launches - n0, "load_s": load_s,
+                         "nodes": nodes}
+    res["times_s"] = times
+    print(json.dumps(res, default=str))
+
+
+def ao_op_inputs() -> dict:
+    """Phase 3's operands, made again from seeds on the card: the decode
+    kernel at pos MAIN_POS (one int32 on the card), the causal flash."""
+    B, H, T, D = (BASE_SHAPE[k] for k in ("B", "H", "T", "D"))
+    gen = torch.Generator(device=ST_DEV).manual_seed(20)
+
+    def r(*s):
+        return torch.randn(*s, generator=gen, device=ST_DEV)
+    pos = torch.full((1,), MAIN_POS, dtype=torch.int32, device=ST_DEV)
+    return {"decode_attention": (r(B, H, 1, D), r(B, H, T, D),
+                                 r(B, H, T, D), pos),
+            "flash_attention": tuple(r(*FLASH_SHAPE) for _ in range(3))}
+
+
+def ao_op_call(name: str, fn, args):
+    if name == "decode_attention":
+        q, k, v, pos = args
+        return fn(q, k, v, pos, BASE_SHAPE["block_k"])
+    return fn(*args, True)
+
+
+def ao_line(report: dict, work: Path) -> dict:
+    """(a) the fused MobileNet-v2 device line: live, then an exporting
+    process, then a fresh process that hits."""
+    from nnstreamer_tpu_torch import aot
+    import os
+
+    os.environ.pop("NNS_AOT_CACHE", None)
+    _pipe, outs = fu_run(AO_LINE, True)
+    live = np.stack([o.view(torch.int16).cpu().numpy() for o in outs])
+    cache = work / "cache_line"
+    r = {"off": ao_child_run("line", work, None),
+         "export": ao_child_run("line", work, cache),
+         "hit": ao_child_run("line", work, cache)}
+    off, ex, hit = r["off"], r["export"], r["hit"]
+    if any(off["stats"][k] for k in ("aot_hits", "aot_exports")):
+        fail(f"aot (a): the process without a cache counted {off['stats']}")
+    if ex["stats"]["aot_exports"] != 1 or ex["stats"]["aot_hits"] != 0:
+        fail(f"aot (a): the first process did not export: {ex['stats']}")
+    if hit["stats"]["aot_hits"] != 1 or hit["stats"]["aot_exports"] != 0:
+        fail(f"aot (a): the fresh process did not hit: {hit['stats']}: "
+             f"{hit['warnings']}")
+    for k in ("off", "export", "hit"):
+        got = np.load(r[k]["logits"])
+        if got.shape != live.shape or not np.array_equal(got, live):
+            fail(f"aot (a): the {k} process's logits differ from the live "
+                 "line's")
+        if r[k]["stats"]["retraces"] != 1 or not r[k]["on_card"]:
+            fail(f"aot (a): {k}: {r[k]['stats']['retraces']} captures "
+                 f"(one CUDA graph over the program expected), on card "
+                 f"{r[k]['on_card']}")
+    if not (hit.get("compatible_b2") and hit.get("b2_equal")):
+        fail(f"aot (a): batch {AO_BATCH2} through the artifact: compatible "
+             f"{hit.get('compatible_b2')}, equal to the live stages "
+             f"{hit.get('b2_equal')}")
+    (entry,) = aot.CompileCache(str(cache)).list()
+    r["artifact_bytes"] = entry["nbytes"]
+    r["poly"] = entry["poly"]
+    r["export_s"] = ex["times_s"].get("export_stage")
+    r["load_s"] = hit["times_s"].get("load")
+    print(f"aot ({report['device']}) (a) the fused MobileNet-v2 line, bf16, "
+          f"batch {MB_BATCH}: exported {'shape-poly' if entry['poly'] else 'static'} "
+          f"(range {hit.get('batch_range')}), {r['artifact_bytes']} bytes, "
+          f"export {r['export_s']:.3f} s; a fresh process hit it (load "
+          f"{r['load_s']:.3f} s), one CUDA graph over the loaded module, "
+          f"logits bit-equal to the live line's at batch {MB_BATCH} and to "
+          f"the live stages at batch {AO_BATCH2}; first batch (from play) "
+          f"{off['first_batch_ms']:.1f} ms without the cache, "
+          f"{ex['first_batch_ms']:.1f} ms exporting, "
+          f"{hit['first_batch_ms']:.1f} ms hitting; processes "
+          f"{off['process_s']:.1f} / {ex['process_s']:.1f} / "
+          f"{hit['process_s']:.1f} s")
+    return {"live": live, **r}
+
+
+def ao_tflite(report: dict, work: Path) -> dict:
+    """(b) the full-width int8 fixture in fake-quant mode as a singleton
+    filter: an exporting process, then a fresh process that hits."""
+    cache = work / "cache_tflite"
+    r = {"export": ao_child_run("tflite", work, cache),
+         "hit": ao_child_run("tflite", work, cache)}
+    want_nodes = {"fma_gemm": 37, "depthwise_fma": 17}
+    for k, state in (("export", "export"), ("hit", "hit")):
+        c = r[k]
+        if c["aot_state"] != state:
+            fail(f"aot (b): the {k} process's filter is {c['aot_state']}, "
+                 f"not {state}: {c['warnings']}")
+        if c.get("nodes") != want_nodes or \
+                c["launches_per_forward"] != want_nodes:
+            fail(f"aot (b): {k}: nodes {c.get('nodes')}, launches a "
+                 f"forward {c['launches_per_forward']}; {want_nodes} "
+                 "expected")
+        if c["max_lsb_first"] != 0 or c["max_lsb_second"] != 0:
+            fail(f"aot (b): {k}: {c['max_lsb_first']} / "
+                 f"{c['max_lsb_second']} LSB from the committed reference")
+    from nnstreamer_tpu_torch import aot
+
+    (entry,) = aot.CompileCache(str(cache)).list()
+    r["artifact_bytes"] = entry["nbytes"]
+    r["poly"] = entry["poly"]
+    print(f"aot ({report['device']}) (b) fake-quant .tflite, batch "
+          f"{TF_BATCH}: {'shape-poly' if entry['poly'] else 'static'} "
+          f"(poly: {entry['poly']}), {entry['nbytes']} bytes, 37 nns::fma_gemm "
+          "+ 17 nns::depthwise_fma nodes; the loaded program launches 37 + 17 "
+          "a forward; 0 LSB from the committed reference in both processes; "
+          f"export {r['export']['times_s'].get('export_stage', 0):.3f} s, load "
+          f"{r['hit']['times_s'].get('load', 0):.3f} s; first batch "
+          f"{r['export']['first_batch_ms']:.1f} ms exporting, "
+          f"{r['hit']['first_batch_ms']:.1f} ms hitting")
+    return r
+
+
+def ao_ops(report: dict, work: Path) -> dict:
+    """(c) the two attention kernels as exported one-op modules, loaded
+    in a fresh process; the op dispatcher's host cost."""
+    from nnstreamer_tpu_torch import aot
+    from nnstreamer_tpu_torch.ops import decode_attention, flash_attention
+
+    inputs = ao_op_inputs()
+    r: dict = {}
+    for name, fn in (("decode_attention", decode_attention.decode_attention),
+                     ("flash_attention", flash_attention.flash_attention)):
+        n0 = fn.launches
+        t0 = time.perf_counter()
+        blob, meta, _ = aot.export_stage(
+            lambda *a, name=name, fn=fn: ao_op_call(name, fn, a),
+            inputs[name], poly=False)
+        r[name] = {"export_s": time.perf_counter() - t0,
+                   "bytes": len(blob)}
+        (work / f"{name}.pt2").write_bytes(blob)
+        fn.launches = n0
+    child = ao_child_run("ops", work, None)
+    for name in ("decode_attention", "flash_attention"):
+        c = child[name]
+        if not c["equal"] or c["launches"] != 1 or \
+                f"nns.{name}.default" not in c["nodes"]:
+            fail(f"aot (c): {name}: loaded result equal {c['equal']}, "
+                 f"launches {c['launches']}, nodes {c['nodes']}")
+        r[name]["load_s"] = c["load_s"]
+    # the dispatcher's host cost: eager calls stay direct; this is what
+    # routing them through torch.ops would add
+    q, k, v, pos = inputs["decode_attention"]
+    n0 = decode_attention.decode_attention.launches
+    per = {}
+    for how, call in (
+            ("direct", lambda: decode_attention.decode_attention(
+                q, k, v, pos, BASE_SHAPE["block_k"])),
+            ("op", lambda: torch.ops.nns.decode_attention(
+                q, k, v, pos, BASE_SHAPE["block_k"]))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AO_DISPATCH_CALLS):
+            call()
+        per[how] = 1e6 * (time.perf_counter() - t0) / AO_DISPATCH_CALLS
+        torch.cuda.synchronize()
+    decode_attention.decode_attention.launches = n0
+    r["host_us_per_call"] = per
+    print(f"aot ({report['device']}) (c) nns::decode_attention (pos "
+          f"{MAIN_POS}) and nns::flash_attention (causal {FLASH_SHAPE}) "
+          "exported, loaded in a fresh process: bit-equal to the direct "
+          "calls, one launch each; export "
+          f"{r['decode_attention']['export_s']:.3f} / "
+          f"{r['flash_attention']['export_s']:.3f} s, load "
+          f"{r['decode_attention']['load_s']:.3f} / "
+          f"{r['flash_attention']['load_s']:.3f} s; host µs a decode call "
+          f"(host time to launch, {AO_DISPATCH_CALLS} calls): direct {per['direct']:.2f}, "
+          f"through the op dispatcher {per['op']:.2f}")
+    return r
+
+
+def ao_pool_answers(frames: list) -> list:
+    """The live stage's answers to ``frames`` (in-process, no cache)."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(f"appsrc name=in caps={AO_POOL_CAPS} ! {AO_STAGE} "
+                        "! tensor_sink name=out max-stored=64")
+    pipe.play()
+    try:
+        outs = []
+        for f in frames:
+            pipe.get("in").push_buffer(f)
+            b = pipe.get("out").pull(timeout=600)
+            outs.append(qy_bytes(b.tensors[0]))
+    finally:
+        pipe.stop()
+    return outs
+
+
+def ao_pool(caps: str, replicas: int, warmup: bool):
+    from nnstreamer_tpu_torch.service import ProcReplicaSet
+
+    return ProcReplicaSet("aot-procs", AO_STAGE, caps, replicas=replicas,
+                          quarantine_base_s=0.2, health_poll_s=0.05,
+                          spawn_timeout_s=SV_WAIT, warmup=warmup)
+
+
+def ao_replicas(report: dict, work: Path) -> dict:
+    """(d) two process replicas of (a)'s stage, without the cache and with
+    an empty one: each replica's first batch (its warmup request before
+    READY, ``warmup_s``) — the second pool's first two export (cold), its
+    respawn loads (warm) — and SIGKILL → readmit of one of them; then a
+    flexible-caps replica that warms up from the artifact."""
+    import os
+    import threading
+
+    from nnstreamer_tpu_torch.service import ControlClient
+
+    rng = np.random.default_rng(20)
+    frames = [rng.integers(0, 127, (MB_BATCH, 224, 224, 3)).astype(np.uint8)
+              for _ in range(3)]
+    want = ao_pool_answers(frames)
+    cache = work / "cache_pool"
+    r: dict = {"first_batch_s": {}, "kill_to_readmit_s": {}, "aot": {}}
+    try:
+        for state, root in (("off", None), ("cache", cache)):
+            os.environ.pop("NNS_AOT_CACHE", None)
+            if root is not None:
+                os.environ["NNS_AOT_CACHE"] = str(root)
+            ps = ao_pool(AO_POOL_CAPS, 2, True).start()
+            kill: dict = {}
+            try:
+                with ps._lock:
+                    first = [ps._slots[rid].proc.info["warmup_s"]
+                             for rid in ps._order]
+
+                def readmit(rid):
+                    dead = sv_wait(ps.reap_dead, "reap", poll=0.005)
+                    if dead != [rid] or not ps.respawn(rid):
+                        kill["error"] = f"reaped {dead}"
+                        return
+                    sv_wait(lambda: ps.pool.snapshot()["readmissions"] >= 1,
+                            "readmit", poll=0.005)
+                    kill["readmitted"] = time.perf_counter()
+                th = None
+                for k in range(AO_POOL_BATCHES):
+                    if k == AO_KILL_AT:
+                        kill["rid"] = ps.kill_replica(0)
+                        kill["t"] = time.perf_counter()
+                        th = threading.Thread(target=readmit,
+                                              args=(kill["rid"],))
+                        th.start()
+                    out = ps.request([frames[k % len(frames)]], key=f"k{k}",
+                                     timeout=SV_WAIT)
+                    if qy_bytes(out.tensors[0]) != want[k % len(frames)]:
+                        fail(f"aot (d): pool ({state}) batch {k} differs "
+                             "from the live stage's")
+                th.join(SV_WAIT)
+                snap = ps.pool.snapshot()
+                if "readmitted" not in kill or snap["request_errors"]:
+                    fail(f"aot (d): pool ({state}): {kill}, {snap}")
+                with ps._lock:
+                    again = ps._slots[kill["rid"]].proc.info["warmup_s"]
+                r["kill_to_readmit_s"][state] = kill["readmitted"] - kill["t"]
+                if state == "off":
+                    r["first_batch_s"]["off"] = first + [again]
+                else:
+                    r["first_batch_s"]["cold"] = first
+                    r["first_batch_s"]["warm"] = [again]
+                    for rid, ep in ps.control_endpoints().items():
+                        r["aot"][rid] = ControlClient(ep).profile().get(
+                            "aot", {}).get("counters")
+            finally:
+                ps.stop()
+        # the respawned replica hit; the first two exported between them
+        respawned = r["aot"].get(kill["rid"]) or {}
+        if respawned.get("hits") != 1 or respawned.get("exports"):
+            fail(f"aot (d): the respawned replica's AOT counters "
+                 f"{respawned}; one hit and no export expected")
+        # a flexible-caps replica: with the artifact it warms up
+        os.environ["NNS_AOT_CACHE"] = str(cache)
+        ps = ao_pool("other/tensors,format=flexible", 1, True).start()
+        try:
+            (ep,) = ps.control_endpoints().values()
+            events = ControlClient(ep).flight(last=512,
+                                              category="replica")["events"]
+            skipped = [e for e in events if e["name"] == "warmup_skipped"]
+            counters = ControlClient(ep).profile().get("aot", {}).get(
+                "counters")
+            with ps._lock:
+                (rid,) = ps._order
+                flex_s = ps._slots[rid].proc.info["warmup_s"]
+            out = ps.request([frames[1]], key="flex", timeout=SV_WAIT)
+            if skipped or flex_s is None or \
+                    qy_bytes(out.tensors[0]) != want[1]:
+                fail(f"aot (d): flexible replica: warmup_skipped {skipped}, "
+                     f"warmup {flex_s} s, answer equal "
+                     f"{qy_bytes(out.tensors[0]) == want[1]}")
+            r["flexible"] = {"aot": counters, "warmup_s": flex_s,
+                             "warmup_skipped": len(skipped)}
+        finally:
+            ps.stop()
+    finally:
+        os.environ.pop("NNS_AOT_CACHE", None)
+    fb, kr = r["first_batch_s"], r["kill_to_readmit_s"]
+
+    def fmt(xs):
+        return "/".join(f"{x:.3f}" for x in xs)
+    print(f"aot ({report['device']}) (d) two process replicas of (a)'s "
+          f"stage: first batch (warmup) {fmt(fb['off'])} s without the "
+          f"cache (2 spawned, 1 respawned), {fmt(fb['cold'])} s cold "
+          f"(export), {fmt(fb['warm'])} s warm (load, the respawn); "
+          f"SIGKILL -> readmit {kr['off']:.3f} s without the cache, "
+          f"{kr['cache']:.3f} s with it warm; every answer the live "
+          "stage's; a flexible-caps replica warmed up from the artifact "
+          f"in {r['flexible']['warmup_s']:.3f} s (no warmup_skipped "
+          f"event; its AOT counters {r['flexible']['aot']})")
+    return r
+
+
+def ao_pt2(report: dict, work: Path, live: np.ndarray) -> dict:
+    """(e) the torch-export backend: (a)'s model exported with
+    export_callable, served by ``framework=torch-export`` fused and not;
+    the logits equal (a)'s live line's."""
+    import os
+
+    from nnstreamer_tpu_torch.backends.pt2_backend import export_callable
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import filter_model
+
+    os.environ.pop("NNS_AOT_CACHE", None)
+    path = work / "mobilenet_v2.pt2"
+    model = filter_model.make(ST_DEV)
+    t0 = time.perf_counter()
+    meta = export_callable(model, [torch.zeros(MB_BATCH, 224, 224, 3,
+                                               device=ST_DEV)], str(path),
+                           poly=True)
+    export_s = time.perf_counter() - t0
+    line = AO_LINE.replace(f"framework=torch model={FU_MB_MODEL}",
+                           f"framework=torch-export model={path}")
+    r = {"export_s": export_s, "bytes": meta["nbytes"], "poly": meta["poly"]}
+    for fuse in (True, False):
+        pipe, outs = fu_run(line, fuse)
+        got = np.stack([o.view(torch.int16).cpu().numpy() for o in outs])
+        if not np.array_equal(got, live):
+            fail(f"aot (e): framework=torch-export (fuse={fuse}) logits "
+                 "differ from the live line's")
+        if fuse:
+            (seg,) = pipe.fused_segments
+            if seg.stats["dispatches"] != AO_BUFS or seg.stats["defused"]:
+                fail(f"aot (e): the .pt2 filter did not fuse: {seg.stats}")
+    print(f"aot ({report['device']}) (e) framework=torch-export "
+          f"model=mobilenet_v2.pt2 ({meta['nbytes']} bytes, "
+          f"{'shape-poly' if meta['poly'] else 'static'}, export "
+          f"{export_s:.3f} s): fused (one segment with the transform) and "
+          "unfused, logits bit-equal to (a)'s live line")
+    return r
+
+
+def phase_aot(report: dict) -> None:
+    """Phase 20: the AOT plane (module docstring)."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="nns-aot-"))
+    r = report["aot"] = {}
+    t0 = time.perf_counter()
+    try:
+        a = ao_line(report, work)
+        live = a.pop("live")
+        r["line"] = a
+        r["tflite"] = ao_tflite(report, work)
+        r["ops"] = ao_ops(report, work)
+        r["replicas"] = ao_replicas(report, work)
+        r["pt2"] = ao_pt2(report, work, live)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    step = (report.get("continuous") or {}).get("dense", {}).get(
+        "step_ms_mean")
+    r["phase10_step_ms"] = step
+    r["phase_s"] = time.perf_counter() - t0
+    print(f"aot ({report['device']}) phase 10's dense step with the nns:: "
+          "ops registered (eager calls bypass the dispatcher): "
+          + (f"{step:.3f} ms" if step is not None else "not run (--only)")
+          + f"; phase 20 took {r['phase_s']:.1f} s")
+
+
+def phase_aot_alone(report: dict) -> None:
+    """--only aot: the kernels built, then phase 20."""
+    phase_build(report)
+    phase_aot(report)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
     sys.path.insert(0, str(ROOT))
@@ -7414,22 +8025,27 @@ def main() -> None:
     report: dict = {}
     dev = ST_DEV
     report["device"] = phase_device()
+    if len(sys.argv) == 4 and sys.argv[1] == "--aot-child":
+        # phase 20's fresh processes (ao_child_run)
+        ao_child(sys.argv[2], Path(sys.argv[3]))
+        return
     alone = {"fusion": phase_fusion, "streams": phase_streams,
              "plugins": phase_plugins, "tflite": phase_tflite,
              "query": phase_query_alone, "service": phase_service_alone,
-             "train": phase_train_alone, "trace-loss": phase_trace_loss}
+             "train": phase_train_alone, "aot": phase_aot_alone,
+             "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16, 17, 18 or 19 alone (no kernel is checked,
-        # no ok line), or the trace-loss count
+        # phase 13, 14, 15, 16, 17, 18, 19 or 20 alone (no kernel is
+        # checked, no ok line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
              "--only fusion / streams / plugins / tflite / query / service "
-             "/ train for phase 13 / 14 / 15 / 16 / 17 / 18 / 19 alone, or "
-             "--only trace-loss)")
+             "/ train / aot for phase 13 / 14 / 15 / 16 / 17 / 18 / 19 / 20 "
+             "alone, or --only trace-loss)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
@@ -7451,6 +8067,7 @@ def main() -> None:
     phase_query(report, prompts, filter_outs)
     phase_service(report, prompts, filter_outs)
     phase_train(report, dev)
+    phase_aot(report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -7509,6 +8126,8 @@ def main() -> None:
         k["launches_moe"] = \
             report["train"]["moe_serving"]["launches"][k["name"]]
     report["kernels"] = kernels
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {report['wall_s']:.1f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -5,6 +5,9 @@
     python -m nnstreamer_tpu_torch replica --stage "..." --caps "..."
                                                       # one process replica
     python -m nnstreamer_tpu_torch obs fleet          # fleet-merged planes
+    python -m nnstreamer_tpu_torch obs aot            # AOT cache snapshot
+    python -m nnstreamer_tpu_torch aot export --launch "a ! b"  # export stages
+    python -m nnstreamer_tpu_torch aot list|prune N   # compile-cache GC
 
 The port of the same verbs of nnstreamer_tpu's ``__main__.py``. A launch
 line runs on ``cuda:0`` unless it asks for the CPU (``accelerator=cpu`` on
@@ -73,11 +76,20 @@ def _cmd_serve(args) -> int:
 def _cmd_obs(args) -> int:
     """``obs fleet``: fleet-view snapshots — per-replica scrape health
     plus the merged profile/memory/quality planes (obs/fleet.py), of this
-    process or of a serve process at ``--endpoint``."""
+    process or of a serve process at ``--endpoint``. ``obs aot``: the
+    AOT compile cache's counters and inventory (``aot.snapshot()``), of
+    this process or of the serve process's ``GET /profile``."""
     from .service import ControlClient, ServiceError
 
     try:
-        if args.endpoint:
+        if args.verb == "aot":
+            if args.endpoint:
+                snaps = ControlClient(args.endpoint).profile().get("aot")
+            else:
+                from . import aot
+
+                snaps = aot.snapshot()
+        elif args.endpoint:
             snaps = ControlClient(args.endpoint).fleet()["fleet"]
         else:
             from .obs import fleet as obs_fleet
@@ -87,6 +99,73 @@ def _cmd_obs(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     print(json.dumps(snaps, indent=2, default=str))
+    return 0
+
+
+def _cmd_aot(args) -> int:
+    """``aot`` verbs:
+
+    * ``aot export --launch "a ! b"`` — run the launch line with the
+      compile cache active so every fused segment / singleton filter
+      exports its artifact; restarts, hot-swap prepares and replica
+      spawns of the same topology then load instead of tracing;
+    * ``aot list`` — the cache inventory (stage, topology, poly flag,
+      bytes, device);
+    * ``aot prune N`` — LRU-evict down to the newest N artifacts (the
+      GC ``NNS_AOT_CACHE_MAX`` applies on every save).
+    """
+    import os
+
+    from . import aot
+
+    root = args.root or os.environ.get(aot.CACHE_ENV, "").strip()
+    if not root:
+        print(f"error: no cache — pass --root DIR or set {aot.CACHE_ENV}",
+              file=sys.stderr)
+        return 2
+    if args.verb == "export":
+        if not args.launch:
+            print("error: aot export needs --launch 'a ! b'",
+                  file=sys.stderr)
+            return 2
+        from .obs import profile as obs_profile
+        from .runtime.parse import parse_launch
+
+        # the cache hooks read the env; an explicit --root must win for
+        # this run AND for any subprocess the pipeline spawns
+        os.environ[aot.CACHE_ENV] = root
+        cache = aot.default_cache()
+        before = {e["path"] for e in cache.list()}
+        pipe = parse_launch(args.launch)
+        pipe.run(timeout=args.run_timeout)
+        topo = obs_profile.topology_hash(pipe)
+        entries = cache.list()
+        fresh = {e["path"] for e in entries if e["path"] not in before}
+        print(f"topology {topo}: {len(fresh)} artifact(s) exported, "
+              f"{len(entries)} total in {root}")
+        for e in entries:
+            print(f" {'+' if e['path'] in fresh else ' '} {e['stage']}  "
+                  f"{'poly' if e['poly'] else 'static'}  "
+                  f"{e['nbytes']}B  topology={e['topology']}")
+        return 0
+    cache = aot.CompileCache(root)
+    if args.verb == "prune":
+        if not args.count or args.count < 1:
+            print("error: aot prune needs a positive COUNT",
+                  file=sys.stderr)
+            return 2
+        removed = cache.prune(args.count)
+        print(f"pruned {len(removed)} artifact(s) from {root} "
+              f"(bound {args.count})")
+        for p in removed:
+            print(f"  removed {p}")
+    entries = cache.list()
+    print(f"{len(entries)} artifact(s) in {root} "
+          f"({cache.total_bytes()} bytes)")
+    for e in entries:
+        print(f"  {e['stage']}  {'poly' if e['poly'] else 'static'}  "
+              f"{e['nbytes']}B  topology={e['topology']} "
+              f"device={e['device']}")
     return 0
 
 
@@ -178,11 +257,26 @@ def main(argv=None) -> int:
                    help="drain timeout seconds")
     p.set_defaults(fn=_cmd_service)
 
-    p = sub.add_parser("obs", help="observability: the fleet view")
-    p.add_argument("verb", choices=["fleet"])
+    p = sub.add_parser("obs", help="observability: the fleet view, the "
+                                   "AOT cache")
+    p.add_argument("verb", choices=["fleet", "aot"])
     p.add_argument("--endpoint", default=None,
                    help="serve control endpoint URL (omit = this process)")
     p.set_defaults(fn=_cmd_obs)
+
+    p = sub.add_parser("aot", help="AOT compile-artifact cache: export "
+                                   "stage programs, list/prune the store")
+    p.add_argument("verb", choices=["export", "list", "prune"])
+    p.add_argument("count", nargs="?", type=int, default=0,
+                   help="prune: keep the newest COUNT artifacts")
+    p.add_argument("--root", default=None,
+                   help="cache directory (default NNS_AOT_CACHE)")
+    p.add_argument("--launch", default=None,
+                   help="export: run this launch line with the cache "
+                        "active so its stages export artifacts")
+    p.add_argument("--run-timeout", type=float, default=300.0,
+                   help="export: --launch run timeout seconds")
+    p.set_defaults(fn=_cmd_aot)
 
     args = ap.parse_args(argv)
     return args.fn(args)

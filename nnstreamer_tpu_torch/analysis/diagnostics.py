@@ -96,10 +96,10 @@ _RULES = (
          "never gate, not even under --strict"),
     Rule("NNL015", Severity.INFO, "AOT artifact coverage",
          "informational: the AOT compile cache (NNS_AOT_CACHE) holds "
-         "exported compiled artifacts matching this topology — restarts, "
+         "exported stage programs matching this topology — restarts, "
          "hot-swap prepares, and replica spawns load instead of "
-         "tracing+compiling, and a shape-polymorphic artifact covers "
-         "every serving bucket with ONE compilation (nnstreamer_tpu/aot); "
+         "tracing, and a shape-polymorphic artifact covers every "
+         "serving bucket with ONE export (nnstreamer_tpu_torch/aot); "
          "info findings never gate, not even under --strict"),
     # -- source lint (pass 2) -----------------------------------------------
     Rule("NNL100", Severity.ERROR, "unlintable source file",

@@ -23,6 +23,7 @@ codes and severities on the same launch lines.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 from ..core.caps import Caps, looks_like_caps, parse_caps_string
@@ -87,9 +88,7 @@ def lint_pipeline(pipeline) -> List[Diagnostic]:
     diags += _check_host_roundtrip(elements)
     diags += _check_fusion_plan(pipeline)
     diags += _check_placement_hint(pipeline)
-    # NNL015, the reference's report of an AOT cache covering the
-    # topology, has no cache to read in the port: no finding, as in the
-    # reference with none configured
+    diags += _check_aot_artifacts(pipeline)
     return diags
 
 
@@ -432,10 +431,15 @@ def _check_filter_hazards(elements, est) -> List[Diagnostic]:
             "a fused segment captures one CUDA graph per input signature "
             "— every new frame shape re-captures in the hot loop",
             location=el.name,
-            hint="bucket shapes upstream (tensor_aggregator / pad) or set "
-                 "invoke-dynamic=true. For LM PROMPTS the fix is chunked "
-                 "prefill (serving.PagedLMEngine): the fixed chunk is the "
-                 "only prefill shape"))
+            hint="bucket shapes upstream (tensor_aggregator / pad), set "
+                 "invoke-dynamic=true, or retire the BATCH-dim half by "
+                 "construction: a shape-poly AOT artifact (NNS_AOT_CACHE, "
+                 "nnstreamer_tpu_torch/aot, docs/aot.md) serves every batch "
+                 "size through ONE exported program — trailing dims stay "
+                 "concrete, so bucket those upstream first; NNL015 reports "
+                 "coverage. For LM PROMPTS the fix is chunked prefill "
+                 "(serving.PagedLMEngine): the fixed chunk is the only "
+                 "prefill shape"))
     return diags
 
 
@@ -581,3 +585,35 @@ def _check_placement_hint(pipeline) -> List[Diagnostic]:
         hint='enable with Pipeline(place="auto") / parse_launch(place='
              '"auto") or `launch --place auto`')]
 
+
+def _check_aot_artifacts(pipeline) -> List[Diagnostic]:
+    """NNL015 (info), sibling of NNL014: the AOT compile cache
+    (``NNS_AOT_CACHE``) holds exported programs covering this topology —
+    restarts and replica spawns load instead of tracing, and a
+    shape-poly artifact serves every batch size. Info only: never gates,
+    absent when no cache is configured, and reads meta files only — no
+    device is touched and no backend opened."""
+    try:
+        from .. import aot
+        from ..obs import profile as obs_profile
+
+        cache = aot.default_cache()
+        if cache is None:
+            return []
+        refs = cache.stage_artifacts(obs_profile.topology_hash(pipeline))
+        if not refs:
+            return []
+        names = set(refs.values())
+        entries = [e for e in cache.list()
+                   if os.path.basename(e["path"]) in names]
+    except Exception:  # noqa: BLE001 - an info hint must never fail lint
+        return []
+    n_poly = sum(1 for e in entries if e.get("poly"))
+    return [make(
+        "NNL015",
+        f"AOT compile cache holds {len(refs)} artifact(s) covering this "
+        f"topology ({n_poly} shape-poly — serving buckets covered by a "
+        "single artifact per stage): restarts, hot-swap prepares, and "
+        "replica spawns load instead of tracing",
+        location=next(iter(pipeline.elements), ""),
+        hint="inspect with `python -m nnstreamer_tpu_torch aot list`")]

@@ -40,6 +40,19 @@ measurement of the next invoke on the card, and ``memory_analysis()``
 returns it as a :class:`~..obs.memory.MeasuredMemory` — the reference's
 XLA query is static, this one is measured. On the CPU there is none.
 
+AOT compile cache (``aot/``, on when ``NNS_AOT_CACHE`` names a
+directory): a filter's first invoke loads its model's exported program
+from the cache (``aot_state()`` "hit") or exports the model with a
+symbolic batch and saves it ("export"), keyed by the resolved model,
+the custom knobs, the trailing-dim signature and the device; later
+invokes serve through the program while it covers their inputs. A model
+that does not export (one whose trace reads tensor values on the host;
+the host-native executor is never tried) is served live and reported
+(``aot_state()`` None). The LM entries export, a whole generate
+unrolled: at ``base`` width that trace takes minutes of host time, paid
+by the first invoke. A fused segment consults the cache for the whole
+segment (``runtime/fusion.py``).
+
 Shape inference: caps negotiation must not run the model (at the ``base``
 LM width one invoke is a whole 64-step generate). The served callable
 declares a shape rule instead — an ``output_info(in_info)`` attribute
@@ -48,6 +61,7 @@ callable without one gets flexible output caps.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import os
 import time
@@ -87,6 +101,19 @@ def _as_float(x: torch.Tensor) -> torch.Tensor:
     return x if x.is_floating_point() else x.to(torch.float32)
 
 
+def _real_tensors() -> contextlib.ExitStack:
+    """A context in which tensor factories make real tensors, untraced,
+    while a torch.export trace runs."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.fx.experimental.proxy_tensor import \
+        disable_proxy_modes_tracing
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(unset_fake_temporarily())
+    stack.enter_context(disable_proxy_modes_tracing())
+    return stack
+
+
 def _normal(shape, seed: int, device) -> torch.Tensor:
     """Standard normal float32 weights from a CPU generator seeded with
     ``seed``: the same values on every device."""
@@ -108,14 +135,20 @@ class _Weights:
             return torch.empty(shape, dtype=torch.float32, device="meta")
         key = (name, tuple(shape), str(device))
         if key not in self._made:
-            w = self._given.get(name)
-            if w is None:
-                w = _normal(shape, seed, device)
-            elif tuple(w.shape) != tuple(shape):
-                raise ValueError(f"builtin weight {name}: given "
-                                 f"{tuple(w.shape)}, the input needs "
-                                 f"{tuple(shape)}")
-            self._made[key] = w.to(device)
+            # a trace (torch.export, aot/) makes its tensors fake: the
+            # weights are drawn for real, once, and become constants of
+            # the exported program as of a live call
+            real = _real_tensors() if torch.compiler.is_compiling() \
+                else contextlib.nullcontext()
+            with real:
+                w = self._given.get(name)
+                if w is None:
+                    w = _normal(shape, seed, device)
+                elif tuple(w.shape) != tuple(shape):
+                    raise ValueError(f"builtin weight {name}: given "
+                                     f"{tuple(w.shape)}, the input needs "
+                                     f"{tuple(shape)}")
+                self._made[key] = w.to(device)
         return self._made[key]
 
 
@@ -317,6 +350,11 @@ class TorchBackend(FilterBackend):
         # callables a RELOAD_MODEL replaced: held until release_retired,
         # so queued device work never reads freed weights
         self._retired: List[Callable] = []
+        # (model, what invoke runs for it: the model, or the AOT artifact
+        # guarding it); resolved again whenever the model is replaced
+        self._served: Optional[tuple] = None
+        # "hit" | "export" | None (the live model)
+        self._aot_state: Optional[str] = None
 
     def open(self, props: FilterProperties) -> None:
         super().open(props)
@@ -327,6 +365,8 @@ class TorchBackend(FilterBackend):
 
     def close(self) -> None:
         self._fn = None
+        self._served = None
+        self._aot_state = None
         self.model_entry = None
         self._retired = []
         self._in_info = self._out_info = None
@@ -378,6 +418,9 @@ class TorchBackend(FilterBackend):
             new_fn = self._load_model(self.props.model, self.props)
             self._retired.append(self._fn)
             self._fn = new_fn
+            # the old model's served callable goes with it
+            self._served = None
+            self._aot_state = None
 
     def release_retired(self) -> None:
         self._retired = []
@@ -392,9 +435,65 @@ class TorchBackend(FilterBackend):
             xs = [as_torch(x) for x in inputs]  # it pulls them itself
         else:
             xs = [as_torch(x).to(self._device) for x in inputs]
+        fn, served = self._fn, self._served
+        if served is None or served[0] is not fn:
+            # first invoke of this model (a reload re-keys: the model
+            # fingerprint covers on-disk weight changes)
+            served = self._served = (fn, self._resolve_served(fn, xs))
         with torch.inference_mode():
-            out = self._fn(*xs)
+            out = served[1](*xs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def aot_state(self) -> Optional[str]:
+        """Whether this backend serves through an AOT artifact: "hit"
+        (loaded from the compile cache), "export" (exported at this
+        open), or None (the live model)."""
+        return self._aot_state
+
+    def _resolve_served(self, fn: Callable, example_inputs) -> Callable:
+        if getattr(fn, "host_native", False):
+            return fn
+        try:
+            served = self._aot_resolve(fn, example_inputs)
+        except Exception:  # noqa: BLE001 - cache trouble != correctness
+            logger.exception("torch backend: AOT cache consult failed — "
+                             "serving the live model")
+            served = None
+        return fn if served is None else served
+
+    def _aot_resolve(self, fn: Callable,
+                     example_inputs) -> Optional[Callable]:
+        """AOT compile-cache consult for the singleton-filter path: load
+        this model's exported program keyed by (resolved model, custom
+        knobs, trailing-dim signature, device signature), or export it
+        with a symbolic batch and serve through the export — a
+        supervised restart or replica spawn of the same filter then
+        loads instead of tracing. None = the live model (cache off /
+        export refused)."""
+        from .. import aot
+
+        cache = aot.default_cache()
+        if cache is None:
+            return None
+        shapes = [(tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                  for x in example_inputs]
+        key, stage, digest = aot.backend_key(self, shapes)
+        loaded = cache.load(key, stage, digest)
+        if loaded is not None and loaded.compatible(tuple(example_inputs)):
+            self._aot_state = "hit"
+            return aot.guarded(loaded, fn)
+        try:
+            blob, meta, fresh = aot.export_stage(fn,
+                                                 tuple(example_inputs))
+        except aot.ExportError as e:
+            logger.info("torch backend model=%s: AOT export refused (%s) "
+                        "— serving the live model",
+                        self.props.model if self.props else "?",
+                        str(e).splitlines()[0][:300])
+            return None
+        cache.save(key, stage, digest, blob, meta)
+        self._aot_state = "export"
+        return aot.guarded(fresh, fn)
 
     def fusion_callable(self) -> Optional[Callable]:
         """The model as a fused segment's stage (``runtime/fusion.py``):

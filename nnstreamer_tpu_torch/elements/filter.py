@@ -573,7 +573,9 @@ class TensorFilter(TransformElement):
         graphs so the next buffer re-captures against the new backend.
         Returns the segment's fence (the event behind the last replay of
         the dropped graphs; None when unfused or nothing was replayed on
-        a card). The AOT eviction comes with ROADMAP A7."""
+        a card). The segment also evicts the retiring model's AOT
+        artifact from the compile cache (``aot/``), so it can never
+        outlive the swap."""
         seg = self._fusion_member
         if seg is not None:
             return seg.invalidate(evict_aot=True)

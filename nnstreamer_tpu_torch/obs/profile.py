@@ -1056,7 +1056,8 @@ def render_top(profile_snap: dict, slo_status: List[dict],
                quality: Optional[dict] = None,
                autoscale: Optional[List[dict]] = None,
                fleet: Optional[List[dict]] = None,
-               transport: Optional[dict] = None) -> str:
+               transport: Optional[dict] = None,
+               aot: Optional[dict] = None) -> str:
     """The ``obs top`` one-shot/watch dashboard: per-element rates,
     queue waits + depths, fused quantiles, request series, SLO burn,
     a MEMORY section (device watermarks, stage byte estimates, queue
@@ -1067,8 +1068,9 @@ def render_top(profile_snap: dict, slo_status: List[dict],
     decision inputs — ``service/autoscaler.py``) when their snapshots
     are supplied, and — when a placement plan or a transport snapshot is
     supplied — per-stage device assignment + balance
-    (``runtime.placement.snapshot_all()``) and the wire formats. The
-    reference's AOT section waits for an AOT cache in the port."""
+    (``runtime.placement.snapshot_all()``) and the wire formats, and an
+    AOT COMPILE CACHE section (``aot.snapshot()``) when the cache is on
+    or counted anything."""
     lines = [f"nns obs top — profiling "
              f"{'ON' if profile_snap.get('active') else 'off'}"]
     if fleet:
@@ -1182,6 +1184,11 @@ def render_top(profile_snap: dict, slo_status: List[dict],
             lines.append(
                 f"  {name:<40} {s['p50_ms']:>9.2f} {s['p99_ms']:>9.2f} "
                 f"{s['max_ms']:>9.2f} {s['count']:>8d} {s['errors']:>6d}")
+    if aot and (aot.get("active") or any(aot.get("counters", {}).values())):
+        from .. import aot as aot_plane
+
+        # hit/miss/export/eviction totals + the artifact inventory
+        lines.extend(aot_plane.render_section(aot))
     if memory:
         from . import memory as obs_memory
 

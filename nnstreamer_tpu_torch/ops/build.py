@@ -7,6 +7,11 @@ by ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded with
 flags, so an edited source rebuilds and an unchanged one is reused. The first
 launch of a kernel builds it; ``build_kernels()`` builds every source at once,
 one ``nvcc`` per source, all started together.
+
+``attach_library_cache(dir)`` (the AOT cache's ``xla/``,
+``aot.attach_xla_cache``) adds a second place: a library missing from
+``build/kernels/`` is taken from there instead of being rebuilt, and a
+new build is copied there.
 """
 from __future__ import annotations
 
@@ -30,6 +35,16 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 # compiler output (ptxas register and shared-memory report) per kernel
 build_logs: Dict[str, str] = {}
+# a shared directory of built libraries (attach_library_cache)
+_attached: Optional[Path] = None
+
+
+def attach_library_cache(directory) -> None:
+    """Take missing libraries from ``directory`` and copy new builds
+    there (names carry the source's hash, so a stale one is never
+    picked)."""
+    global _attached
+    _attached = Path(directory)
 
 
 def find_nvcc() -> str:
@@ -54,7 +69,15 @@ def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     Raises RuntimeError with the compiler's output if one fails."""
     names = list(names)
     out = {n: library_path(n) for n in names}
-    todo = [n for n in names if not out[n].exists()]
+    shared = _attached
+    todo = []
+    for n in names:
+        if out[n].exists():
+            continue
+        if shared is not None and (shared / out[n].name).exists():
+            out[n] = shared / out[n].name
+        else:
+            todo.append(n)
     if not todo:
         return out
     nvcc = find_nvcc()
@@ -74,6 +97,11 @@ def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out[n])  # atomic: a concurrent loader sees all or nothing
+            if shared is not None:
+                shared.mkdir(parents=True, exist_ok=True)
+                copy = shared / f"{out[n].name}.{os.getpid()}.tmp"
+                shutil.copy2(out[n], copy)
+                os.replace(copy, shared / out[n].name)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

@@ -21,6 +21,13 @@ scores, softmax, weighted sum, in f32) — the version the tests hold against
 the Pallas kernel. On CUDA tensors it launches the kernel or raises; it
 never gives way to the plain version there. ``decode_attention.launches``
 counts calls that launched the kernel.
+
+The same body is the torch op ``nns::decode_attention`` (``pos`` a
+tensor), with a fake implementation for shapes: under a ``torch.export``
+trace the wrapper emits that op, so an exported program holds one node
+per call and its loaded module launches the kernel (``aot/``). Eager
+callers call the body directly, past the op dispatcher's host cost (the
+continuous engine launches this kernel 12 times a step).
 """
 from __future__ import annotations
 
@@ -157,8 +164,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, H, 1, D) float32. ``block_k`` must divide T: the JAX
     kernel's contract, kept here; the CUDA kernel sizes its own shares. On
     the card q, k, v must be contiguous, k and v 16-byte aligned, and D in
-    ``HEAD_DIMS``.
+    ``HEAD_DIMS``. Under a trace (``torch.export``) it emits the
+    ``nns::decode_attention`` op.
     """
+    if torch.compiler.is_compiling():
+        return decode_attention_op(q, k, v,
+                                   _pos_tensor(pos, q.shape[0], q.device),
+                                   block_k)
+    return _decode_attention(q, k, v, pos, block_k)
+
+
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos: Pos, block_k: int) -> torch.Tensor:
     block_k = _check(q, k, v, block_k)
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
@@ -200,3 +217,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+@torch.library.custom_op("nns::decode_attention", mutates_args=())
+def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pos: torch.Tensor, block_k: int) -> torch.Tensor:
+    """:func:`decode_attention` as a torch op (``pos`` one int32 or a
+    ``(B,)`` int32 vector on q's device)."""
+    return _decode_attention(q, k, v, pos, block_k)
+
+
+@decode_attention_op.register_fake
+def _(q, k, v, pos, block_k):
+    _check(q, k, v, block_k)
+    return torch.empty_like(q)

@@ -25,12 +25,18 @@ tile), which is built for what the listed shapes need: a 3x3 window,
 undilated, channel multiplier 1, stride 1 or 2 (a C that is not a
 multiple of 4 is zero-padded to one). Anything else on the card raises, as does a launch that fails;
 ``depthwise_fma.launches`` counts the launches.
+
+The same body is the torch op ``nns::depthwise_fma`` (``pads`` flattened
+to four ints), with a fake implementation for shapes: under a
+``torch.export`` trace the wrapper emits that op, so an exported
+fake-quant forward holds one node per launch and its loaded module
+launches the kernel (``aot/``); eager callers call the body directly.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -226,7 +232,19 @@ def depthwise_fma(x: torch.Tensor, w: torch.Tensor, strides, dilation, pads,
                   out_hw, in_scale: Optional[float] = None) -> torch.Tensor:
     """x (N, H, W, C) float32 by w (1, kh, kw, C*mult) float32 → (N, oh,
     ow, C*mult) float32, in XLA:CPU's FMA order (arguments as
-    :func:`depthwise_fma_plain`)."""
+    :func:`depthwise_fma_plain`). Under a trace (``torch.export``) it
+    emits the ``nns::depthwise_fma`` op."""
+    if torch.compiler.is_compiling():
+        (pt, pb), (pl, pr) = pads
+        return depthwise_fma_op(
+            x, w, [int(s) for s in strides], [int(d) for d in dilation],
+            [int(pt), int(pb), int(pl), int(pr)], [int(d) for d in out_hw],
+            None if in_scale is None else float(in_scale))
+    return _depthwise_fma(x, w, strides, dilation, pads, out_hw, in_scale)
+
+
+def _depthwise_fma(x: torch.Tensor, w: torch.Tensor, strides, dilation,
+                   pads, out_hw, in_scale: Optional[float]) -> torch.Tensor:
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return depthwise_fma_plain(x, w, strides, dilation, pads, out_hw,
@@ -281,3 +299,21 @@ def depthwise_fma(x: torch.Tensor, w: torch.Tensor, strides, dilation, pads,
 
 
 depthwise_fma.launches = 0
+
+
+@torch.library.custom_op("nns::depthwise_fma", mutates_args=())
+def depthwise_fma_op(x: torch.Tensor, w: torch.Tensor, strides: List[int],
+                     dilation: List[int], pads: List[int],
+                     out_hw: List[int],
+                     in_scale: Optional[float]) -> torch.Tensor:
+    """:func:`depthwise_fma` as a torch op, ``pads`` as (top, bottom,
+    left, right)."""
+    return _depthwise_fma(x, w, strides, dilation,
+                          (tuple(pads[:2]), tuple(pads[2:])), out_hw,
+                          in_scale)
+
+
+@depthwise_fma_op.register_fake
+def _(x, w, strides, dilation, pads, out_hw, in_scale):
+    _check(x, w)
+    return x.new_empty(x.shape[0], out_hw[0], out_hw[1], w.shape[3])

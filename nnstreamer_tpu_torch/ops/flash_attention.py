@@ -19,6 +19,12 @@ in PyTorch ops (masked dense softmax in f32) — the version the tests hold
 against the Pallas kernel. On CUDA tensors it launches the kernel or
 raises; it never gives way to the plain version there.
 ``flash_attention.launches`` counts kernel launches.
+
+The same body is the torch op ``nns::flash_attention``, with a fake
+implementation for shapes: under a ``torch.export`` trace the wrapper
+emits that op, so an exported program holds one node per call and its
+loaded module launches the kernel (``aot/``); eager callers call the body
+directly, past the op dispatcher's host cost.
 """
 from __future__ import annotations
 
@@ -85,8 +91,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the card q, k, v must be contiguous and 16-byte aligned, all
     float32 or all bfloat16, with D in ``HEAD_DIMS``. ``causal`` masks
-    k_pos > q_pos.
+    k_pos > q_pos. Under a trace (``torch.export``) it emits the
+    ``nns::flash_attention`` op.
     """
+    if torch.compiler.is_compiling():
+        return flash_attention_op(q, k, v, causal, block_q, block_k)
+    return _flash_attention(q, k, v, causal, block_q, block_k)
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, block_q: int,
+                     block_k: int) -> torch.Tensor:
     _check(q, k, v, block_q, block_k)
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
@@ -120,3 +135,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("nns::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, block_q: int,
+                       block_k: int) -> torch.Tensor:
+    """:func:`flash_attention` as a torch op."""
+    return _flash_attention(q, k, v, causal, block_q, block_k)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, block_q, block_k):
+    _check(q, k, v, block_q, block_k)
+    return torch.empty_like(q)

@@ -30,6 +30,12 @@ output, chain c over k = c, c + chains, ..., summed pairwise in float32,
 ``c0 + c1`` or ``(c0 + c1) + (c2 + c3)``; or (``kblock``, a multiple of
 32, with one chain) a chain over each block of ``kblock`` steps of K, the
 blocks' sums added in order.
+
+The same body is the torch op ``nns::fma_gemm``, with a fake
+implementation for shapes: under a ``torch.export`` trace the wrapper
+emits that op, so an exported fake-quant forward holds one node per
+launch and its loaded module launches the kernel (``aot/``); eager
+callers call the body directly, past the op dispatcher's host cost.
 """
 from __future__ import annotations
 
@@ -209,7 +215,15 @@ def fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
              kblock: int = 0) -> torch.Tensor:
     """a (..., K) float32 times b (K, N) float32 → (..., N) float32, summed
     over K in order by fused multiply-adds, in ``chains`` chains or blocks
-    of ``kblock`` (module docstring)."""
+    of ``kblock`` (module docstring). Under a trace (``torch.export``) it
+    emits the ``nns::fma_gemm`` op."""
+    if torch.compiler.is_compiling():
+        return fma_gemm_op(a, b, chains, kblock)
+    return _fma_gemm(a, b, chains, kblock)
+
+
+def _fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int,
+              kblock: int) -> torch.Tensor:
     _check(a, b)
     _check_order(chains, kblock)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -238,6 +252,20 @@ def fma_gemm(a: torch.Tensor, b: torch.Tensor, chains: int = 1,
 
 
 fma_gemm.launches = 0
+
+
+@torch.library.custom_op("nns::fma_gemm", mutates_args=())
+def fma_gemm_op(a: torch.Tensor, b: torch.Tensor, chains: int,
+                kblock: int) -> torch.Tensor:
+    """:func:`fma_gemm` as a torch op."""
+    return _fma_gemm(a, b, chains, kblock)
+
+
+@fma_gemm_op.register_fake
+def _(a, b, chains, kblock):
+    _check(a, b)
+    _check_order(chains, kblock)
+    return a.new_empty(a.shape[:-1] + (b.shape[1],))
 
 
 def padded_rows(rows: int, k: int, device) -> torch.Tensor:

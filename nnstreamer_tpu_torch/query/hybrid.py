@@ -11,6 +11,11 @@ never rides it.
 
 Server side: ``advertise()`` publishes the address RETAINED, so late
 subscribers still discover it; ``withdraw()`` clears the retained slot.
+Each opens its own connection, and the broker serves each connection on
+its own thread, so a withdraw's empty retain could overtake the
+advertise it follows: both end with a PINGREQ → PINGRESP round trip
+before they close, and the broker answers a connection's packets in
+order, so each returns only once its PUBLISH was applied.
 Client side: ``discover()`` subscribes and returns the advertised
 address (re-invoked on reconnect, so a server that comes back on a new
 port is found — elastic recovery the reference's fixed dest-host lacks).
@@ -31,6 +36,7 @@ def advertise(broker_host: str, broker_port: int, topic: str,
     try:
         c.publish(ADDR_TOPIC.format(topic=topic),
                   f"{host}:{port}".encode(), retain=True)
+        c.ping()
     finally:
         c.close()
 
@@ -42,6 +48,7 @@ def withdraw(broker_host: str, broker_port: int, topic: str) -> None:
     c = MqttClient(broker_host, broker_port)
     try:
         c.publish(ADDR_TOPIC.format(topic=topic), b"", retain=True)
+        c.ping()
     finally:
         c.close()
 

@@ -157,11 +157,15 @@ class MqttClient:
                  keep_alive: int = 60, timeout: float = 10.0,
                  clean_session: bool = True):
         self._sock = socket.create_connection((host, port), timeout=timeout)
+        # small control packets each wait for an answer (SUBACK, PINGRESP):
+        # Nagle would hold the second write for the peer's delayed ACK
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock.settimeout(timeout)
         self._write_lock = threading.Lock()
         self._on_message: Optional[Callable[[str, bytes], None]] = None
         self._pkt_id = 0
         self._suback = threading.Event()
+        self._pingresp = threading.Event()
         cid = (client_id or f"nns-{id(self) & 0xFFFF:x}-{int(time.time()) & 0xFFFF:x}")
         var = (_mqtt_str(b"MQTT") + bytes([4])        # protocol level 3.1.1
                + bytes([0x02 if clean_session else 0x00])
@@ -204,6 +208,16 @@ class MqttClient:
             _send_packet(self._sock, SUBSCRIBE, payload, flags=0x02)
         if not self._suback.wait(timeout):
             raise ConnectionError("mqtt: SUBACK timeout")
+
+    def ping(self, timeout: float = 10.0) -> None:
+        """PINGREQ, then wait for the PINGRESP. The broker answers a
+        connection's packets in order, so once this returns every packet
+        sent before it was applied (a retained PUBLISH included)."""
+        with self._write_lock:
+            self._pingresp.clear()
+            _send_packet(self._sock, PINGREQ, b"")
+        if not self._pingresp.wait(timeout):
+            raise ConnectionError("mqtt: PINGRESP timeout")
 
     def close(self) -> None:
         self._running.clear()
@@ -263,7 +277,9 @@ class MqttClient:
                         logger.warning("mqtt on_message error: %s", e)
             elif ptype == SUBACK:
                 self._suback.set()
-            # PINGRESP and others: ignored
+            elif ptype == PINGRESP:
+                self._pingresp.set()
+            # others: ignored
 
 
 class MiniBroker:

@@ -35,6 +35,12 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "framework_priority_py": "python",
         "framework_priority_tflite": "tflite",
         "framework_priority_so": "custom",
+        # exported programs (torch.export.save): backends/pt2_backend.py;
+        # the reference's StableHLO files name its typed error
+        "framework_priority_pt2": "torch-export",
+        "framework_priority_jaxexport": "stablehlo",
+        "framework_priority_stablehlo": "stablehlo",
+        "framework_priority_hlo": "stablehlo",
         # model path that is a directory containing saved_model.pb
         "framework_priority_savedmodel": "tensorflow",
     },

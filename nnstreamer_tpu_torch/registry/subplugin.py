@@ -40,6 +40,7 @@ _BUILTIN_MODULES: Dict[SubpluginKind, tuple] = {
         "nnstreamer_tpu_torch.backends.custom_c",
         "nnstreamer_tpu_torch.backends.tflite_backend",
         "nnstreamer_tpu_torch.backends.tf_backend",
+        "nnstreamer_tpu_torch.backends.pt2_backend",
     ),
     SubpluginKind.DECODER: ("nnstreamer_tpu_torch.decoders",),
     SubpluginKind.CONVERTER: ("nnstreamer_tpu_torch.converters",),

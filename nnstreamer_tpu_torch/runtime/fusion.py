@@ -92,8 +92,16 @@ incoming frame stays intact because the pad-hop taps
 (``obs/quality.py``) still read it after the push returns. The frame is
 freed when its last holder drops it, as unfused.
 
-Not here yet: the AOT compile-cache path (nnstreamer_tpu's
-``_aot_resolve``; ROADMAP A7) — ``aot_hits`` and ``aot_exports`` stay 0.
+The AOT compile cache (``aot/``, on when ``NNS_AOT_CACHE`` names a
+directory): at the first buffer of a build the segment loads its
+exported program from the cache (``stats["aot_hits"]``) or exports the
+composed stages and saves them (``stats["aot_exports"]``), then serves
+through that program's module — on the card the CUDA graph captures the
+module as it would the live stages. A stage that does not export serves
+live, logged and counted in ``stats["aot_refused"]``. A segment pinned
+to a card by the placement planner does not consult the cache (its
+program must run where the plan put it). ``invalidate(evict_aot=True)``
+(a model swap) evicts the retiring generation's artifact.
 """
 from __future__ import annotations
 
@@ -381,6 +389,12 @@ class FusedSegment:
             if type(el).fusion_gate is not Element.fusion_gate
         ]
         self._donate = _donation_safe(self.head)
+        # AOT compile cache (aot/): whether the current build still has
+        # to consult it (at its first dispatch, which has the example
+        # inputs), and the (cache, key, stage, digest) of the artifact
+        # it serves, which invalidate(evict_aot=True) evicts
+        self._aot_pending = False  # guarded-by: _lock (reads racy-ok)
+        self._aot_built = None   # guarded-by: _lock
         self.stats = {
             "elements": len(self.elements),
             "dispatches": 0,
@@ -388,6 +402,7 @@ class FusedSegment:
             "defused": 0,
             "aot_hits": 0,
             "aot_exports": 0,
+            "aot_refused": 0,
             "total_s": 0.0,
             "probe_device_s": 0.0,
         }
@@ -402,14 +417,26 @@ class FusedSegment:
         last replay of the dropped graphs, after any dispatch in progress
         has finished enqueuing (None when nothing was replayed on a
         card). A model swap waits on it before it frees the old weights.
-        ``evict_aot`` is the model-swap path's flag; the port has no AOT
-        cache yet (ROADMAP A7)."""
+        ``evict_aot=True`` (the model-swap path) also evicts the retiring
+        generation's AOT artifact: the old model's program leaves disk
+        with its backend. Caps events and placement changes keep it for
+        the restart and replica warm paths (the rebuild re-keys anyway)."""
         with self._lock:
             self._gen += 1
             self._call = None
             self._defused = False
+            self._aot_pending = False
             self._graphs = OrderedDict()
             self._seen = set()
+            built = self._aot_built
+            if evict_aot:
+                self._aot_built = None
+        if evict_aot and built is not None:
+            cache, key, stage, digest = built
+            try:
+                cache.evict(key, stage, digest)
+            except OSError:  # a shared cache dir raced us; eviction is GC
+                pass
         with self._run_lock:
             fence, self._fence = self._fence, None
         # the same events invalidate the placement decision (caps change
@@ -500,6 +527,68 @@ class FusedSegment:
                 self._home = _norm(home)
                 self._host_home = _norm(host_home)
                 self._mem_pending = True
+                self._aot_pending = device is None
+        return composed
+
+    def _caps_key(self) -> str:
+        """The caps into the head and out of the tail, as negotiated
+        before the first buffer reaches the segment."""
+        def caps(pads):
+            return ";".join(str(p.caps) for p in pads if p.caps is not None)
+        return f"{caps(self.head.sink_pads)}->{caps(self.tail.src_pads)}"
+
+    def _aot_resolve(self, composed: Callable, args: list) -> Callable:
+        """AOT compile-cache consult at a build's first dispatch: load
+        this segment's exported program, or export the composed stages
+        and save them; either way the segment then serves THROUGH the
+        program (the exporting process runs the graph a warm restart
+        loads). Returns ``composed`` when the cache is off or the stages
+        do not export."""
+        from .. import aot
+
+        with self._lock:
+            gen = self._gen
+            pending, self._aot_pending = self._aot_pending, False
+        cache = aot.default_cache() if pending else None
+        pipe = getattr(self.head, "pipeline", None)
+        if cache is None or pipe is None:
+            return composed
+        try:
+            # the key's caps are the segment's own: the pipeline's sink
+            # may not have negotiated yet at the first dispatch (a queue
+            # between them hands the CAPS event on from its own thread),
+            # and a key read then would differ from a restart's
+            key = dict(aot.pipeline_key(pipe), caps=self._caps_key())
+            stage, digest = aot.segment_identity(self.elements)
+            example = (tuple(args),)
+            loaded = cache.load(key, stage, digest)
+            if loaded is not None and loaded.compatible(example):
+                self.stats["aot_hits"] += 1
+            else:
+                try:
+                    blob, meta, loaded = aot.export_stage(composed, example)
+                except aot.ExportError as e:
+                    self.stats["aot_refused"] += 1
+                    logger.info("fused segment %s: AOT export failed (%s) "
+                                "— serving live", self.name, e)
+                    return composed
+                cache.save(key, stage, digest, blob, meta)
+                self.stats["aot_exports"] += 1
+                logger.info("fused segment %s: exported %s AOT artifact "
+                            "(%d bytes) for stage %s", self.name,
+                            "shape-poly" if meta["poly"] else "static",
+                            meta["nbytes"], stage)
+            served = aot.guarded(loaded, composed)
+        except Exception:  # noqa: BLE001 - cache trouble != data loss
+            self.stats["aot_refused"] += 1
+            logger.exception("fused segment %s: AOT cache consult failed "
+                             "— serving live", self.name)
+            return composed
+        with self._lock:
+            if self._gen == gen and self._call is composed:
+                self._call = served
+                self._aot_built = (cache, key, stage, digest)
+                return served
         return composed
 
     # -- the device side ----------------------------------------------------
@@ -587,7 +676,6 @@ class FusedSegment:
     def _replay(self, call: Callable, args: list, home: torch.device):
         sig = (home,) + tuple((tuple(a.shape), a.dtype) for a in args)
         with self._lock:
-            gen = self._gen
             g = self._graphs.get(sig)
             if g is not None:
                 self._graphs.move_to_end(sig)
@@ -595,7 +683,12 @@ class FusedSegment:
             g = self._capture(call, args, home)
             with self._lock:
                 self.stats["retraces"] += 1
-                if self._gen == gen:
+                # kept only while ``call`` is still the published callable:
+                # an invalidation (a swap) may have run since this dispatch
+                # took it, and a graph of the old stages kept under the
+                # new build would replay the old weights after their
+                # release
+                if self._call is call:
                     self._graphs[sig] = g
                     while len(self._graphs) > MAX_GRAPHS:
                         self._graphs.popitem(last=False)
@@ -652,6 +745,8 @@ class FusedSegment:
                     return True  # dropped (QoS throttle), buffer consumed
             home = self._resolve_home(buf.tensors)
             args = self._inputs(buf.tensors, home)
+            if self._aot_pending:
+                call = self._aot_resolve(call, args)
             t0 = clock_now()
             try:
                 outs, g = self._run(call, args, home)

@@ -55,8 +55,13 @@ Observability: each plan lands as a ``placement`` span, the
 ``tensor_shard`` fan-outs get branch weights inversely proportional to
 each branch's profiled downstream cost (``shard_weights``).
 
-Not here yet: AOT artifact references (A7; ``aot`` stays empty) and the
-planner-assignment surfaces of ``parallel/pipeline`` (A7).
+AOT artifact references: with a compile cache on (``NNS_AOT_CACHE``,
+``aot/``) a plan names, in ``aot``, the saved program of each of its
+stages that has one, so shipping the plan and those files hands over
+both the placement and the programs it places.
+
+Not here yet: the planner-assignment surfaces of ``parallel/pipeline``
+(A7).
 """
 from __future__ import annotations
 
@@ -152,9 +157,8 @@ class PlacementPlan:
     shard_weights: Dict[str, List[float]] = field(default_factory=dict)
     source: str = "heuristic"  # "profile" | "heuristic" | "explicit"
     balance: Dict[str, float] = field(default_factory=dict)
-    # AOT compile-cache artifact refs ({stage id: artifact basename}) in
-    # the reference's schema; empty until the port has an AOT cache
-    # (ROADMAP A7)
+    # AOT compile-cache artifact refs ({stage id: artifact basename}),
+    # the reference's schema
     aot: Dict[str, str] = field(default_factory=dict)
 
     def stage_for(self, stage_key: str) -> Optional[StagePlacement]:
@@ -426,6 +430,15 @@ class Planner:
 
         self._tune_queues(pipeline, artifact, plan)
         self._shard_weights(pipeline, artifact, plan)
+        # reference the saved programs: stages whose exported artifact
+        # exists are named in the plan
+        from .. import aot as aot_cache
+
+        cache = aot_cache.default_cache()
+        if cache is not None:
+            refs = cache.stage_artifacts(plan.key.get("topology", ""))
+            stages = {s.stage for s in plan.stages}
+            plan.aot = {k: v for k, v in refs.items() if k in stages}
         return plan
 
     # makespan minimization (multiprocessor scheduling) is NP-hard in

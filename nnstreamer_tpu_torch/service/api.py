@@ -215,6 +215,7 @@ def _make_handler(manager: ServiceManager):
                             last=last, pipeline=params.get("pipeline"),
                             category=params.get("category"), after=after)}
             if parts == ["profile"] and method == "GET":
+                from .. import aot
                 from ..obs import profile as obs_profile
                 from ..obs import slo as obs_slo
                 from ..runtime import placement
@@ -223,7 +224,9 @@ def _make_handler(manager: ServiceManager):
                 out = {"profile": obs_profile.snapshot(),
                        "slo": obs_slo.status_all(),
                        "placement": placement.snapshot_all(),
-                       "autoscale": svc_autoscaler.snapshot_all()}
+                       "autoscale": svc_autoscaler.snapshot_all(),
+                       # AOT compile-cache counters + artifact inventory
+                       "aot": aot.snapshot()}
                 if self._query_params().get("raw") in ("1", "true"):
                     # the fleet-scrape contract: raw digest buckets +
                     # windowed cells + the mono→wall clock offset, so a

@@ -572,15 +572,54 @@ class ProcReplicaSet:
 # child side: the `python -m nnstreamer_tpu_torch replica` runner
 # ---------------------------------------------------------------------------
 
+def _aot_warmup_inputs(pipeline) -> Optional[list]:
+    """Batch-1 zeros fabricated from a cached AOT artifact's recorded
+    inputs for this pipeline's head device stage (the symbolic batch
+    set to 1) — how a flexible-caps replica warms up anyway: the
+    artifact knows the trailing dims the caps string does not declare.
+    None when the AOT plane is off or no artifact covers the topology."""
+    if pipeline is None:
+        return None
+    from .. import aot
+    from ..obs import profile as obs_profile
+
+    cache = aot.default_cache()
+    if cache is None:
+        return None
+    try:
+        # only the topology half of the key matters here: the full key
+        # would read negotiated caps, and warmup runs before the first
+        # client connects
+        topo = obs_profile.topology_hash(pipeline)
+        # the wire input matches the HEAD device stage's inputs: rank
+        # each artifact by where its stage head sits in the pipeline
+        position = {obs_profile.canonical_base(el): idx
+                    for idx, el in enumerate(pipeline.elements.values())}
+
+        def head_rank(meta: dict) -> int:
+            head = str(meta.get("stage", "")).split("..", 1)[0]
+            return position.get(head, len(position))
+        for meta in sorted(cache.metas(topology=topo), key=head_rank):
+            inputs = aot.fabricate_inputs(meta, batch=1)
+            if inputs:
+                return inputs
+    except Exception:  # noqa: BLE001 - fabrication is best-effort
+        logger.exception("replica warmup: AOT input fabrication failed")
+    return None
+
+
 def _warmup_self(host: str, port: int, caps_str: str,
-                 timeout: float = 60.0) -> None:
+                 timeout: float = 60.0, pipeline=None) -> None:
     """One inference through the real query wire against ourselves, so
     the model's first forward on its device (kernel builds, the first
     library calls) and caps negotiation complete BEFORE the READY line
     admits us to any ring: the answer comes back only once the device
-    finished it. Static caps fabricate zeros; flexible caps skip the
-    warmup (the reference's path with no AOT cache to take shapes from),
-    and the skip is a ``replica``/``warmup_skipped`` flight event."""
+    finished it. Static caps fabricate zeros; with a cached AOT artifact
+    of the topology a non-static batch no longer forbids warmup — the
+    artifact's recorded inputs supply the shapes and the warmup request
+    runs the saved program. Only when no artifact covers the topology
+    either does the replica skip, and the skip is a
+    ``replica``/``warmup_skipped`` flight event."""
     import numpy as np
 
     from ..core import Buffer, parse_caps_string
@@ -588,6 +627,7 @@ def _warmup_self(host: str, port: int, caps_str: str,
     from ..query.client import QueryClient
 
     caps = parse_caps_string(caps_str)
+    fabricated = False
     try:
         info = tensors_info_from_caps(caps)
         if not info.specs:
@@ -597,15 +637,32 @@ def _warmup_self(host: str, port: int, caps_str: str,
         zeros = [np.zeros(tuple(s.shape), dtype=s.dtype.np_dtype)
                  for s in info.specs]
     except Exception as e:  # noqa: BLE001 - flexible/partial caps
-        obs_flight.record("replica", "warmup_skipped",
-                          {"reason": f"caps not static: {e}",
-                           "caps": caps_str, "port": port})
-        logger.info("replica warmup skipped (caps not static: %s)", e)
-        return
+        zeros = _aot_warmup_inputs(pipeline)
+        if zeros is None:
+            obs_flight.record("replica", "warmup_skipped",
+                              {"reason": f"caps not static: {e}",
+                               "caps": caps_str, "port": port})
+            logger.info("replica warmup skipped (caps not static: %s; "
+                        "no AOT artifact to fabricate from)", e)
+            return
+        fabricated = True
+        logger.info("replica warmup: caps not static (%s) — fabricated "
+                    "batch-1 inputs from the cached AOT artifact", e)
     client = QueryClient(host, port, timeout=timeout)
     try:
-        client.connect(caps)
-        client.request(Buffer(zeros), timeout=timeout)
+        try:
+            client.connect(caps)
+            client.request(Buffer(zeros), timeout=timeout)
+        except Exception as e:  # noqa: BLE001 - fabricated shapes may
+            # not negotiate; a failed OPTIONAL warmup must not kill the
+            # replica — the static-caps contract never reaches here
+            if not fabricated:
+                raise
+            obs_flight.record("replica", "warmup_skipped",
+                              {"reason": f"fabricated warmup failed: {e}",
+                               "caps": caps_str, "port": port})
+            logger.info("replica warmup: fabricated warmup failed (%s) "
+                        "— continuing without warmup", e)
     finally:
         client.close()
 
@@ -696,8 +753,12 @@ def run_replica(args) -> int:
         # resolver holds. Re-binding the same port keeps a restart
         # inside the normal evict→probe→readmit window.
         el.props["port"] = port
+        warmup_s = None
         if args.warmup:
-            _warmup_self(args.host, port, args.caps)
+            t0 = time.perf_counter()
+            _warmup_self(args.host, port, args.caps,
+                         pipeline=svc.pipeline)
+            warmup_s = time.perf_counter() - t0
         server = ControlServer(mgr, host=args.host,
                                port=args.control_port).start()
         if args.advertise:
@@ -708,7 +769,9 @@ def run_replica(args) -> int:
                              args.host, port)
         ready = {"name": args.name, "pid": os.getpid(), "host": args.host,
                  "query_port": port, "control_port": server.port,
-                 "devices": _filter_devices(svc.pipeline)}
+                 "devices": _filter_devices(svc.pipeline),
+                 # the replica's first batch (its warmup request), s
+                 "warmup_s": warmup_s}
         print(READY_PREFIX + json.dumps(ready), flush=True)
         from .manager import ServiceState
 

@@ -31,8 +31,11 @@ the paged engine's fixed chunk.
 Greedy (argmax) decoding only — the scheduler contract is deterministic
 token streams.
 
-Not in this package yet: the AOT-cache attach of the paged engine's
-executables (``from_entry``), which comes with the AOT port.
+With ``NNS_AOT_CACHE`` set, ``from_entry(paged=True)`` attaches the
+compile cache's library directory (``aot.attach_xla_cache``), where the
+reference attaches XLA's persistent cache for its draft and target
+executables: the engines' hand kernels are then taken from the cache's
+``xla/`` instead of being rebuilt by ``nvcc`` on a clean checkout.
 """
 from __future__ import annotations
 
@@ -648,6 +651,11 @@ def from_entry(entry, slots: int = 4, mesh=None, paged: bool = False,
     cfg = entry._cfg_serve
     params = entry.build_params(resolve_device(device))
     if paged:
+        from ..aot import cache as aot_cache
+
+        # the target's and the draft's kernels come from the same
+        # library cache: a fleet restart on a clean checkout builds none
+        aot_cache.attach_xla_cache()
         return PagedLMEngine(cfg, params, slots=slots, **paged_kw)
     return ContinuousLMEngine(cfg, params, slots=slots)
 

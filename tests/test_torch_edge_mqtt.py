@@ -28,7 +28,8 @@ from nnstreamer_tpu.runtime.parse import parse_launch as r_parse_launch
 from nnstreamer_tpu_torch.core import MessageType
 from nnstreamer_tpu_torch.elements import mqtt as mqtt_el
 from nnstreamer_tpu_torch.query import mqtt as mqtt_mod
-from nnstreamer_tpu_torch.query.hybrid import advertise, discover, withdraw
+from nnstreamer_tpu_torch.query.hybrid import (ADDR_TOPIC, advertise, discover,
+                                               withdraw)
 from nnstreamer_tpu_torch.query.mqtt import MiniBroker
 from nnstreamer_tpu_torch.runtime.parse import parse_launch
 from nnstreamer_tpu_torch.utils.ntp import (NTP_DELTA, EpochClock,
@@ -231,6 +232,17 @@ class TestDiscovery:
         withdraw(broker.host, broker.port, "gone")
         with pytest.raises(ConnectionError):
             discover(broker.host, broker.port, "gone", timeout=0.3)
+
+    def test_advertise_then_withdraw_applied_in_order(self, broker):
+        """Each call returns only once the broker applied its retained
+        PUBLISH (the PINGREQ/PINGRESP round trip), so a withdraw never
+        lands before the advertise it follows."""
+        slot = ADDR_TOPIC.format(topic="order")
+        for i in range(200):
+            advertise(broker.host, broker.port, "order", "h", 1000 + i)
+            assert broker._retained.get(slot) == f"h:{1000 + i}".encode()
+            withdraw(broker.host, broker.port, "order")
+            assert slot not in broker._retained
 
     def test_ipv6_host_parses(self, broker):
         advertise(broker.host, broker.port, "v6", "::1", 5001)

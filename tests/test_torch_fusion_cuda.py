@@ -18,7 +18,9 @@ runs where they are not installed:
   but syncs with the host) ends in a bus ERROR, with no eager fallback,
   and leaves the card's random number generator usable;
 * a model that declares nothing runs its eager invoke under the default
-  ``fuse``: the segment defuses, as for a pinned filter."""
+  ``fuse``: the segment defuses, as for a pinned filter;
+* a graph captured while an invalidation (a swap) lands is replayed
+  once and not kept for the next build."""
 import sys
 import time
 import types
@@ -78,6 +80,35 @@ def test_outputs_are_cloned_out_of_the_pool(cuda_card):
     assert len({b.tensors[0].data_ptr() for b in fused}) == 12
     assert _host(fused) == _host(plain)
     assert len(set(_host(fused))) == 12
+
+
+@pytest.mark.cuda
+def test_a_graph_captured_across_an_invalidation_is_not_kept(cuda_card,
+                                                             monkeypatch):
+    """A swap's invalidation that lands while a dispatch captures: that
+    dispatch replays its graph of the old stages once, and the graph is
+    not kept for the next build (it would replay the old weights after
+    their release)."""
+    from nnstreamer_tpu_torch.runtime.fusion import FusedSegment
+
+    real = FusedSegment._capture
+    hits = []
+
+    def capture_then_invalidate(self, call, args, home):
+        g = real(self, call, args, home)
+        if not hits:
+            hits.append(1)
+            self.invalidate()       # as a commit_model would, meanwhile
+        return g
+    monkeypatch.setattr(FusedSegment, "_capture", capture_then_invalidate)
+    line = CHAIN.format(n=4, pattern="counter")
+    fused_pipe, fused = _run(line, True)
+    monkeypatch.setattr(FusedSegment, "_capture", real)
+    _, plain = _run(line, False)
+    (seg,) = fused_pipe.fused_segments
+    assert seg.stats["dispatches"] == 4
+    assert seg.stats["retraces"] == 2      # captured again after it
+    assert _host(fused) == _host(plain)
 
 
 @pytest.mark.cuda

@@ -164,6 +164,12 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.trainer.torch_trainer",
     "nnstreamer_tpu_torch.elements.trainer",
     "nnstreamer_tpu_torch.utils.tree",
+    "nnstreamer_tpu_torch.aot",
+    "nnstreamer_tpu_torch.aot.export",
+    "nnstreamer_tpu_torch.aot.cache",
+    "nnstreamer_tpu_torch.backends.pt2_backend",
+    "nnstreamer_tpu_torch.ops.fma_gemm",
+    "nnstreamer_tpu_torch.ops.depthwise_fma",
 ]
 # the slice that needs no TensorFlow to import: blocked too when checked
 TFLITE_MODULES = [
@@ -216,7 +222,10 @@ for mode in ("bounding_boxes", "pose_estimation", "image_segment",
     assert get(SubpluginKind.DECODER, mode).MODE == mode
 from nnstreamer_tpu_torch.registry.subplugin import names
 assert names(SubpluginKind.FILTER) == ["custom", "custom-easy", "python",
-                                       "tensorflow", "tflite", "torch"]
+                                       "stablehlo", "tensorflow", "tflite",
+                                       "torch", "torch-export"]
+assert get(SubpluginKind.FILTER, "pt2") is get(SubpluginKind.FILTER,
+                                               "torch-export")
 assert get(SubpluginKind.FILTER, "python3") is get(SubpluginKind.FILTER,
                                                    "python")
 assert get(SubpluginKind.DECODER, "python3").MODE == "python3"
