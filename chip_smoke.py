@@ -15,7 +15,10 @@ phase fails:
    parallel) and time the build;
 3. kernels — hold each kernel against its plain PyTorch version at the
    ``base`` LM's shapes, time kernel, plain version and the PyTorch
-   library call that computes the same function, beside the bound;
+   library call that computes the same function, beside the bound; (d)
+   both LM kernels again at one rank's shapes under a 2x2 (dp, tp) mesh of
+   ``base``: decode (4, 8, 2048, 64) at pos 543 and per slot, flash (4, 8,
+   512, 64) causal, f32 and bf16, with the same tolerances and timings;
 4. slice end to end — serve 3 requests through
    ``appsrc ! tensor_filter framework=torch model=...lm_serving:base !
    tensor_sink`` (float32, then ``custom=serve_dtype:bfloat16``), check the
@@ -450,12 +453,34 @@ phase fails:
     dense step ms (the nns:: ops registered; eager calls bypass the op
     dispatcher).
 
+21. the mesh surfaces of serving (also ``--only mesh``, after phase 3 (d)
+    and phases 4 and 5), on a world-1 NCCL group the script brings up
+    (``parallel.init_multihost``), at ``base`` width with phase 4's three
+    requests: (a) ``appsrc ! tensor_filter model=...lm_serving:base
+    custom=mesh:1x1 ! tensor_sink`` and the same with ``mesh:dp=1``
+    (dp-only meshes, as in the reference): tokens equal phase 4's, 2268
+    decode and 36 flash launches, tokens/s beside the unmeshed line's;
+    (b) ``tensor_generate mesh=1x1 steps=64``: tokens equal phase 5's and
+    its launches; (c) ``make_generate(cfg, mesh=<dp,tp,sp = 1,1,1>,
+    context_parallel=True)``: no kernel launch (the ring prefill and the sp
+    combine are torch), tokens equal phase 4's — or, where an f32 near tie
+    flips one, teacher-forced logits within MS_LOGIT_RTOL of the plain
+    dense path's at every step and a top-2 margin below MS_TIE_MARGIN at
+    the flip (step and margin recorded); (d) is in phase 3; (e)
+    ``utils/flops.py``'s data-sheet peaks for the card's name and the MFU
+    of phase 19's dense ``base`` train step (FLOPs counted by
+    ``FlopCounterMode``, against the float32 peak); (f)
+    ``utils/tpu_diag.py``'s staged probe reaches every stage (a child
+    process: import, CUDA init, devices, a product, the decode kernel's
+    build) and its seconds per stage. Multi-rank meshes need a machine
+    with more than one card: the CPU tests hold them on gloo worlds.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
 plugins``, ``--only tflite``, ``--only query``, ``--only service``,
-``--only train``, ``--only aot``) runs phase 13 (14, 15, 16, 17, 18, 19,
-20) alone and prints its report as the last
+``--only train``, ``--only aot``, ``--only mesh``) runs phase 13 (14, 15,
+16, 17, 18, 19, 20, 21) alone and prints its report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
@@ -827,12 +852,15 @@ def serve(custom: str, prompts) -> dict:
             src.push_buffer(p)
         src.end_of_stream()
         msg = pipe.wait(timeout=600)
+        mesh = pipe.get("f").backend_mesh
     finally:
         pipe.stop()
     launches = read_launches()
     if msg.type is not MessageType.EOS:
         fail(f"pipeline ({custom or 'float32'}): {msg}")
-    return {"outs": outs, "launches": launches, "t0": t0, "t_out": t_out}
+    return {"outs": outs, "launches": launches, "t0": t0, "t_out": t_out,
+            "mesh": None if mesh is None else dict(zip(
+                mesh.mesh_dim_names, map(int, mesh.shape)))}
 
 
 def phase_slice(report: dict) -> tuple:
@@ -8007,6 +8035,387 @@ def phase_aot_alone(report: dict) -> None:
     phase_aot(report)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the mesh surfaces of serving (world-1 NCCL group)
+# ---------------------------------------------------------------------------
+
+# phase 3 (d): one rank's kernel shapes under a 2x2 (dp, tp) mesh of the
+# base LM: (B/dp, H/tp, T, D) for decode, (B/dp, H/tp, PROMPT, D) for flash
+MS_DECODE_SHAPE = (4, 8, 2048, 64)
+MS_FLASH_SHAPE = (4, 8, PROMPT, 64)
+MS_SLOT_POS = (17, MAIN_POS, 1500, 2047)
+# (c): where a greedy token of the context-parallel path differs from
+# phase 4's (an f32 near tie), its teacher-forced logits must be within
+# this relative distance (max |diff| / max |plain|) of the plain path's,
+# and the plain path's top-2 margin at the first differing step below
+# twice phase 6's kernel-vs-dense logit bound: the most that the kernel
+# path (phase 4) and the torch path can disagree by
+MS_LOGIT_RTOL = 1e-4
+MS_TIE_MARGIN = 2 * PARITY_ATOL[torch.float32]
+MS_PROBE_TIMEOUT = 300.0
+
+
+def ms_decode_row(dev, gen, shape, pos, dtype) -> dict:
+    """The decode kernel at ``shape`` with ``pos`` (an int or a per-row
+    tuple): held against its plain version, timed beside its plain
+    version, SDPA (over the prefix, or with a per-row mask) and its
+    bound."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    B, H, T, D = shape
+    elt = torch.tensor([], dtype=dtype).element_size()
+    q = torch.randn(B, H, 1, D, device=dev, generator=gen)
+    caches = [(torch.randn(shape, device=dev, generator=gen).to(dtype),
+               torch.randn(shape, device=dev, generator=gen).to(dtype))
+              for _ in range(4 if dtype is torch.float32 else 6)]
+    per_row = isinstance(pos, tuple)
+    pos_t = torch.tensor(pos if per_row else [pos], dtype=torch.int32,
+                         device=dev)
+    k, v = caches[0]
+    got = decode_attention(q, k, v, pos_t, 128)
+    want = decode_attention_plain(q, k, v, pos_t, 128)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    args = [(q, ck, cv, pos_t, 128) for ck, cv in caches]
+    q_lib = q.to(dtype)
+    if per_row:
+        mask = (torch.arange(T, device=dev)[None, :]
+                <= pos_t[:, None].long())[:, None, None, :]
+        lib = [(q_lib, ck, cv, mask) for ck, cv in caches]
+        lib_ms = time_ms(lambda a, b, c, m: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=m), lib)
+        n = [p + 1 for p in pos]
+    else:
+        lib = [(q_lib, ck[:, :, :pos + 1], cv[:, :, :pos + 1])
+               for ck, cv in caches]
+        lib_ms = time_ms(F.scaled_dot_product_attention, lib)
+        n = [pos + 1] * B
+    nbytes = (sum(2 * H * m * D * elt for m in n) + 2 * B * H * D * 4
+              + 4 * pos_t.numel())
+    flops = sum(4 * H * m * D + H * m for m in n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    ms = time_ms(decode_attention, args)
+    return {"shape": list(shape), "pos": list(pos) if per_row else pos,
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(decode_attention_plain, args),
+            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ms_flash_row(dev, gen, dtype) -> dict:
+    """The flash kernel, causal, at one rank's prefill shape."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    B, H, S, D = MS_FLASH_SHAPE
+    elt = torch.tensor([], dtype=dtype).element_size()
+    # enough distinct q/k/v sets that one pass overflows the 50 MB L2
+    sets = [tuple(torch.randn(MS_FLASH_SHAPE, device=dev, generator=gen)
+                  .to(dtype) for _ in range(3))
+            for _ in range(6 if dtype is torch.float32 else 10)]
+    rtol = KERNEL_RTOL + (BF16_HALF_STEP if dtype is torch.bfloat16 else 0.0)
+    q, k, v = sets[0]
+    got = flash_attention(q, k, v, True)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), True)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=KERNEL_ATOL)
+    bound, bound_by = flash_bound_ms(B, H, S, D, elt)
+    return {"shape": list(MS_FLASH_SHAPE), "causal": True, "rtol": rtol,
+            "max_abs_err": err,
+            "ms": time_ms(flash_attention, sets, inner=10),
+            "plain_ms": time_ms(flash_attention_plain, sets, inner=10),
+            "library_ms": time_ms(
+                lambda a, b, c: F.scaled_dot_product_attention(
+                    a, b, c, is_causal=True), sets, inner=10),
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_rank_kernels(report: dict, dev: torch.device) -> dict:
+    """Phase 3 (d): both kernels at one rank's shapes under a 2x2 (dp,
+    tp) mesh of the base LM, f32 and bf16, against their plain versions
+    with phase 3's tolerances, timed beside SDPA and their bounds."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = {
+            "decode": ms_decode_row(dev, gen, MS_DECODE_SHAPE, MAIN_POS,
+                                    dtype),
+            "decode_per_slot": ms_decode_row(dev, gen, MS_DECODE_SHAPE,
+                                             MS_SLOT_POS, dtype),
+            "flash": ms_flash_row(dev, gen, dtype)}
+        for name, r in rows.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            print(f"rank shape {name} {dtype}: {r['ms']:.5f} ms, "
+                  f"{100 * r['share_of_bound']:.1f}% of its bound: "
+                  + json.dumps(r))
+        out[str(dtype)] = rows
+        torch.cuda.empty_cache()
+    report["rank_kernels"] = out
+    return out
+
+
+def ms_filter(report: dict, prompts, filter_outs) -> dict:
+    """(a): phase 4's requests through the filter line with custom=mesh:
+    1x1 and mesh:dp=1 — phase 4's tokens, its launches."""
+    from nnstreamer_tpu_torch.models.lm_serving import base
+
+    out = {}
+    # a DxT spec with T = 1 is a dp-only mesh, as in the reference
+    for custom, shape in (("mesh:1x1", {"dp": 1}), ("mesh:dp=1", {"dp": 1})):
+        r = serve(custom, prompts)
+        if r["mesh"] != shape:
+            fail(f"mesh {custom}: the filter's mesh is {r['mesh']}, "
+                 f"expected {shape}")
+        if len(r["outs"]) != REQUESTS:
+            fail(f"mesh {custom}: {len(r['outs'])} outputs")
+        for i, (o, want) in enumerate(zip(r["outs"], filter_outs)):
+            if not o.is_cuda:
+                fail(f"mesh {custom}: output on {o.device}")
+            if not np.array_equal(o.cpu().numpy(), want):
+                fail(f"mesh {custom}: request {i}'s tokens differ from "
+                     "phase 4's")
+        check_launches(f"mesh {custom}", r["launches"], base.cfg.layers)
+        t_out = r["t_out"]
+        steady = (REQUESTS - 1) * 8 * STEPS / (t_out[-1] - t_out[0])
+        out[custom] = {"mesh": r["mesh"], "launches": r["launches"],
+                       "tokens_per_s_steady": steady}
+        unmeshed = report.get("slice", {}).get("float32", {}).get(
+            "tokens_per_s_steady")
+        print(f"mesh filter custom={custom}: tokens equal phase 4's; kernel "
+              f"launches {r['launches']}; {steady:.1f} generated tokens/s "
+              f"(requests 2-3; unmeshed line {unmeshed:.1f})")
+    return out
+
+
+def ms_generate(prompts, filter_outs) -> dict:
+    """(b): tensor_generate mesh=1x1 — phase 5's tokens."""
+    from nnstreamer_tpu_torch.models.lm_serving import base
+
+    pipe, got = generate_pipeline(
+        "nnstreamer_tpu_torch.models.lm_serving:base",
+        f"name=g steps={STEPS} mesh=1x1", 8, PROMPT)
+    reset_launches()
+    push_turns(pipe, got, prompts, STEPS)
+    launches = read_launches()
+    mesh = pipe.get("g").mesh
+    if mesh is None or dict(zip(mesh.mesh_dim_names, map(int, mesh.shape))) \
+            != {"dp": 1}:
+        fail(f"mesh generate: the element's mesh is {mesh}")
+    turns = turn_tokens(got, STEPS, base.cfg.vocab)
+    for i, (tok, whole) in enumerate(zip(turns, filter_outs)):
+        if not np.array_equal(tok, whole[:, PROMPT:]):
+            fail(f"mesh generate: request {i}'s tokens differ from phase 5's")
+    check_launches("mesh generate", launches, base.cfg.layers)
+    print(f"mesh tensor_generate mesh=1x1: tokens equal phase 5's; kernel "
+          f"launches {launches}")
+    return {"launches": launches}
+
+
+def ms_teacher_forced(cfg, params, mesh, prompt, tokens, dev) -> dict:
+    """(c)'s near-tie gate: the context-parallel path and the plain dense
+    path (no mesh) fed phase 4's tokens; the largest relative logit
+    distance over the prefill and every step."""
+    from nnstreamer_tpu_torch.models.decoding import (
+        decode_step, init_cache, make_sp_cache_attention, prefill)
+
+    plain = replace(cfg, decode_attn="dense", prefill_attn="dense")
+    sp_attn = make_sp_cache_attention(cfg, mesh)
+    B = prompt.shape[0]
+    dt = params["embed"].dtype
+    worst = 0.0
+    with torch.inference_mode():
+        c_cp = init_cache(cfg, B, dt, dev, mesh, context_parallel=True)
+        c_pl = init_cache(plain, B, dt, dev)
+        l_cp, c_cp, pos = prefill(cfg, params, prompt, c_cp, mesh, True)
+        l_pl, c_pl, _ = prefill(plain, params, prompt, c_pl)
+        margins = []
+        for i in range(STEPS):
+            worst = max(worst, float((l_cp - l_pl).abs().max()
+                                     / l_pl.abs().max()))
+            top = torch.topk(l_pl.float(), 2, dim=-1).values
+            margins.append(float((top[:, 0] - top[:, 1]).min()))
+            if i == STEPS - 1:
+                break
+            tok = tokens[:, i]
+            l_cp, c_cp = decode_step(cfg, params, tok, pos + i, c_cp, mesh,
+                                     sp_attn)
+            l_pl, c_pl = decode_step(plain, params, tok, pos + i, c_pl)
+    return {"logit_rel_err": worst, "top2_margins": margins}
+
+
+def ms_context_parallel(report: dict, prompts, filter_outs,
+                        dev: torch.device) -> dict:
+    """(c): make_generate(mesh=dp,tp,sp = 1,1,1, context_parallel=True):
+    the ring prefill and the sp combine, plain torch — no kernel launch;
+    phase 4's tokens, or, at an f32 near tie, teacher-forced logits
+    within MS_LOGIT_RTOL of the plain path's."""
+    from nnstreamer_tpu_torch.models.decoding import make_generate
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(None, {"dp": 1, "tp": 1, "sp": 1})
+    params = base.build_params(dev)
+    gen = make_generate(base.cfg, mesh=mesh, context_parallel=True)
+    reset_launches()
+    outs, secs = [], []
+    with torch.inference_mode():
+        for p in prompts:
+            t0 = time.perf_counter()
+            o = gen(params, torch.from_numpy(p).to(dev), STEPS)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append(o.cpu().numpy())
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"mesh context_parallel: kernel launches {launches}, expected "
+             "none (the ring and the sp combine are torch)")
+    r = {"launches": launches, "request_s": secs,
+         "tokens_per_s_steady": 8 * STEPS * (REQUESTS - 1) / sum(secs[1:]),
+         "near_ties": []}
+    for i, (o, want) in enumerate(zip(outs, filter_outs)):
+        if np.array_equal(o, want):
+            continue
+        step = int(np.argwhere((o != want).any(axis=0))[0][0]) - PROMPT
+        tf = ms_teacher_forced(
+            base.cfg, params, mesh, torch.from_numpy(prompts[i]).to(dev),
+            torch.from_numpy(want[:, PROMPT:]).to(dev), dev)
+        tie = {"request": i, "step": step,
+               "top2_margin": tf["top2_margins"][step],
+               "logit_rel_err": tf["logit_rel_err"]}
+        r["near_ties"].append(tie)
+        if not (tf["logit_rel_err"] <= MS_LOGIT_RTOL
+                and tie["top2_margin"] <= MS_TIE_MARGIN):
+            fail(f"mesh context_parallel: request {i} differs from phase "
+                 f"4's at step {step}: teacher-forced logits "
+                 f"{tf['logit_rel_err']:.3e} (relative) from the plain "
+                 f"path's (limit {MS_LOGIT_RTOL}), top-2 margin there "
+                 f"{tie['top2_margin']:.3e} (limit {MS_TIE_MARGIN})")
+    print(f"mesh context_parallel (dp,tp,sp = 1,1,1): kernel launches "
+          f"{launches}; " + ("tokens equal phase 4's" if not r["near_ties"]
+                             else f"near ties {r['near_ties']}")
+          + f"; {r['tokens_per_s_steady']:.1f} generated tokens/s "
+          "(requests 2-3)")
+    return r
+
+
+def ms_flops(report: dict, dev: torch.device) -> dict:
+    """(e): utils/flops.py's data-sheet peak for this card, and the MFU of
+    phase 19's dense base train step (f32, TF32 off: the float32 peak)."""
+    from nnstreamer_tpu_torch.models.lm_serving import base
+    from nnstreamer_tpu_torch.models.transformer import (
+        init_params, make_train_step)
+    from nnstreamer_tpu_torch.utils import flops
+
+    name = torch.cuda.get_device_name(0)
+    peaks = {dt: flops.peak_flops_per_chip(dev, dt)
+             for dt in ("float32", "tf32", "bfloat16", "float8")}
+    if any(v is None for v in peaks.values()):
+        fail(f"flops: no data-sheet peak for {name!r}: {peaks}")
+    cfg = base.cfg
+    params = init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(tr_tokens(cfg.vocab)).to(dev)
+    step, _, _ = make_train_step(cfg, None, lr=TR_LR)
+    n_flops = flops.compiled_flops(step, params, toks)
+    analytic = 3 * flops.transformer_flops(
+        flops.count_params(params), cfg.layers, cfg.dim, TR_SEQ,
+        TR_BATCH * TR_SEQ)
+    ms = []
+    for _ in range(4):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step(params, toks)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    del params
+    torch.cuda.empty_cache()
+    steady = statistics.mean(ms[1:])
+    r = {"device": name, "peaks": peaks, "step_flops": n_flops,
+         "step_flops_analytic": analytic, "step_ms": steady,
+         "tflops_per_s": n_flops / steady / 1e9,
+         "mfu_f32": flops.mfu(n_flops / (steady / 1e3), device=dev,
+                              dtype="float32")}
+    p19 = report.get("train", {}).get("dense", {}).get("step_ms_steady")
+    if p19:
+        r["phase19_step_ms"] = p19
+        r["phase19_mfu_f32"] = flops.mfu(n_flops / (p19 / 1e3), device=dev,
+                                         dtype="float32")
+    print(f"flops ({report['device']}): data-sheet dense peaks "
+          + ", ".join(f"{k} {v / 1e12:.1f}" for k, v in peaks.items())
+          + f" TFLOP/s; the base train step (f32, TF32 off) counts "
+          f"{n_flops:.4e} FLOPs (analytic {analytic:.4e}), {steady:.3f} ms "
+          f"= {r['tflops_per_s']:.2f} TFLOP/s, MFU {r['mfu_f32']:.4f} of "
+          "the float32 peak"
+          + (f"; at phase 19's {p19:.3f} ms, MFU {r['phase19_mfu_f32']:.4f}"
+             if p19 else ""))
+    return r
+
+
+def ms_diag() -> dict:
+    """(f): utils/tpu_diag.py's staged probe reaches every stage on the
+    card."""
+    from nnstreamer_tpu_torch.utils.tpu_diag import staged_probe
+
+    rec = staged_probe(timeout_s=MS_PROBE_TIMEOUT)
+    stages = [s["stage"] for s in rec["stages"]]
+    want = ["start", "import_torch", "cuda_init", "devices", "compute",
+            "kernel_build", "done"]
+    if rec["outcome"] != "ok" or stages != want or rec["platform"] != "cuda":
+        fail(f"tpu_diag: outcome {rec['outcome']}, stages {stages}, "
+             f"platform {rec['platform']}: {rec.get('stderr_tail')}")
+    print(f"tpu_diag staged probe: every stage reached in "
+          f"{rec['elapsed_s']:.3f} s; seconds per stage {rec['seconds']}; "
+          f"devices {rec['stages'][3].get('kinds')}")
+    return {"seconds": rec["seconds"], "elapsed_s": rec["elapsed_s"],
+            "stages": rec["stages"]}
+
+
+def phase_mesh(report: dict, prompts, filter_outs,
+               dev: torch.device) -> None:
+    """Phase 21: the mesh surfaces of serving (module docstring)."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.parallel import init_multihost
+
+    init_multihost(f"127.0.0.1:{sv_free_port()}", 1, 0)
+    r = report["mesh"] = {"backend": dist.get_backend()}
+    try:
+        if r["backend"] != "nccl":
+            fail(f"mesh: backend {r['backend']}, expected nccl")
+        r["filter"] = ms_filter(report, prompts, filter_outs)
+        r["generate"] = ms_generate(prompts, filter_outs)
+        r["context_parallel"] = ms_context_parallel(report, prompts,
+                                                    filter_outs, dev)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    r["flops"] = ms_flops(report, dev)
+    r["diag"] = ms_diag()
+
+
+def phase_mesh_alone(report: dict) -> None:
+    """--only mesh: the kernels built, phase 3 (d), phases 4 and 5 for
+    the reference tokens, then phase 21."""
+    phase_build(report)
+    phase_rank_kernels(report, ST_DEV)
+    prompts, filter_outs = phase_slice(report)
+    phase_generate(report, prompts, filter_outs)
+    phase_mesh(report, prompts, filter_outs, ST_DEV)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -8033,22 +8442,23 @@ def main() -> None:
              "plugins": phase_plugins, "tflite": phase_tflite,
              "query": phase_query_alone, "service": phase_service_alone,
              "train": phase_train_alone, "aot": phase_aot_alone,
-             "trace-loss": phase_trace_loss}
+             "mesh": phase_mesh_alone, "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16, 17, 18, 19 or 20 alone (no kernel is
-        # checked, no ok line), or the trace-loss count
+        # phase 13, 14, 15, 16, 17, 18, 19, 20 or 21 alone (no ok line),
+        # or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
              "--only fusion / streams / plugins / tflite / query / service "
-             "/ train / aot for phase 13 / 14 / 15 / 16 / 17 / 18 / 19 / 20 "
-             "alone, or --only trace-loss)")
+             "/ train / aot / mesh for phase 13 / 14 / 15 / 16 / 17 / 18 / "
+             "19 / 20 / 21 alone, or --only trace-loss)")
     phase_build(report)
     decode_t = phase_kernels(report, dev)
     flash_t = phase_flash(report, dev)
+    rank_t = phase_rank_kernels(report, dev)
     prompts, filter_outs = phase_slice(report)
     launches = phase_generate(report, prompts, filter_outs)["launches"]
     phase_parity(report, dev)
@@ -8068,6 +8478,7 @@ def main() -> None:
     phase_service(report, prompts, filter_outs)
     phase_train(report, dev)
     phase_aot(report)
+    phase_mesh(report, prompts, filter_outs, dev)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -8121,10 +8532,16 @@ def main() -> None:
         "launches": report["tflite"]["depthwise_fma_launches"],
         **{k: dq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}})
-    # every kernel's launches on the MoE serving line (phase 19c)
+    # every kernel's launches on the MoE serving line (phase 19c) and on
+    # the meshed filter line (phase 21a, custom=mesh:1x1)
     for k in kernels:
         k["launches_moe"] = \
             report["train"]["moe_serving"]["launches"][k["name"]]
+        k["launches_mesh"] = report["mesh"]["filter"]["mesh:1x1"][
+            "launches"].get(k["name"], 0)
+    # the two LM kernels at one rank's shapes under a 2x2 mesh (phase 3d)
+    for k, row in zip(kernels, ("decode", "flash")):
+        k["rank_shape"] = rank_t[str(torch.float32)][row]
     report["kernels"] = kernels
     report["wall_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {report['wall_s']:.1f} s")

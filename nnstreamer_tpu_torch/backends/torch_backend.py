@@ -30,6 +30,23 @@ Device choice (``_select_device``): ``accelerator=cpu`` runs on the CPU;
 otherwise ``cuda:0``. Without a card,
 opening fails unless the CPU was asked for — there is no quiet fallback.
 
+Sharded invoke (``custom=mesh:dp=N`` | ``mesh:auto`` | ``mesh:DxT``,
+:func:`parse_mesh_spec`): SPMD over an initialized ``torch.distributed``
+world (``parallel.init_multihost``), one process per card, every rank
+running the same launch line on the same frames. The mesh is built before
+the model loads, and a model entry with ``make_sharded(mesh)`` builds
+against it (models/lm_serving.py: parameters over ``tp``). Each invoke
+hands this rank the dp block of every batched input and all-gathers the
+outputs over dp, so every rank's sink holds the global batch, as the
+reference's global array does. A batch that dp does not divide runs whole
+on every rank (one warning), as in the reference. The spec must cover the
+world exactly (the reference meshes the first N of more local devices);
+without a process group it is an error naming ``init_multihost``. The
+device is the rank's own: its card under NCCL, the CPU under gloo
+(``accelerator=cpu``). ``custom=device:N`` and ``custom=mesh:`` exclude
+each other. A meshed filter never fuses, is never served from the AOT
+cache, and has no measured memory footprint.
+
 Segment fusion (``runtime/fusion.py``): on a card a model joins a fused
 segment's CUDA graph only when it declares ``capture_safe = True`` (the
 zoo's entries and the builtins but ``sleeper`` do); any other model runs
@@ -76,6 +93,8 @@ from ..core.tensors import TensorSpec
 from ..models.lm_serving import with_serve_knobs
 from ..obs.memory import MeasuredMemory, tree_nbytes
 from ..ops.transform_ops import canonicalize, computable
+from ..parallel import collectives as C
+from ..parallel.mesh import axis_group, axis_index, axis_size, mesh_device
 from ..utils.hw_accel import device_for_accelerator
 from ..utils.log import logger
 from .base import (Accelerator, BackendEvent, FilterBackend, FilterProperties,
@@ -309,6 +328,59 @@ class _HostNative:
             f"({self.in_info}); cannot retarget to {in_info}")
 
 
+def parse_mesh_spec(spec: str, world_size: Optional[int] = None):
+    """A ``mesh:`` spec → a ``DeviceMesh`` over every rank of the world,
+    axes ``("dp",)`` or ``("dp", "tp")`` — shared by the filter backend
+    (``custom=mesh:...``) and ``tensor_generate mesh=``. Every rank calls
+    it together.
+
+    Accepted: ``dp=<N>`` | ``auto``/``all`` (dp over every rank) |
+    ``<D>x<T>`` (dp × tp). ``world_size`` defaults to the initialized
+    world's. Raises ValueError on anything else, when no process group is
+    up, or when the spec does not cover the world exactly."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+
+    spec = spec.strip().lower()
+    n: Optional[int] = None
+    tp = 1
+    auto = spec in ("auto", "all", "dp=all", "dp=auto")
+    if spec.startswith("dp=") and not auto:
+        try:
+            n = int(spec[3:])
+        except ValueError:
+            pass
+    elif "x" in spec:  # mesh:DxT — dp × tp for shard-aware entries
+        try:
+            d_s, t_s = spec.split("x", 1)
+            n, tp = int(d_s), int(t_s)
+        except ValueError:
+            n = None
+    if (n is None and not auto) or tp < 1:
+        raise ValueError(
+            f"mesh spec {spec!r} — expected 'dp=<N>', 'auto', or "
+            "'<D>x<T>' (dp×tp)")
+    if world_size is None:
+        if not dist.is_initialized():
+            raise ValueError(
+                f"mesh spec {spec} needs a torch.distributed world, one "
+                "process per card, and none is up: call "
+                "nnstreamer_tpu_torch.parallel.init_multihost() first, or "
+                "set NNS_COORD, NNS_NUM_PROCS and NNS_PROC_ID for it")
+        world_size = dist.get_world_size()
+    if auto:
+        n = world_size
+    total = n * tp
+    if total != world_size:
+        raise ValueError(
+            f"mesh spec {spec} needs {total} ranks, out of range: the "
+            f"world has {world_size} (a mesh covers the whole world, one "
+            "rank per card)")
+    sizes = {"dp": n} if tp == 1 else {"dp": n, "tp": tp}
+    return make_mesh(None, sizes)
+
+
 def _select_device(props: FilterProperties) -> torch.device:
     idx = props.custom_dict().get("device")
     if idx is None:
@@ -355,16 +427,34 @@ class TorchBackend(FilterBackend):
         self._served: Optional[tuple] = None
         # "hit" | "export" | None (the live model)
         self._aot_state: Optional[str] = None
+        # custom=mesh:... — the sharded invoke (None = one device)
+        self._mesh = None
+        self._mesh_warned = False
 
     def open(self, props: FilterProperties) -> None:
         super().open(props)
+        custom = props.custom_dict()
+        spec = custom.get("mesh")
+        if spec is not None and custom.get("device") is not None:
+            raise ValueError(
+                "custom=device:N and custom=mesh:... are mutually "
+                "exclusive (a mesh shards over every rank's card; pin "
+                "stages OR shard one stage, not both)")
         self._device = _select_device(props)
+        if spec is not None:
+            # the mesh before the model: make_sharded places its params
+            try:
+                self._mesh = parse_mesh_spec(spec)
+                self._device = mesh_device(self._mesh, self._device)
+            except ValueError as e:
+                raise ValueError(f"custom=mesh:{e}") from None
         self._fn = self._load_model(props.model, props)
-        logger.info("torch backend opened model=%s device=%s",
-                    props.model, self._device)
+        logger.info("torch backend opened model=%s device=%s mesh=%s",
+                    props.model, self._device, self._mesh)
 
     def close(self) -> None:
         self._fn = None
+        self._mesh = None
         self._served = None
         self._aot_state = None
         self.model_entry = None
@@ -377,6 +467,12 @@ class TorchBackend(FilterBackend):
         """The device this backend runs on."""
         return self._device
 
+    @property
+    def mesh(self):
+        """The device mesh this backend shards over (None = one
+        device)."""
+        return self._mesh
+
     def _load_model(self, model: str, props: FilterProperties) -> Callable:
         if model.startswith("builtin://"):
             return make_builtin(model, props.custom_dict())
@@ -385,6 +481,9 @@ class TorchBackend(FilterBackend):
             entry = getattr(importlib.import_module(mod_name), attr)
             entry = _apply_serve_knobs(entry, props.custom_dict(), model)
             self.model_entry = entry
+            sharded = getattr(entry, "make_sharded", None)
+            if self._mesh is not None and sharded is not None:
+                return sharded(self._mesh, device=self._device)
             maker = getattr(entry, "make", None)
             return maker(device=self._device) if maker else entry
         if model.endswith(".tflite") and os.path.exists(model):
@@ -435,6 +534,8 @@ class TorchBackend(FilterBackend):
             xs = [as_torch(x) for x in inputs]  # it pulls them itself
         else:
             xs = [as_torch(x).to(self._device) for x in inputs]
+            if self._mesh is not None:
+                return self._invoke_sharded(xs)
         fn, served = self._fn, self._served
         if served is None or served[0] is not fn:
             # first invoke of this model (a reload re-keys: the model
@@ -443,6 +544,39 @@ class TorchBackend(FilterBackend):
         with torch.inference_mode():
             out = served[1](*xs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def _invoke_sharded(self, xs: List[torch.Tensor]) -> List[Any]:
+        """Mesh mode: this rank runs the model on the dp block of each
+        batched input and the outputs are all-gathered over dp. When dp
+        does not divide an input's batch (say a partial tail an
+        aggregator let through) the call runs whole on every rank — the
+        model's ``whole_batch`` where it has one — with one warning, as
+        in the reference; rank-0 inputs have no batch and pass whole."""
+        dp = axis_size(self._mesh, "dp")
+        whole = any(x.dim() and x.shape[0] % dp for x in xs)
+        if whole:
+            if not self._mesh_warned:
+                self._mesh_warned = True
+                logger.warning(
+                    "torch mesh backend model=%s: input batch %s not "
+                    "divisible by dp=%d — running this call unsharded "
+                    "(size the upstream tensor_aggregator to a multiple "
+                    "of the dp axis)",
+                    self.props.model if self.props else "?",
+                    [tuple(x.shape) for x in xs], dp)
+            fn = getattr(self._fn, "whole_batch", self._fn)
+        else:
+            r = axis_index(self._mesh, "dp")
+            xs = [x.chunk(dp)[r] if x.dim() else x for x in xs]
+            fn = self._fn
+        with torch.inference_mode():
+            out = fn(*xs)
+        out = list(out) if isinstance(out, (list, tuple)) else [out]
+        if whole:
+            return out
+        group = axis_group(self._mesh, "dp")
+        return [C.all_gather_plain(o, group, 0) if o.dim() else o
+                for o in out]
 
     def aot_state(self) -> Optional[str]:
         """Whether this backend serves through an AOT artifact: "hit"
@@ -501,14 +635,17 @@ class TorchBackend(FilterBackend):
         ``invoke`` runs it, on inputs the segment already moved to this
         backend's device. None (the segment defuses) for a filter pinned
         by ``custom=device:N`` to a card other than the default: pinned
-        stages keep their own dispatch and copies. On a card, also None
+        stages keep their own dispatch and copies; and under a mesh: the
+        sharded invoke's split and gather belong to this stage. On a
+        card, also None
         unless the model declares ``capture_safe = True``: a CUDA graph
         bakes in what the model reads on the host and cannot hold a host
         sync, which an eager model may do freely. Never the measured
         invoke: its synchronize and peak-statistics reset cannot run
         inside a capture."""
         fn = self._fn
-        if fn is None or getattr(fn, "host_native", False):
+        if fn is None or getattr(fn, "host_native", False) \
+                or self._mesh is not None:
             return None
         idx = self.props.custom_dict().get("device") if self.props else None
         if idx is not None and int(idx) != 0:
@@ -533,7 +670,7 @@ class TorchBackend(FilterBackend):
         (the input upload included): temp = peak − bytes allocated
         before. Nothing is measured on the CPU."""
         dev = self._device
-        if dev.type != "cuda":
+        if dev.type != "cuda" or self._mesh is not None:
             self._mem_record = None
             return self.invoke(inputs)
         torch.cuda.synchronize(dev)
@@ -550,5 +687,5 @@ class TorchBackend(FilterBackend):
     def memory_analysis(self, inputs) -> Optional[MeasuredMemory]:
         """The record of the measured invoke (the filter calls this right
         after it; ``inputs`` is the reference hook's signature). None on
-        the CPU."""
+        the CPU and under a mesh (a rank's bytes are its share)."""
         return self._mem_record

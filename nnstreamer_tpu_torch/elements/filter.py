@@ -718,6 +718,12 @@ class TensorFilter(TransformElement):
         """The device the opened backend runs on."""
         return getattr(self.backend, "device", None)
 
+    @property
+    def backend_mesh(self):
+        """The device mesh the opened backend shards over (``custom=
+        mesh:...`` torch backends; None = one device)."""
+        return getattr(self.backend, "mesh", None)
+
     # -- staged hot swap (service control plane) ----------------------------
     # reload_model() below swaps in place: the old model is gone before the
     # new one proved it can serve. A zero-downtime rollout needs prepare →

@@ -8,20 +8,22 @@ emits ONE BUFFER PER DECODED TOKEN downstream, so sinks and decoders see
 generation incrementally, the way a text UI or an SSE endpoint reads an LM.
 
     appsrc (B,P) int32 ! tensor_generate
-        model=nnstreamer_tpu_torch.models.lm_serving:base steps=64
+        model=nnstreamer_tpu_torch.models.lm_serving:base steps=64 [mesh=DxT]
     ! tensor_sink     # receives `steps` buffers of (B, 1) int32 per prompt
 
 Properties: ``model`` (module:attr of an entry exposing
-``make_streaming(device, temperature)``), ``steps`` (tokens per prompt),
-``conversation`` (keep the KV cache across prompt buffers; a buffer with
-``meta["reset"]`` starts a new conversation), ``serve_dtype`` /
-``cache_len`` (the entry's serving knobs), ``temperature`` / ``seed``
-(sampling), ``accelerator`` (``auto`` / ``gpu`` / ``cuda`` = ``cuda:0``,
-``cuda:N``, or ``cpu``). Each output buffer is a host (B, 1) int32 array
-carrying ``meta["gen_step"]`` (0-based) and ``meta["gen_last"]``.
-
-Not in this package yet: ``mesh`` is accepted as a property, and a
-non-empty value is an error when the first buffer arrives.
+``make_streaming(device, temperature, mesh=)``), ``steps`` (tokens per
+prompt), ``mesh`` (tensor_filter's ``custom=mesh:`` grammar, parsed by the
+torch backend's ``parse_mesh_spec``: ``dp=N`` / ``auto`` / ``DxT`` over an
+initialized torch.distributed world, every rank running the same line;
+empty = one device), ``conversation`` (keep the KV cache across prompt
+buffers; a buffer with ``meta["reset"]`` starts a new conversation),
+``serve_dtype`` / ``cache_len`` (the entry's serving knobs), ``temperature``
+/ ``seed`` (sampling), ``accelerator`` (``auto`` / ``gpu`` / ``cuda`` =
+``cuda:0``, ``cuda:N``, or ``cpu``; under a mesh, the rank's card or the
+CPU of a gloo world). Each output buffer is a host (B, 1) int32 array of
+the global batch carrying ``meta["gen_step"]`` (0-based) and
+``meta["gen_last"]``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import importlib
 
 import numpy as np
 
+from ..backends.torch_backend import parse_mesh_spec
 from ..core import (
     Buffer,
     Caps,
@@ -37,6 +40,7 @@ from ..core import (
     caps_from_tensors_info,
 )
 from ..models.lm_serving import with_serve_knobs
+from ..parallel.mesh import mesh_device
 from ..registry.elements import register_element
 from ..runtime.element import Element, ElementError, Prop, prop_bool
 from ..runtime.pad import Pad, PadDirection, PadTemplate
@@ -57,7 +61,8 @@ class TensorGenerate(Element):
         "model": Prop("", str,
                       "module:attr of an entry with make_streaming(device)"),
         "steps": Prop(16, int, "tokens generated per prompt buffer"),
-        "mesh": Prop("", str, "device mesh spec: not ported (must be empty)"),
+        "mesh": Prop("", str,
+                     "device mesh spec (dp=N | auto | DxT); empty = single"),
         "conversation": Prop(False, prop_bool,
                              "persist the KV cache across prompt buffers "
                              "(multi-turn; buffer meta reset=True starts "
@@ -83,6 +88,14 @@ class TensorGenerate(Element):
         super().__init__(name, **props)
         self._stream = None
         self._session = None
+        self._mesh = None
+
+    @property
+    def mesh(self):
+        """The device mesh generation shards over (None until the first
+        buffer builds the stream, or when unmeshed) — tensor_filter's
+        ``backend_mesh``."""
+        return self._mesh
 
     def _ensure_stream(self):
         """Lazy build on the first buffer (tensor_filter's open pattern):
@@ -90,10 +103,6 @@ class TensorGenerate(Element):
         and a never-played element never pays for its parameters."""
         if self._stream is not None:
             return self._stream
-        if self.props["mesh"]:
-            raise ElementError(
-                f"{self.name}: mesh={self.props['mesh']!r} is not ported to "
-                "nnstreamer_tpu_torch (one device only; leave mesh empty)")
         model = self.props["model"]
         if not model or ":" not in model:
             raise ElementError(
@@ -115,14 +124,19 @@ class TensorGenerate(Element):
                 "use tensor_filter for whole-sequence entries")
         try:
             device = device_for_accelerator(self.props["accelerator"])
+            mesh = None
+            if self.props["mesh"]:
+                mesh = parse_mesh_spec(self.props["mesh"])
+                device = mesh_device(mesh, device)
         except ValueError as e:
             raise ElementError(f"{self.name}: {e}") from e
+        self._mesh = mesh
         temperature = float(self.props["temperature"])
         if conversation:
-            self._session = maker(device, temperature)
+            self._session = maker(device, temperature, mesh=mesh)
             self._stream = self._session.generate
         else:
-            self._stream = maker(device, temperature)
+            self._stream = maker(device, temperature, mesh=mesh)
         return self._stream
 
     def stop(self) -> None:

@@ -1,27 +1,36 @@
 """LM serving entries: autoregressive generation as a ``tensor_filter``
 stage.
 
-The port of nnstreamer_tpu's ``models/lm_serving.py`` for one device:
+The port of nnstreamer_tpu's ``models/lm_serving.py``:
 
     appsrc ! tensor_filter framework=torch
-        model=nnstreamer_tpu_torch.models.lm_serving:base ! tensor_sink
+        model=nnstreamer_tpu_torch.models.lm_serving:base [custom=mesh:DxT]
+    ! tensor_sink
 
 serves batched greedy generation, decoding through the hand-written CUDA
-attention kernel on the card.
+attention kernels on the card.
 
 Entry protocol (backends/torch_backend.py): ``make(device)`` builds the
-served callable on ``device`` (default the card). The callable carries
-``output_info(in_info)``, the shape rule caps negotiation uses instead of
-running a generate.
+served callable on ``device`` (default the card); ``make_sharded(mesh)``
+builds it against the filter's mesh (``custom=mesh:...``): SPMD, every
+rank of the world runs the same line, its parameters Megatron shards over
+``tp`` (replicated on a dp-only mesh), its input the dp block of the batch
+the backend hands it. The callable carries ``output_info(in_info)``, the
+shape rule caps negotiation uses instead of running a generate, and, under
+a mesh, ``whole_batch``: the same generation for a batch that dp does not
+divide, run whole on every rank.
 
 The filter contract: input ``(B, P) int32`` prompt tokens → output
 ``(B, P + steps) int32`` (prompt echoed, ``steps`` greedy continuations).
 ``steps`` comes from the entry (env ``NNS_LM_STEPS`` overrides).
 
 Streaming (the ``tensor_generate`` element, elements/generate.py):
-``make_streaming(device)`` returns ``stream(tokens, steps)``, which prefills
-once and yields each token as it is picked; ``make_session(device)`` keeps
-the KV cache across calls for multi-turn conversations.
+``make_streaming(device, mesh=)`` returns ``stream(tokens, steps)``, which
+prefills once and yields each token as it is picked; ``make_session(device,
+mesh=)`` keeps the KV cache across calls for multi-turn conversations.
+Under a mesh each rank takes its dp block of the prompt (when dp divides
+the batch) and every step's tokens are all-gathered over dp, so every rank
+yields the global batch's.
 
 Weights are random, from ``seed``, unless the entry carries ``params``:
 nnstreamer_tpu's parameter pytree as numpy arrays, converted by
@@ -30,9 +39,8 @@ nnstreamer_tpu's parameter pytree as numpy arrays, converted by
 Continuous batching (the serving layer, serving/): ``make_continuous(slots,
 paged=..., draft=..., device=...)`` builds the slot engine a
 ``serving.DecodeScheduler`` drives — requests join and retire between
-decode steps, each slot at its own position.
-
-Not in this package yet: ``make_sharded`` (mesh).
+decode steps, each slot at its own position. It takes no mesh (nor does
+the reference's).
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ import numpy as np
 import torch
 
 from ..core import DataType, TensorSpec, TensorsInfo
+from ..parallel import collectives as C
+from ..parallel.mesh import axis_group, axis_index, axis_size, mesh_device
 from ..utils.hw_accel import resolve_device
 from .convert import params_from_jax
 from .decoding import (
@@ -56,7 +66,7 @@ from .decoding import (
     prefill_continue,
 )
 from ..utils.tree import tree_map
-from .transformer import TransformerConfig, init_params
+from .transformer import TransformerConfig, init_params, shard_params
 
 
 def _steps(default: int) -> int:
@@ -75,6 +85,19 @@ def _serve_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
         raise ValueError(f"serve_dtype {name!r} is not a torch float dtype")
     return dt
+
+
+def _serving_device(device, mesh) -> torch.device:
+    return resolve_device(device) if mesh is None \
+        else mesh_device(mesh, device)
+
+
+def _tp_mesh(mesh):
+    """``mesh`` without its dp axis: the batch whole on every rank, heads
+    still split over tp (None without a tp axis)."""
+    if mesh is None or "tp" not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh["tp"]
 
 
 def with_serve_knobs(entry, serve_dtype: Optional[str] = None,
@@ -138,15 +161,35 @@ class _LMServingEntry:
             return params
         return tree_map(lambda t: t.to(dtype), params)
 
-    def make(self, device=None):
-        device = resolve_device(device)
-        max_seq = self._cfg_serve.max_seq
+    def _shard_params(self, mesh, device: torch.device) -> Dict[str, Any]:
+        """This rank's parameters: Megatron shards when ``mesh`` has a tp
+        axis of more than one rank, else the whole (replicated on a
+        dp-only mesh). The one definition the whole-sequence and the
+        streaming builds share."""
         params = self.build_params(device)
-        gen = make_generate(self.cfg, cache_len=self.cache_len)
+        tp = axis_size(mesh, "tp")
+        if tp > 1:
+            if self.cfg.heads % tp:
+                raise ValueError(
+                    f"lm_serving: heads={self.cfg.heads} not divisible by "
+                    f"mesh tp={tp}")
+            params = shard_params(self.cfg, mesh, params)
+        return params
+
+    def _build(self, mesh=None, device=None):
+        device = _serving_device(device, mesh)
+        max_seq = self._cfg_serve.max_seq
+        params = self._shard_params(mesh, device)
+        gen = make_generate(self.cfg, cache_len=self.cache_len, mesh=mesh)
         steps = _steps(self.default_steps)
 
         def serve(tokens: torch.Tensor):
             return (gen(params, tokens, steps),)
+
+        if mesh is not None:
+            whole = make_generate(self.cfg, cache_len=self.cache_len,
+                                  mesh=_tp_mesh(mesh))
+            serve.whole_batch = lambda tokens: (whole(params, tokens, steps),)
 
         def output_info(in_info: TensorsInfo) -> TensorsInfo:
             specs = in_info.specs
@@ -164,7 +207,17 @@ class _LMServingEntry:
         serve.output_info = output_info
         return serve
 
-    def make_streaming(self, device=None, temperature: float = 0.0):
+    def make(self, device=None):
+        return self._build(None, device)
+
+    def make_sharded(self, mesh, device=None):
+        """The served callable against ``mesh`` (a dp or dp × tp
+        ``DeviceMesh``, every rank building it together): this rank's
+        shards, generating for its dp block of the batch."""
+        return self._build(mesh, device)
+
+    def make_streaming(self, device=None, temperature: float = 0.0, *,
+                       mesh=None):
         """Per-token generation for the ``tensor_generate`` element:
         returns ``stream(tokens (B, P), steps, rng=None)``, which yields
         (B,) int32 on ``device`` (default the card) — prefill once, then
@@ -173,28 +226,43 @@ class _LMServingEntry:
         elements render or forward it at once. ``temperature`` 0 = greedy;
         > 0 = sampling from a ``torch.Generator`` seeded with ``rng`` (an
         int, default 0); a continuation turn folds the session position
-        into the seed, so it never repeats turn 1's draws."""
-        device = resolve_device(device)
+        into the seed, so it never repeats turn 1's draws.
+
+        With ``mesh`` (dp, tp; every rank streams together, fed the same
+        prompts) each rank decodes its dp block of the batch when dp
+        divides it, else the whole batch, with its tp shards; each step's
+        tokens are all-gathered over dp, so every rank yields (B,)."""
+        device = _serving_device(device, mesh)
         cfg = self._cfg_serve
-        params = self.build_params(device)
+        params = self._shard_params(mesh, device)
         cache_dtype = params["embed"].dtype
+        whole_mesh = _tp_mesh(mesh)
 
         @torch.inference_mode()
-        def first(tokens, gen):
-            cache = init_cache(cfg, tokens.shape[0], cache_dtype, device)
-            logits, cache, pos = prefill(cfg, params, tokens, cache)
+        def first(tokens, gen, m):
+            cache = init_cache(cfg, tokens.shape[0] * axis_size(m, "dp"),
+                               cache_dtype, device, mesh=m)
+            logits, cache, pos = prefill(cfg, params, tokens, cache, m)
             return pick_token(logits, temperature, gen), pos, cache
 
         @torch.inference_mode()
-        def step(token, pos, cache, gen):
-            logits, cache = decode_step(cfg, params, token, pos, cache)
+        def step(token, pos, cache, gen, m):
+            logits, cache = decode_step(cfg, params, token, pos, cache, m)
             return pick_token(logits, temperature, gen), pos + 1, cache
 
         @torch.inference_mode()
-        def ingest(feed, cache, start, gen):
+        def ingest(feed, cache, start, gen, m):
             logits, cache, pos = prefill_continue(cfg, params, feed, cache,
-                                                  start)
+                                                  start, m)
             return pick_token(logits, temperature, gen), pos, cache
+
+        def rows(t: torch.Tensor, m) -> torch.Tensor:
+            """This rank's dp block of a global (B, ...) tensor."""
+            return t.chunk(axis_size(m, "dp"))[axis_index(m, "dp")]
+
+        @torch.inference_mode()
+        def everyone(token: torch.Tensor, m) -> torch.Tensor:
+            return C.all_gather_plain(token, axis_group(m, "dp"), 0)
 
         def stream(tokens, steps: int, _session: "Optional[_StreamSession]"
                    = None, rng=None) -> Iterator[torch.Tensor]:
@@ -222,12 +290,14 @@ class _LMServingEntry:
                     seed = seed * 0x9E3779B97F4A7C15 + state[1] + 1
                 gen = torch.Generator(device=device).manual_seed(
                     seed % 2**64)
+            m = mesh if tokens.shape[0] % axis_size(mesh, "dp") == 0 \
+                else whole_mesh
             if state is None:
                 if tokens.shape[1] + steps > cfg.max_seq:
                     raise ValueError(
                         f"prompt ({tokens.shape[1]}) + steps ({steps}) "
                         f"exceeds max_seq {cfg.max_seq}")
-                token, pos, cache = first(tokens, gen)
+                token, pos, cache = first(rows(tokens, m), gen, m)
             else:
                 pending, pos, cache = state
                 if tokens.shape[0] != pending.shape[0]:
@@ -245,14 +315,17 @@ class _LMServingEntry:
                 # prediction), so it leads the chunk; the chunk's last
                 # prediction opens generation
                 feed = torch.cat([pending[:, None], tokens], dim=1)
-                token, pos, cache = ingest(feed, cache, pos, gen)
-            # the state is kept after every step, so an abandoned
-            # generator leaves a session that continues where it stopped
+                token, pos, cache = ingest(rows(feed, m), cache, pos, gen, m)
+            # the state (the global tokens) is kept after every step, so
+            # an abandoned generator leaves a session that continues where
+            # it stopped
+            token = everyone(token, m)
             if _session is not None:
                 _session.state = (token, pos, cache)
             yield token
             for _ in range(steps - 1):
-                token, pos, cache = step(token, pos, cache, gen)
+                token, pos, cache = step(rows(token, m), pos, cache, gen, m)
+                token = everyone(token, m)
                 if _session is not None:
                     _session.state = (token, pos, cache)
                 yield token
@@ -308,12 +381,14 @@ class _LMServingEntry:
             draft = ModelDraft(dcfg, draft.build_params(device))
         return SpeculativeLMEngine(eng, draft, k=spec_k)
 
-    def make_session(self, device=None, temperature: float = 0.0):
+    def make_session(self, device=None, temperature: float = 0.0, *,
+                     mesh=None):
         """Stateful multi-turn serving: ``session.generate(tokens, steps)``
         yields like the stream form, but the KV cache persists across
         calls (turn 2's prompt is ingested at the current position, not
         re-prefilled). ``session.reset()`` starts a new conversation."""
-        return _StreamSession(self.make_streaming(device, temperature))
+        return _StreamSession(self.make_streaming(device, temperature,
+                                                  mesh=mesh))
 
 
 class _StreamSession:

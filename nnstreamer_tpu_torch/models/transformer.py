@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..parallel import collectives as C
-from ..parallel.mesh import axis_group, axis_index, axis_size
+from ..parallel.mesh import axis_group, axis_index, axis_size, mesh_device
 from ..utils.hw_accel import resolve_device
 from ..utils.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
@@ -349,14 +349,6 @@ def loss_and_grads(cfg: TransformerConfig, params, tokens: torch.Tensor,
     return loss, tree_map(lambda _: next(it), params)
 
 
-def _mesh_device(mesh) -> torch.device:
-    """The device of this rank's tensors: its card under NCCL, else the
-    CPU."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
 def make_train_step(cfg: TransformerConfig, mesh=None, lr: float = 1e-2):
     """Build ``(step, shard_params, data_sharding)``: ``step(params,
     tokens) -> (params, loss)`` is one SGD step ``p - lr·g`` of this
@@ -392,6 +384,6 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr: float = 1e-2):
         if t.shape[0] % dp:
             raise ValueError(f"batch {t.shape[0]} not divisible by dp={dp}")
         t = t.chunk(dp, dim=0)[axis_index(mesh, "dp")]
-        return t.contiguous().to(_mesh_device(mesh))
+        return t.contiguous().to(mesh_device(mesh))
 
     return step, shard, data_sharding

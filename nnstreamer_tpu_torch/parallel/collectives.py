@@ -194,8 +194,10 @@ def all_gather_plain(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return x if group is None else _gather(x, group, dim)
 
 
-def all_reduce_plain(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum over ``group`` outside autograd, in place; returns ``x``."""
+def all_reduce_plain(x: torch.Tensor, group,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce over ``group`` outside autograd (a sum, or ``op``), in
+    place; returns ``x``."""
     if group is not None:
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=op, group=group)
     return x

@@ -86,6 +86,24 @@ def make_mesh(devices: Optional[Sequence[int]] = None,
     return DeviceMesh(_device_type(), ranks, mesh_dim_names=axes)
 
 
+def mesh_device(mesh, device=None):
+    """The device of this rank's tensors under ``mesh``: its card (the
+    current CUDA device, which ``init_multihost`` set) under NCCL, the CPU
+    under gloo. A ``device`` the caller asked for must be of that type —
+    a meshed stage never runs on another device than its process group's
+    — and the mesh then picks the card."""
+    import torch
+
+    want = "cuda" if mesh.device_type == "cuda" else "cpu"
+    if device is not None and torch.device(device).type != want:
+        raise ValueError(
+            f"device {device} does not match the mesh's process group, "
+            f"which runs on {want} (NCCL on the card, gloo on the CPU)")
+    if want == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def axis_size(mesh, axis: str) -> int:
     if mesh is None or axis not in (mesh.mesh_dim_names or ()):
         return 1

@@ -305,7 +305,7 @@ class PagedLMEngine:
         x = (p["embed"][toks.long()] + p["pos"][lp]).float()
         for li, blk in enumerate(p["blocks"]):
             h = _rmsnorm(x, blk["ln1"])
-            q, k, v = (_split_heads(cfg, t)
+            q, k, v = (_split_heads(cfg, t, cfg.heads)
                        for t in _mm(h, blk["wqkv"]).split(cfg.dim, dim=-1))
             # (S, H, n, Dh) -> (S, n, H, Dh) rows at (dest, offs)
             self._kpool[li][dest, :, offs] = k.transpose(1, 2).to(

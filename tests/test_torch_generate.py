@@ -297,7 +297,9 @@ def test_stream_rejects_bad_requests(entry, prompt):
     ("serve-dtype=bfloat16", "nnstreamer_tpu_torch.models.transformer:forward",
      2, "dataclass"),
     ("cache-len=-1", ENTRY, S, "cache_len must be >= 0"),
-    ("mesh=2x4", ENTRY, S, "mesh='2x4' is not ported"),
+    # no torch.distributed world is up in this process
+    ("mesh=2x4", ENTRY, S, "call nnstreamer_tpu_torch.parallel."
+     "init_multihost() first"),
     ("", "tiny_without_module", S, "module:attr"),
 ], ids=["no-streaming", "no-session", "overlong", "knobs-need-dataclass",
         "negative-cache-len", "mesh", "bad-model"])

@@ -170,6 +170,8 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.backends.pt2_backend",
     "nnstreamer_tpu_torch.ops.fma_gemm",
     "nnstreamer_tpu_torch.ops.depthwise_fma",
+    "nnstreamer_tpu_torch.utils.flops",
+    "nnstreamer_tpu_torch.utils.tpu_diag",
 ]
 # the slice that needs no TensorFlow to import: blocked too when checked
 TFLITE_MODULES = [
