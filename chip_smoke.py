@@ -420,15 +420,16 @@ phase fails:
 
 20. the AOT plane (also ``--only aot``): ``aot/`` (``torch.export``
     artifacts in a compile cache, ``NNS_AOT_CACHE``), the ``nns::``
-    kernel ops and ``framework=torch-export``. Every cold/warm pair runs
-    its warm side in a fresh interpreter (``chip_smoke.py --aot-child``).
-    (a) phase 13b's fused device line (bf16, batch 64): a first process
-    exports the segment (``aot_exports`` 1) after one without the cache
-    (the baseline first batch), a second hits it
-    (``aot_hits`` 1, no export) and captures one CUDA graph over the
-    loaded module; both processes' logits bit-equal to the live line's
-    (no cache), and batch 32 through the same poly artifact bit-equal
-    to the live stages. (b) the full-width int8 fixture in fake-quant
+    kernel ops and ``framework=torch-export``. The cold sides of (a)-(c)
+    run in this process; their three warm sides run in turn in one fresh
+    interpreter (``chip_smoke.py --aot-child line,tflite,ops``).
+    (a) phase 13b's fused device line (bf16, batch 64): the live line
+    without the cache (no hit, no export, one capture), the same line
+    exporting the segment (``aot_exports`` 1), then the fresh process
+    hits it (``aot_hits`` 1, no export) and captures one CUDA graph over
+    the loaded module; both runs' logits bit-equal to the live line's,
+    and batch 32 through the same poly artifact bit-equal to the live
+    stages. (b) the full-width int8 fixture in fake-quant
     mode as a singleton filter (``appsrc ! tensor_filter ! tensor_sink``,
     the torch backend's ``_aot_resolve``): exported, then hit; the
     program holds 37 ``nns::fma_gemm`` and 17 ``nns::depthwise_fma``
@@ -438,11 +439,11 @@ phase fails:
     543) and ``nns::flash_attention`` ((8, 16, 512, 64), causal),
     exported here and loaded in a fresh process: bit-equal to the direct
     call, one launch each; the host µs of a decode call direct and
-    through the op dispatcher. (d) two process replicas of (a)'s stage,
-    without the cache and then with an empty one: each replica's first
-    batch (its warmup request before READY) — the second pool's two
-    export (cold), the one respawned after a SIGKILL loads (warm) — and
-    SIGKILL → readmit in each pool; a flexible-caps replica that warms up
+    through the op dispatcher. (d) two process replicas of (a)'s stage
+    with an empty cache: each replica's first batch (its warmup request
+    before READY) — the two export (cold), the one respawned after a
+    SIGKILL loads (warm) — and SIGKILL → readmit; a flexible-caps replica
+    that warms up
     from the artifact's recorded inputs (no ``warmup_skipped`` flight
     event); every answer the live stage's. (e) (a)'s model saved by
     ``backends.pt2_backend.export_callable`` and served by
@@ -475,12 +476,36 @@ phase fails:
     build) and its seconds per stage. Multi-rank meshes need a machine
     with more than one card: the CPU tests hold them on gloo worlds.
 
+22. the tooling plane (also ``--only tooling``, after phase 4's requests
+    for the reference tokens): (a) ``python -m nnstreamer_tpu_torch
+    launch`` of phase 5's ``tensor_generate`` line (``base``, f32, steps
+    64) with its three prompts read by ``filesrc ! tensor_converter`` and
+    its tokens written by ``filesink``, in a fresh interpreter on the
+    card: the tokens are phase 5's; (b) ``obs profile --launch`` of the
+    same line in a fresh interpreter: its artifact records 2268
+    ``decode_attention`` and 36 ``flash_attention`` launches (the
+    kernels ran in the child) and the tokens are phase 5's; the same
+    line profiled in this process gives a second artifact with the same
+    key and launches, ``obs profile --diff`` of the two has entries on
+    both sides, ``obs top`` shows the ``tensor_generate`` row; (c)
+    ``Pipeline(validate=True)`` on phase 13's fused MobileNet-v2 line
+    (bf16, batch 64) logs its NNL013 plan at info, naming exactly the
+    segments that then capture CUDA graphs, and ``lint`` of the line
+    finds no error; (d) the strict self-lint (``lint`` with no target,
+    five passes) exits 0; (e) ``entry.entry()``: MobileNet-v2 f32
+    exported by ``torch.export`` and eager on the card, logits bit-equal;
+    ``entry.dryrun_multichip(1)`` on a world-1 NCCL group: the meshed
+    step's loss is the meshless one; (f) a ``codegen filter`` skeleton as
+    ``tensor_filter framework=torch`` on the card passes 4 frames through
+    unchanged, on cuda:0.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
 plugins``, ``--only tflite``, ``--only query``, ``--only service``,
-``--only train``, ``--only aot``, ``--only mesh``) runs phase 13 (14, 15,
-16, 17, 18, 19, 20, 21) alone and prints its report as the last
+``--only train``, ``--only aot``, ``--only mesh``, ``--only tooling``)
+runs phase 13 (14, 15, 16, 17, 18, 19, 20, 21, 22) alone and prints its
+report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
 takes OBS_LOSS_TRACES traces of phase 12's LM line and counts those in
@@ -7483,10 +7508,11 @@ AO_POOL_BATCHES, AO_KILL_AT = 5, 2
 AO_DISPATCH_CALLS = 200
 
 
-def ao_child_run(mode: str, out_dir: Path, cache: Optional[Path]) -> dict:
-    """``chip_smoke.py --aot-child MODE DIR`` in a fresh interpreter (no
+def ao_child_run(modes: str, out_dir: Path, cache: Optional[Path]) -> dict:
+    """``chip_smoke.py --aot-child MODES DIR`` in a fresh interpreter (no
     Python state carried over), with NNS_AOT_CACHE set to ``cache`` (or
-    unset); its last stdout line is its JSON result."""
+    unset); MODES is a comma-separated list run in that order, and the
+    child's last stdout line is its JSON result, one entry a mode."""
     import os
 
     env = dict(os.environ)
@@ -7495,11 +7521,11 @@ def ao_child_run(mode: str, out_dir: Path, cache: Optional[Path]) -> dict:
         env["NNS_AOT_CACHE"] = str(cache)
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        "--aot-child", mode, str(out_dir)], env=env,
+                        "--aot-child", modes, str(out_dir)], env=env,
                        capture_output=True, text=True,
                        timeout=AO_CHILD_TIMEOUT, cwd=str(ROOT))
     if r.returncode != 0:
-        fail(f"aot: child {mode} exited {r.returncode}: "
+        fail(f"aot: child {modes} exited {r.returncode}: "
              f"{r.stderr[-3000:]}")
     res = json.loads(r.stdout.strip().splitlines()[-1])
     res["process_s"] = time.perf_counter() - t0
@@ -7510,146 +7536,198 @@ def ao_child_run(mode: str, out_dir: Path, cache: Optional[Path]) -> dict:
     return res
 
 
-def ao_timed(mod, name: str, log: dict):
-    """Wrap ``mod.name`` to add its wall time to ``log[name]``."""
-    real = getattr(mod, name)
+class ao_times:
+    """While inside: the wall time of ``aot.export_stage`` and
+    ``CompileCache.load`` summed into the dict it yields (both restored
+    on the way out)."""
 
-    def timed(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return real(*a, **k)
-        finally:
-            log[name] = log.get(name, 0.0) + time.perf_counter() - t0
-    setattr(mod, name, timed)
+    def __enter__(self) -> dict:
+        from nnstreamer_tpu_torch import aot
+        from nnstreamer_tpu_torch.aot import cache as aot_cache
+
+        self.times: dict = {}
+        self.saved = [(aot, "export_stage"), (aot_cache.CompileCache, "load")]
+        self.real = [getattr(m, n) for m, n in self.saved]
+        for (mod, name), real in zip(self.saved, self.real):
+            def timed(*a, _real=real, _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    self.times[_name] = self.times.get(_name, 0.0) \
+                        + time.perf_counter() - t0
+            setattr(mod, name, timed)
+        return self.times
+
+    def __exit__(self, *exc) -> None:
+        for (mod, name), real in zip(self.saved, self.real):
+            setattr(mod, name, real)
 
 
-def ao_child(mode: str, out_dir: Path) -> None:
-    """The child side of phase 20 (one mode a process; prints one JSON
-    line)."""
+class ao_cache_env:
+    """NNS_AOT_CACHE set to ``root`` while inside, unset after."""
+
+    def __init__(self, root: Path):
+        self.root = root
+
+    def __enter__(self):
+        import os
+
+        os.environ["NNS_AOT_CACHE"] = str(self.root)
+
+    def __exit__(self, *exc) -> None:
+        import os
+
+        os.environ.pop("NNS_AOT_CACHE", None)
+
+
+def ao_run_line(out_dir: Path) -> dict:
+    """(a)'s line once, with whatever cache the environment names: the
+    segment's AOT counters, its first batch from play, its logits (saved
+    for the parent), and batch AO_BATCH2 through a loaded artifact."""
     import os
 
-    from nnstreamer_tpu_torch import aot
-    from nnstreamer_tpu_torch.aot import cache as aot_cache
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
 
+    res: dict = {}
+    pipe = parse_launch(AO_LINE)
+    outs, first = [], []
+    sink = pipe.get("out")
+    sink.connect(lambda buf: (first.append(time.perf_counter())
+                              if not first else None,
+                              outs.append(buf.tensors[0])))
+    t0 = time.perf_counter()
+    pipe.play()
+    msg = pipe.wait(timeout=600)
+    (seg,) = pipe.fused_segments
+    res["stats"] = {k: seg.stats[k] for k in (
+        "aot_hits", "aot_exports", "aot_refused", "retraces",
+        "dispatches")}
+    res["first_batch_ms"] = 1e3 * (first[0] - t0) if first else None
+    res["on_card"] = all(o.is_cuda for o in outs)
+    np.save(out_dir / f"line_{os.getpid()}.npy",
+            np.stack([o.view(torch.int16).cpu().numpy() for o in outs]))
+    res["logits"] = str(out_dir / f"line_{os.getpid()}.npy")
+    served = seg._call
+    loaded = getattr(served, "loaded", None)
+    if loaded is not None:
+        res["poly"] = loaded.poly
+        res["batch_range"] = loaded.batch_range
+        # a second batch through the same artifact vs the live stages
+        gen = torch.Generator(device=ST_DEV).manual_seed(AO_BATCH2)
+        x = torch.randint(0, 127, (AO_BATCH2, 224, 224, 3),
+                          generator=gen, device=ST_DEV,
+                          dtype=torch.uint8)
+        stages = [el.fusion_stage() for el in seg.elements]
+        xs = (x,)
+        res["compatible_b2"] = loaded.compatible((xs,))
+        got = served(xs)[0]
+        for st in stages:
+            xs = st(xs)
+        res["b2_equal"] = bool(torch.equal(got.view(torch.int16),
+                                           xs[0].view(torch.int16)))
+    pipe.stop()
+    res["eos"] = str(msg.type)
+    return res
+
+
+def ao_run_tflite(out_dir: Path) -> dict:
+    """(b)'s singleton fake-quant filter: two batches, the kernels'
+    launches a forward, the loaded program's nodes, LSB from the
+    committed reference."""
+    from nnstreamer_tpu_torch.ops import depthwise_fma, fma_gemm
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    res: dict = {}
+    frames = tf_host_frames(1)[0]
+    caps = ("other/tensors,format=static,"
+            f"dimensions=3:224:224:{TF_BATCH},types=int8")
+    pipe = parse_launch(
+        f"appsrc name=in caps={caps} ! tensor_filter name=f "
+        f"framework=torch model={TF_MODEL} "
+        f"custom=quantized_exec:fake-quant,batch:{TF_BATCH} ! "
+        "tensor_sink name=out max-stored=4")
+    pipe.play()
+    src, sink = pipe.get("in"), pipe.get("out")
+    t0 = time.perf_counter()
+    src.push_buffer(frames)
+    first = sink.pull(timeout=600)
+    res["first_batch_ms"] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    n0 = (fma_gemm.fma_gemm.launches,
+          depthwise_fma.depthwise_fma.launches)
+    src.push_buffer(frames)
+    second = sink.pull(timeout=600)
+    torch.cuda.synchronize()
+    res["launches_per_forward"] = {
+        "fma_gemm": fma_gemm.fma_gemm.launches - n0[0],
+        "depthwise_fma": depthwise_fma.depthwise_fma.launches - n0[1]}
+    be = pipe.get("f").backend
+    res["aot_state"] = be.aot_state()
+    loaded = getattr(be._served[1], "loaded", None)
+    if loaded is not None:
+        res["poly"] = loaded.poly
+        names = [str(n.target) for n in loaded.program.graph.nodes
+                 if n.op == "call_function"]
+        res["nodes"] = {k: names.count(f"nns.{k}.default")
+                        for k in ("fma_gemm", "depthwise_fma")}
+    ref = np.load(TF_REFERENCE_B64)
+    for name, out in (("first", first), ("second", second)):
+        got = out.tensors[0].cpu().numpy()
+        d = np.abs(got.astype(np.int64)
+                   - ref["out"].astype(np.int64))
+        res[f"max_lsb_{name}"] = int(d.max()) \
+            if got.shape == ref["out"].shape else None
+    src.end_of_stream()
+    pipe.wait(timeout=60)
+    pipe.stop()
+    return res
+
+
+def ao_run_ops(out_dir: Path) -> dict:
+    """(c)'s warm side: the two one-op modules loaded, each called once
+    against the direct call."""
+    from nnstreamer_tpu_torch import aot
+    from nnstreamer_tpu_torch.ops import decode_attention, flash_attention
+
+    res: dict = {}
+    inputs = ao_op_inputs()
+    for name, fn in (("decode_attention",
+                      decode_attention.decode_attention),
+                     ("flash_attention",
+                      flash_attention.flash_attention)):
+        t0 = time.perf_counter()
+        loaded = aot.load_artifact((out_dir / f"{name}.pt2")
+                                   .read_bytes())
+        load_s = time.perf_counter() - t0
+        args = inputs[name]
+        direct = ao_op_call(name, fn, args)
+        torch.cuda.synchronize()
+        n0 = fn.launches
+        got = loaded.call(*args)[0]
+        torch.cuda.synchronize()
+        nodes = sorted({str(n.target) for n in loaded.program.graph.nodes
+                        if n.op == "call_function"})
+        res[name] = {"equal": bool(torch.equal(got, direct)),
+                     "launches": fn.launches - n0, "load_s": load_s,
+                     "nodes": nodes}
+    return res
+
+
+AO_MODES = {"line": ao_run_line, "tflite": ao_run_tflite, "ops": ao_run_ops}
+
+
+def ao_child(modes: str, out_dir: Path) -> None:
+    """The warm side of phase 20 in a fresh interpreter: each of the
+    comma-separated MODES in turn; prints one JSON line."""
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    times: dict = {}
-    ao_timed(aot, "export_stage", times)
-    ao_timed(aot_cache.CompileCache, "load", times)
-    res: dict = {"mode": mode}
-    if mode == "line":
-        from nnstreamer_tpu_torch.runtime.parse import parse_launch
-
-        pipe = parse_launch(AO_LINE)
-        outs, first = [], []
-        sink = pipe.get("out")
-        sink.connect(lambda buf: (first.append(time.perf_counter())
-                                  if not first else None,
-                                  outs.append(buf.tensors[0])))
-        t0 = time.perf_counter()
-        pipe.play()
-        msg = pipe.wait(timeout=600)
-        (seg,) = pipe.fused_segments
-        res["stats"] = {k: seg.stats[k] for k in (
-            "aot_hits", "aot_exports", "aot_refused", "retraces",
-            "dispatches")}
-        res["first_batch_ms"] = 1e3 * (first[0] - t0) if first else None
-        res["on_card"] = all(o.is_cuda for o in outs)
-        np.save(out_dir / f"line_{os.getpid()}.npy",
-                np.stack([o.view(torch.int16).cpu().numpy()
-                          for o in outs]))
-        res["logits"] = str(out_dir / f"line_{os.getpid()}.npy")
-        served = seg._call
-        loaded = getattr(served, "loaded", None)
-        if loaded is not None:
-            res["poly"] = loaded.poly
-            res["batch_range"] = loaded.batch_range
-            # a second batch through the same artifact vs the live stages
-            gen = torch.Generator(device=ST_DEV).manual_seed(AO_BATCH2)
-            x = torch.randint(0, 127, (AO_BATCH2, 224, 224, 3),
-                              generator=gen, device=ST_DEV,
-                              dtype=torch.uint8)
-            stages = [el.fusion_stage() for el in seg.elements]
-            xs = (x,)
-            res["compatible_b2"] = loaded.compatible((xs,))
-            got = served(xs)[0]
-            for st in stages:
-                xs = st(xs)
-            res["b2_equal"] = bool(torch.equal(got.view(torch.int16),
-                                               xs[0].view(torch.int16)))
-        pipe.stop()
-        res["eos"] = str(msg.type)
-    elif mode == "tflite":
-        from nnstreamer_tpu_torch.ops import depthwise_fma, fma_gemm
-        from nnstreamer_tpu_torch.runtime.parse import parse_launch
-
-        frames = tf_host_frames(1)[0]
-        caps = ("other/tensors,format=static,"
-                f"dimensions=3:224:224:{TF_BATCH},types=int8")
-        pipe = parse_launch(
-            f"appsrc name=in caps={caps} ! tensor_filter name=f "
-            f"framework=torch model={TF_MODEL} "
-            f"custom=quantized_exec:fake-quant,batch:{TF_BATCH} ! "
-            "tensor_sink name=out max-stored=4")
-        pipe.play()
-        src, sink = pipe.get("in"), pipe.get("out")
-        t0 = time.perf_counter()
-        src.push_buffer(frames)
-        first = sink.pull(timeout=600)
-        res["first_batch_ms"] = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        n0 = (fma_gemm.fma_gemm.launches,
-              depthwise_fma.depthwise_fma.launches)
-        src.push_buffer(frames)
-        second = sink.pull(timeout=600)
-        torch.cuda.synchronize()
-        res["launches_per_forward"] = {
-            "fma_gemm": fma_gemm.fma_gemm.launches - n0[0],
-            "depthwise_fma": depthwise_fma.depthwise_fma.launches - n0[1]}
-        be = pipe.get("f").backend
-        res["aot_state"] = be.aot_state()
-        loaded = getattr(be._served[1], "loaded", None)
-        if loaded is not None:
-            res["poly"] = loaded.poly
-            names = [str(n.target) for n in loaded.program.graph.nodes
-                     if n.op == "call_function"]
-            res["nodes"] = {k: names.count(f"nns.{k}.default")
-                            for k in ("fma_gemm", "depthwise_fma")}
-        ref = np.load(TF_REFERENCE_B64)
-        for name, out in (("first", first), ("second", second)):
-            got = out.tensors[0].cpu().numpy()
-            d = np.abs(got.astype(np.int64)
-                       - ref["out"].astype(np.int64))
-            res[f"max_lsb_{name}"] = int(d.max()) \
-                if got.shape == ref["out"].shape else None
-        src.end_of_stream()
-        pipe.wait(timeout=60)
-        pipe.stop()
-    elif mode == "ops":
-        from nnstreamer_tpu_torch.ops import decode_attention, flash_attention
-
-        inputs = ao_op_inputs()
-        for name, fn in (("decode_attention",
-                          decode_attention.decode_attention),
-                         ("flash_attention",
-                          flash_attention.flash_attention)):
-            t0 = time.perf_counter()
-            loaded = aot.load_artifact((out_dir / f"{name}.pt2")
-                                       .read_bytes())
-            load_s = time.perf_counter() - t0
-            args = inputs[name]
-            direct = ao_op_call(name, fn, args)
-            torch.cuda.synchronize()
-            n0 = fn.launches
-            got = loaded.call(*args)[0]
-            torch.cuda.synchronize()
-            nodes = sorted({str(n.target) for n in loaded.program.graph.nodes
-                            if n.op == "call_function"})
-            res[name] = {"equal": bool(torch.equal(got, direct)),
-                         "launches": fn.launches - n0, "load_s": load_s,
-                         "nodes": nodes}
-    res["times_s"] = times
+    res: dict = {}
+    for mode in modes.split(","):
+        with ao_times() as times:
+            res[mode] = AO_MODES[mode](out_dir)
+        res[mode]["times_s"] = times
     print(json.dumps(res, default=str))
 
 
@@ -7674,31 +7752,43 @@ def ao_op_call(name: str, fn, args):
     return fn(*args, True)
 
 
-def ao_line(report: dict, work: Path) -> dict:
-    """(a) the fused MobileNet-v2 device line: live, then an exporting
-    process, then a fresh process that hits."""
+def ao_line_cold(report: dict, work: Path, cache: Path) -> dict:
+    """(a)'s cold side, in this process: the live line without a cache,
+    then the same line exporting into ``cache``."""
     from nnstreamer_tpu_torch import aot
     import os
 
     os.environ.pop("NNS_AOT_CACHE", None)
-    _pipe, outs = fu_run(AO_LINE, True)
+    pipe, outs = fu_run(AO_LINE, True)
     live = np.stack([o.view(torch.int16).cpu().numpy() for o in outs])
-    cache = work / "cache_line"
-    r = {"off": ao_child_run("line", work, None),
-         "export": ao_child_run("line", work, cache),
-         "hit": ao_child_run("line", work, cache)}
-    off, ex, hit = r["off"], r["export"], r["hit"]
-    if any(off["stats"][k] for k in ("aot_hits", "aot_exports")):
-        fail(f"aot (a): the process without a cache counted {off['stats']}")
+    (seg,) = pipe.fused_segments
+    off = {k: seg.stats[k] for k in ("aot_hits", "aot_exports",
+                                     "retraces")}
+    if off["aot_hits"] or off["aot_exports"] or off["retraces"] != 1 \
+            or not all(o.is_cuda for o in outs):
+        fail(f"aot (a): the live line without a cache counted {off}, on "
+             f"card {all(o.is_cuda for o in outs)}")
+    with ao_cache_env(cache), ao_times() as times:
+        ex = ao_run_line(work)
+    ex["times_s"] = times
+    (entry,) = aot.CompileCache(str(cache)).list()
+    return {"live": live, "off": {"stats": off}, "export": ex,
+            "entry": entry}
+
+
+def ao_line(report: dict, cold: dict, hit: dict) -> dict:
+    """(a): the export (this process) and the hit (a fresh one) against
+    the live line."""
+    live, ex, entry = cold["live"], cold["export"], cold["entry"]
+    r = {"off": cold["off"], "export": ex, "hit": hit}
     if ex["stats"]["aot_exports"] != 1 or ex["stats"]["aot_hits"] != 0:
-        fail(f"aot (a): the first process did not export: {ex['stats']}")
+        fail(f"aot (a): the first run did not export: {ex['stats']}")
     if hit["stats"]["aot_hits"] != 1 or hit["stats"]["aot_exports"] != 0:
-        fail(f"aot (a): the fresh process did not hit: {hit['stats']}: "
-             f"{hit['warnings']}")
-    for k in ("off", "export", "hit"):
+        fail(f"aot (a): the fresh process did not hit: {hit['stats']}")
+    for k in ("export", "hit"):
         got = np.load(r[k]["logits"])
         if got.shape != live.shape or not np.array_equal(got, live):
-            fail(f"aot (a): the {k} process's logits differ from the live "
+            fail(f"aot (a): the {k} run's logits differ from the live "
                  "line's")
         if r[k]["stats"]["retraces"] != 1 or not r[k]["on_card"]:
             fail(f"aot (a): {k}: {r[k]['stats']['retraces']} captures "
@@ -7708,7 +7798,6 @@ def ao_line(report: dict, work: Path) -> dict:
         fail(f"aot (a): batch {AO_BATCH2} through the artifact: compatible "
              f"{hit.get('compatible_b2')}, equal to the live stages "
              f"{hit.get('b2_equal')}")
-    (entry,) = aot.CompileCache(str(cache)).list()
     r["artifact_bytes"] = entry["nbytes"]
     r["poly"] = entry["poly"]
     r["export_s"] = ex["times_s"].get("export_stage")
@@ -7716,30 +7805,38 @@ def ao_line(report: dict, work: Path) -> dict:
     print(f"aot ({report['device']}) (a) the fused MobileNet-v2 line, bf16, "
           f"batch {MB_BATCH}: exported {'shape-poly' if entry['poly'] else 'static'} "
           f"(range {hit.get('batch_range')}), {r['artifact_bytes']} bytes, "
-          f"export {r['export_s']:.3f} s; a fresh process hit it (load "
-          f"{r['load_s']:.3f} s), one CUDA graph over the loaded module, "
-          f"logits bit-equal to the live line's at batch {MB_BATCH} and to "
-          f"the live stages at batch {AO_BATCH2}; first batch (from play) "
-          f"{off['first_batch_ms']:.1f} ms without the cache, "
-          f"{ex['first_batch_ms']:.1f} ms exporting, "
-          f"{hit['first_batch_ms']:.1f} ms hitting; processes "
-          f"{off['process_s']:.1f} / {ex['process_s']:.1f} / "
-          f"{hit['process_s']:.1f} s")
-    return {"live": live, **r}
+          f"export {r['export_s']:.3f} s (this process); a fresh process "
+          f"hit it (load {r['load_s']:.3f} s), one CUDA graph over the "
+          f"loaded module, logits bit-equal to the live line's at batch "
+          f"{MB_BATCH} and to the live stages at batch {AO_BATCH2}; first "
+          f"batch (from play) {ex['first_batch_ms']:.1f} ms exporting "
+          f"(this process), {hit['first_batch_ms']:.1f} ms hitting (fresh)")
+    return r
 
 
-def ao_tflite(report: dict, work: Path) -> dict:
-    """(b) the full-width int8 fixture in fake-quant mode as a singleton
-    filter: an exporting process, then a fresh process that hits."""
-    cache = work / "cache_tflite"
-    r = {"export": ao_child_run("tflite", work, cache),
-         "hit": ao_child_run("tflite", work, cache)}
+def ao_tflite_cold(report: dict, work: Path, cache: Path) -> dict:
+    """(b)'s cold side, in this process: the filter exports into
+    ``cache``."""
+    from nnstreamer_tpu_torch import aot
+
+    before = {e["path"] for e in aot.CompileCache(str(cache)).list()}
+    with ao_cache_env(cache), ao_times() as times:
+        ex = ao_run_tflite(work)
+    ex["times_s"] = times
+    (entry,) = [e for e in aot.CompileCache(str(cache)).list()
+                if e["path"] not in before]
+    return {"export": ex, "entry": entry}
+
+
+def ao_tflite(report: dict, cold: dict, hit: dict) -> dict:
+    """(b): the export (this process) and the hit (a fresh one)."""
+    r = {"export": cold["export"], "hit": hit}
     want_nodes = {"fma_gemm": 37, "depthwise_fma": 17}
     for k, state in (("export", "export"), ("hit", "hit")):
         c = r[k]
         if c["aot_state"] != state:
-            fail(f"aot (b): the {k} process's filter is {c['aot_state']}, "
-                 f"not {state}: {c['warnings']}")
+            fail(f"aot (b): the {k} run's filter is {c['aot_state']}, "
+                 f"not {state}")
         if c.get("nodes") != want_nodes or \
                 c["launches_per_forward"] != want_nodes:
             fail(f"aot (b): {k}: nodes {c.get('nodes')}, launches a "
@@ -7748,26 +7845,24 @@ def ao_tflite(report: dict, work: Path) -> dict:
         if c["max_lsb_first"] != 0 or c["max_lsb_second"] != 0:
             fail(f"aot (b): {k}: {c['max_lsb_first']} / "
                  f"{c['max_lsb_second']} LSB from the committed reference")
-    from nnstreamer_tpu_torch import aot
-
-    (entry,) = aot.CompileCache(str(cache)).list()
+    entry = cold["entry"]
     r["artifact_bytes"] = entry["nbytes"]
     r["poly"] = entry["poly"]
     print(f"aot ({report['device']}) (b) fake-quant .tflite, batch "
           f"{TF_BATCH}: {'shape-poly' if entry['poly'] else 'static'} "
           f"(poly: {entry['poly']}), {entry['nbytes']} bytes, 37 nns::fma_gemm "
           "+ 17 nns::depthwise_fma nodes; the loaded program launches 37 + 17 "
-          "a forward; 0 LSB from the committed reference in both processes; "
-          f"export {r['export']['times_s'].get('export_stage', 0):.3f} s, load "
-          f"{r['hit']['times_s'].get('load', 0):.3f} s; first batch "
-          f"{r['export']['first_batch_ms']:.1f} ms exporting, "
-          f"{r['hit']['first_batch_ms']:.1f} ms hitting")
+          "a forward; 0 LSB from the committed reference in both runs; "
+          f"export {r['export']['times_s'].get('export_stage', 0):.3f} s "
+          f"(this process), load {hit['times_s'].get('load', 0):.3f} s "
+          f"(fresh); first batch {r['export']['first_batch_ms']:.1f} ms "
+          f"exporting, {hit['first_batch_ms']:.1f} ms hitting")
     return r
 
 
-def ao_ops(report: dict, work: Path) -> dict:
-    """(c) the two attention kernels as exported one-op modules, loaded
-    in a fresh process; the op dispatcher's host cost."""
+def ao_ops_cold(report: dict, work: Path) -> dict:
+    """(c)'s cold side: the two attention kernels exported here as
+    one-op modules (``.pt2`` files for the fresh process)."""
     from nnstreamer_tpu_torch import aot
     from nnstreamer_tpu_torch.ops import decode_attention, flash_attention
 
@@ -7784,7 +7879,14 @@ def ao_ops(report: dict, work: Path) -> dict:
                    "bytes": len(blob)}
         (work / f"{name}.pt2").write_bytes(blob)
         fn.launches = n0
-    child = ao_child_run("ops", work, None)
+    return r
+
+
+def ao_ops(report: dict, r: dict, child: dict) -> dict:
+    """(c): the loaded modules (a fresh process) against the direct
+    calls; the op dispatcher's host cost."""
+    from nnstreamer_tpu_torch.ops import decode_attention
+
     for name in ("decode_attention", "flash_attention"):
         c = child[name]
         if not c["equal"] or c["launches"] != 1 or \
@@ -7794,7 +7896,7 @@ def ao_ops(report: dict, work: Path) -> dict:
         r[name]["load_s"] = c["load_s"]
     # the dispatcher's host cost: eager calls stay direct; this is what
     # routing them through torch.ops would add
-    q, k, v, pos = inputs["decode_attention"]
+    q, k, v, pos = ao_op_inputs()["decode_attention"]
     n0 = decode_attention.decode_attention.launches
     per = {}
     for how, call in (
@@ -7813,7 +7915,7 @@ def ao_ops(report: dict, work: Path) -> dict:
     r["host_us_per_call"] = per
     print(f"aot ({report['device']}) (c) nns::decode_attention (pos "
           f"{MAIN_POS}) and nns::flash_attention (causal {FLASH_SHAPE}) "
-          "exported, loaded in a fresh process: bit-equal to the direct "
+          "exported here, loaded in a fresh process: bit-equal to the direct "
           "calls, one launch each; export "
           f"{r['decode_attention']['export_s']:.3f} / "
           f"{r['flash_attention']['export_s']:.3f} s, load "
@@ -7851,11 +7953,11 @@ def ao_pool(caps: str, replicas: int, warmup: bool):
 
 
 def ao_replicas(report: dict, work: Path) -> dict:
-    """(d) two process replicas of (a)'s stage, without the cache and with
-    an empty one: each replica's first batch (its warmup request before
-    READY, ``warmup_s``) — the second pool's first two export (cold), its
-    respawn loads (warm) — and SIGKILL → readmit of one of them; then a
-    flexible-caps replica that warms up from the artifact."""
+    """(d) two process replicas of (a)'s stage with an empty cache: each
+    replica's first batch (its warmup request before READY,
+    ``warmup_s``) — the first two export (cold), the respawn loads (warm)
+    — and SIGKILL → readmit of one of them; then a flexible-caps replica
+    that warms up from the artifact."""
     import os
     import threading
 
@@ -7868,7 +7970,7 @@ def ao_replicas(report: dict, work: Path) -> dict:
     cache = work / "cache_pool"
     r: dict = {"first_batch_s": {}, "kill_to_readmit_s": {}, "aot": {}}
     try:
-        for state, root in (("off", None), ("cache", cache)):
+        for state, root in (("cache", cache),):
             os.environ.pop("NNS_AOT_CACHE", None)
             if root is not None:
                 os.environ["NNS_AOT_CACHE"] = str(root)
@@ -7907,14 +8009,11 @@ def ao_replicas(report: dict, work: Path) -> dict:
                 with ps._lock:
                     again = ps._slots[kill["rid"]].proc.info["warmup_s"]
                 r["kill_to_readmit_s"][state] = kill["readmitted"] - kill["t"]
-                if state == "off":
-                    r["first_batch_s"]["off"] = first + [again]
-                else:
-                    r["first_batch_s"]["cold"] = first
-                    r["first_batch_s"]["warm"] = [again]
-                    for rid, ep in ps.control_endpoints().items():
-                        r["aot"][rid] = ControlClient(ep).profile().get(
-                            "aot", {}).get("counters")
+                r["first_batch_s"]["cold"] = first
+                r["first_batch_s"]["warm"] = [again]
+                for rid, ep in ps.control_endpoints().items():
+                    r["aot"][rid] = ControlClient(ep).profile().get(
+                        "aot", {}).get("counters")
             finally:
                 ps.stop()
         # the respawned replica hit; the first two exported between them
@@ -7952,11 +8051,10 @@ def ao_replicas(report: dict, work: Path) -> dict:
     def fmt(xs):
         return "/".join(f"{x:.3f}" for x in xs)
     print(f"aot ({report['device']}) (d) two process replicas of (a)'s "
-          f"stage: first batch (warmup) {fmt(fb['off'])} s without the "
-          f"cache (2 spawned, 1 respawned), {fmt(fb['cold'])} s cold "
+          f"stage: first batch (warmup) {fmt(fb['cold'])} s cold "
           f"(export), {fmt(fb['warm'])} s warm (load, the respawn); "
-          f"SIGKILL -> readmit {kr['off']:.3f} s without the cache, "
-          f"{kr['cache']:.3f} s with it warm; every answer the live "
+          f"SIGKILL -> readmit {kr['cache']:.3f} s with the cache warm; "
+          "every answer the live "
           "stage's; a flexible-caps replica warmed up from the artifact "
           f"in {r['flexible']['warmup_s']:.3f} s (no warmup_skipped "
           f"event; its AOT counters {r['flexible']['aot']})")
@@ -8007,16 +8105,32 @@ def phase_aot(report: dict) -> None:
     import tempfile
 
     work = Path(tempfile.mkdtemp(prefix="nns-aot-"))
+    cache = work / "cache"
     r = report["aot"] = {}
+    part_s = r["part_s"] = {}
     t0 = time.perf_counter()
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return out
     try:
-        a = ao_line(report, work)
-        live = a.pop("live")
-        r["line"] = a
-        r["tflite"] = ao_tflite(report, work)
-        r["ops"] = ao_ops(report, work)
-        r["replicas"] = ao_replicas(report, work)
-        r["pt2"] = ao_pt2(report, work, live)
+        # the cold sides of (a)-(c) in this process, then their warm
+        # sides in one fresh interpreter
+        a = part("ao_line_cold", ao_line_cold, report, work, cache)
+        b = part("ao_tflite_cold", ao_tflite_cold, report, work, cache)
+        c = part("ao_ops_cold", ao_ops_cold, report, work)
+        warm = part("ao_warm_child", ao_child_run, "line,tflite,ops", work,
+                    cache)
+        r["warm_process_s"] = warm["process_s"]
+        r["warm_warnings"] = warm["warnings"]
+        live = a["live"]
+        r["line"] = ao_line(report, a, warm["line"])
+        r["tflite"] = ao_tflite(report, b, warm["tflite"])
+        r["ops"] = part("ao_ops", ao_ops, report, c, warm["ops"])
+        r["replicas"] = part("ao_replicas", ao_replicas, report, work)
+        r["pt2"] = part("ao_pt2", ao_pt2, report, work, live)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     step = (report.get("continuous") or {}).get("dense", {}).get(
@@ -8026,7 +8140,8 @@ def phase_aot(report: dict) -> None:
     print(f"aot ({report['device']}) phase 10's dense step with the nns:: "
           "ops registered (eager calls bypass the dispatcher): "
           + (f"{step:.3f} ms" if step is not None else "not run (--only)")
-          + f"; phase 20 took {r['phase_s']:.1f} s")
+          + f"; phase 20 took {r['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()) + ")")
 
 
 def phase_aot_alone(report: dict) -> None:
@@ -8416,6 +8531,338 @@ def phase_mesh_alone(report: dict) -> None:
     phase_mesh(report, prompts, filter_outs, ST_DEV)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tooling plane (the CLI verbs, lint, the entry module)
+# ---------------------------------------------------------------------------
+
+TL_LM_MODEL = "nnstreamer_tpu_torch.models.lm_serving:base"
+TL_CHILD_TIMEOUT = 600.0
+TL_MB_BUFS = 3
+
+
+def tl_lm_line(prompts_path: Path, out_path: Path) -> str:
+    """Phase 5's tensor_generate line with its prompts read from a file
+    (REQUESTS frames of (8, PROMPT) int32) and its tokens written to one."""
+    return (f"filesrc location={prompts_path} blocksize={8 * PROMPT * 4} "
+            "! application/octet-stream ! tensor_converter "
+            f"input-dim={PROMPT}:8 input-type=int32 ! tensor_generate "
+            f"model={TL_LM_MODEL} steps={STEPS} ! filesink "
+            f"location={out_path}")
+
+
+def tl_start(args: list, work: Path):
+    """``python -m nnstreamer_tpu_torch ARGS`` started in a fresh
+    interpreter (the checkout's package on PYTHONPATH, cwd ``work``)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nnstreamer_tpu_torch", *args], env=env,
+        cwd=str(work), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def tl_wait(started) -> dict:
+    proc, t0 = started
+    out, err = proc.communicate(timeout=TL_CHILD_TIMEOUT)
+    return {"rc": proc.returncode, "stdout": out, "stderr": err,
+            "process_s": time.perf_counter() - t0}
+
+
+def tl_want_kernels() -> dict:
+    """Phase 5's launches: both kernels, on the `base` LM's 12 layers."""
+    return {"decode_attention": REQUESTS * (STEPS - 1) * 12,
+            "flash_attention": REQUESTS * 12}
+
+
+def tl_tokens(path: Path, filter_outs) -> np.ndarray:
+    """The tokens a line wrote (one (8, 1) int32 buffer a step) as
+    (REQUESTS, 8, STEPS); fails unless they are phase 4's (= phase 5's)."""
+    raw = np.fromfile(path, dtype=np.int32)
+    if raw.size != REQUESTS * STEPS * 8:
+        fail(f"tooling: {path.name} holds {raw.size} tokens, expected "
+             f"{REQUESTS * STEPS * 8}")
+    got = raw.reshape(REQUESTS, STEPS, 8).transpose(0, 2, 1)
+    for i, whole in enumerate(filter_outs):
+        if not np.array_equal(got[i], whole[:, PROMPT:]):
+            fail(f"tooling: request {i}'s tokens from {path.name} differ "
+                 "from phase 5's")
+    return got
+
+
+def tl_launch_and_profile(report: dict, work: Path, prompts, filter_outs,
+                          during=None) -> dict:
+    """(a) the ``launch`` verb and (b) ``obs profile --launch`` on phase
+    5's line, each in a fresh interpreter (the two at once, ``during()``
+    running here meanwhile); ``--diff`` against an in-process profile of
+    the same line, and ``obs top`` after it."""
+    import contextlib
+    import io
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+
+    prompts_path = work / "prompts.raw"
+    np.concatenate([p.reshape(-1) for p in prompts]).tofile(prompts_path)
+    r: dict = {}
+    art_child = work / "profile_child.json"
+    started = []
+    try:
+        started.append(tl_start(
+            ["launch", tl_lm_line(prompts_path, work / "launch.raw"),
+             "--timeout", "600"], work))
+        started.append(tl_start(
+            ["obs", "profile", "--launch",
+             tl_lm_line(prompts_path, work / "profile.raw"),
+             "--out", str(art_child), "--run-timeout", "600"], work))
+        if during is not None:
+            r["during"] = during()
+        a, b = (tl_wait(s) for s in started)
+    finally:
+        for proc, _ in started:   # a failed gate must not leave a child
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    if a["rc"] != 0 or "pipeline finished (EOS)" not in a["stdout"]:
+        fail(f"tooling (a): launch exited {a['rc']}: {a['stderr'][-2000:]}")
+    tl_tokens(work / "launch.raw", filter_outs)
+    r["launch_process_s"] = a["process_s"]
+    if b["rc"] != 0:
+        fail(f"tooling (b): obs profile exited {b['rc']}: "
+             f"{b['stderr'][-2000:]}")
+    tl_tokens(work / "profile.raw", filter_outs)
+    want = tl_want_kernels()
+    child = json.loads(art_child.read_text())
+    if child.get("kernels") != want:
+        fail(f"tooling (b): the child's artifact records kernel launches "
+             f"{child.get('kernels')}, expected {want}")
+    r["profile_process_s"] = b["process_s"]
+    r["child_kernels"] = child.get("kernels")
+    # the same line profiled in this process: a second artifact
+    art_here = work / "profile_here.json"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["obs", "profile", "--launch",
+                  tl_lm_line(prompts_path, work / "profile_here.raw"),
+                  "--out", str(art_here), "--run-timeout", "600"])
+    here = json.loads(art_here.read_text())
+    if rc != 0 or here.get("kernels") != want:
+        fail(f"tooling (b): in-process obs profile rc {rc}, kernels "
+             f"{here.get('kernels')}")
+    tl_tokens(work / "profile_here.raw", filter_outs)
+    if here["key"] != child["key"]:
+        fail(f"tooling (b): artifact keys differ: {here['key']} vs "
+             f"{child['key']}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["obs", "profile", "--diff", str(art_child), str(art_here)])
+    diff = json.loads(out.getvalue())
+    rows = [n for names in diff.values() for n, row in names.items()
+            if "delta_p50_ms" in row]
+    if rc != 0 or not rows:
+        fail(f"tooling (b): obs profile --diff rc {rc}, rows with both "
+             f"sides {rows}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["obs", "top"])
+    top = out.getvalue()
+    if rc != 0 or "tensor_generate" not in top:
+        fail(f"tooling (b): obs top rc {rc}, no tensor_generate row: "
+             f"{top[-1500:]}")
+    r["diff_rows"] = len(rows)
+    r["top_lines"] = len(top.splitlines())
+    print(f"tooling ({report['device']}) (a) `launch` of phase 5's line "
+          f"(prompts from filesrc, tokens to filesink) in a fresh process "
+          f"({a['process_s']:.1f} s): phase 5's tokens. (b) `obs profile "
+          f"--launch` in a fresh process ({b['process_s']:.1f} s, beside "
+          f"(a)): its artifact records {child.get('kernels')} kernel launches "
+          f"and phase 5's tokens; the same in this process; --diff of the "
+          f"two: {len(rows)} entries on both sides; obs top: "
+          f"{r['top_lines']} lines")
+    return r
+
+
+def tl_validate(report: dict) -> dict:
+    """(c) ``Pipeline(validate=True)`` on phase 13's fused MobileNet-v2
+    line: the NNL013 plan it logs names exactly the segments that capture
+    CUDA graphs; ``lint`` of the line has zero errors."""
+    import contextlib
+    import io
+    import logging
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+    from nnstreamer_tpu_torch.core import MessageType
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.runtime.pipeline import Pipeline
+    from nnstreamer_tpu_torch.utils.log import logger
+
+    line = FU_MB_LINE.format(b=MB_BATCH, n=TL_MB_BUFS)
+    records: list = []
+
+    class Keep(logging.Handler):
+        def emit(self, rec):
+            records.append(rec)
+    keep, level = Keep(logging.INFO), logger.level
+    logger.addHandler(keep)
+    logger.setLevel(logging.INFO)
+    try:
+        pipe = parse_launch(line, pipeline=Pipeline(validate=True))
+        pipe.play()
+        msg = pipe.wait(timeout=600)
+        segs = [(tuple(el.name for el in s.elements), dict(s.stats))
+                for s in pipe.fused_segments]
+        pipe.stop()
+    finally:
+        logger.removeHandler(keep)
+        logger.setLevel(level)
+    if msg.type is not MessageType.EOS:
+        fail(f"tooling (c): the validated line ended with {msg}")
+    plans = []
+    for rec in records:
+        text = rec.getMessage()
+        if "NNL013" in text:
+            if rec.levelno != logging.INFO:
+                fail(f"tooling (c): NNL013 logged at {rec.levelname}")
+            plans.append(tuple(text.split("fused device segment: ")[1]
+                               .split(" (")[0].split(" -> ")))
+    warnings = [rec.getMessage() for rec in records
+                if rec.levelno >= logging.WARNING and "NNL" in
+                rec.getMessage()]
+    captured = [names for names, st in segs if st["retraces"] >= 1]
+    if not plans or sorted(plans) != sorted(captured) \
+            or len(captured) != len(segs):
+        fail(f"tooling (c): NNL013 plan {plans}, segments that captured "
+             f"CUDA graphs {captured} of {[n for n, _ in segs]}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["lint", "--json", line])
+    diags = json.loads(out.getvalue())
+    errors = [d for d in diags if d["severity"] == "error"]
+    if rc != 0 or errors:
+        fail(f"tooling (c): lint of the line exited {rc}: {errors}")
+    r = {"plan": [list(p) for p in plans], "captured": [list(c) for c in
+                                                        captured],
+         "lint_findings": [d["rule"] for d in diags],
+         "validate_warnings": warnings}
+    print(f"tooling ({report['device']}) (c) Pipeline(validate=True) on "
+          f"phase 13's fused MobileNet-v2 line (bf16, batch {MB_BATCH}): "
+          f"NNL013 plan {plans} at info, the same segments captured CUDA "
+          f"graphs ({[st['retraces'] for _, st in segs]} captures); lint: "
+          f"0 errors, findings {r['lint_findings']}")
+    return r
+
+
+def tl_self_lint(report: dict) -> dict:
+    """(d) ``lint`` with no target: the strict self-lint of the package."""
+    import contextlib
+    import io
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["lint"])
+    secs = time.perf_counter() - t0
+    last = out.getvalue().strip().splitlines()[-1]
+    if rc != 0:
+        fail(f"tooling (d): the strict self-lint exited {rc}: "
+             f"{out.getvalue()[-3000:]}")
+    print(f"tooling ({report['device']}) (d) strict self-lint of "
+          f"nnstreamer_tpu_torch (five passes): exit 0, '{last}', "
+          f"{secs:.1f} s")
+    return {"rc": rc, "summary": last, "s": secs}
+
+
+def tl_entry(report: dict) -> dict:
+    """(e) ``entry()``: MobileNet-v2 exported and eager on the card, bit
+    for bit; ``dryrun_multichip(1)``: the meshed step's loss is the
+    meshless one (a world-1 NCCL group)."""
+    from nnstreamer_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    res = entry.entry()
+    entry_s = time.perf_counter() - t0
+    if not (res.exported.is_cuda and res.eager.is_cuda) or \
+            tuple(res.exported.shape) != (1, 1001) or not res.bit_equal \
+            or not torch.isfinite(res.exported).all():
+        fail(f"tooling (e): entry(): exported on "
+             f"{res.exported.device} {tuple(res.exported.shape)}, "
+             f"bit-equal {res.bit_equal}")
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(1)
+    dry_s = time.perf_counter() - t0
+    if dry["backend"] != "nccl" or dry["loss"] != dry["meshless_loss"]:
+        fail(f"tooling (e): dryrun_multichip(1): {dry}")
+    print(f"tooling ({report['device']}) (e) entry(): MobileNet-v2 f32 "
+          f"exported by torch.export, logits bit-equal to the eager "
+          f"forward on {res.exported.device} ({entry_s:.1f} s); "
+          f"dryrun_multichip(1) on {dry['backend']}: loss {dry['loss']} "
+          f"= the meshless step's ({dry_s:.1f} s)")
+    return {"entry_s": entry_s, "dryrun": dry, "dryrun_s": dry_s}
+
+
+def tl_codegen(report: dict, work: Path) -> dict:
+    """(f) a ``codegen filter`` skeleton served as ``framework=torch`` on
+    the card: every frame comes out on cuda:0, equal to what went in."""
+    import contextlib
+    import io
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+
+    path = work / "gen_filter.py"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["codegen", "filter", str(path)])
+    if rc != 0:
+        fail(f"tooling (f): codegen exited {rc}")
+    line = ("tensor_src num-buffers=4 dimensions=16:4 types=float32 "
+            f"pattern=counter ! tensor_filter framework=torch model={path} "
+            "name=f ! tensor_sink name=out max-stored=4")
+    _pipe, outs = fu_run(line, True)
+    dev = outs[0].device if outs else None
+    want = [np.full((4, 16), i, np.float32) for i in range(4)]
+    if len(outs) != 4 or not all(isinstance(o, torch.Tensor) and o.is_cuda
+                                 for o in outs) or \
+            not all(np.array_equal(o.cpu().numpy(), w)
+                    for o, w in zip(outs, want)):
+        fail(f"tooling (f): the codegen filter gave "
+             f"{[(type(o).__name__, getattr(o, 'device', None)) for o in outs]}")
+    print(f"tooling ({report['device']}) (f) `codegen filter` skeleton as "
+          f"tensor_filter framework=torch on {dev}: 4 frames through, on "
+          "the card, equal to the input")
+    return {"device": str(dev), "frames": len(outs)}
+
+
+def phase_tooling(report: dict, prompts, filter_outs) -> None:
+    """Phase 22: the tooling plane (module docstring)."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="nns-tooling-"))
+    r = report["tooling"] = {}
+    t0 = time.perf_counter()
+    try:
+        # (d) runs here while (a)'s and (b)'s children run
+        r["cli"] = tl_launch_and_profile(report, work, prompts, filter_outs,
+                                         during=lambda: tl_self_lint(report))
+        r["self_lint"] = r["cli"].pop("during")
+        r["validate"] = tl_validate(report)
+        r["entry"] = tl_entry(report)
+        r["codegen"] = tl_codegen(report, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r["phase_s"] = time.perf_counter() - t0
+    print(f"tooling ({report['device']}): phase 22 took {r['phase_s']:.1f} s")
+
+
+def phase_tooling_alone(report: dict) -> None:
+    """--only tooling: the kernels built, phase 4's requests for the
+    reference tokens, then phase 22."""
+    phase_build(report)
+    prompts, filter_outs = phase_slice(report)
+    phase_tooling(report, prompts, filter_outs)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -8442,10 +8889,11 @@ def main() -> None:
              "plugins": phase_plugins, "tflite": phase_tflite,
              "query": phase_query_alone, "service": phase_service_alone,
              "train": phase_train_alone, "aot": phase_aot_alone,
-             "mesh": phase_mesh_alone, "trace-loss": phase_trace_loss}
+             "mesh": phase_mesh_alone, "tooling": phase_tooling_alone,
+             "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16, 17, 18, 19, 20 or 21 alone (no ok line),
+        # phase 13, 14, 15, 16, 17, 18, 19, 20, 21 or 22 alone (no ok line),
         # or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
@@ -8453,32 +8901,46 @@ def main() -> None:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
              "--only fusion / streams / plugins / tflite / query / service "
-             "/ train / aot / mesh for phase 13 / 14 / 15 / 16 / 17 / 18 / "
-             "19 / 20 / 21 alone, or --only trace-loss)")
-    phase_build(report)
-    decode_t = phase_kernels(report, dev)
-    flash_t = phase_flash(report, dev)
-    rank_t = phase_rank_kernels(report, dev)
-    prompts, filter_outs = phase_slice(report)
-    launches = phase_generate(report, prompts, filter_outs)["launches"]
-    phase_parity(report, dev)
-    phase_conversation(report, dev)
-    phase_mobilenet_model(report, dev)
-    phase_mobilenet_lines(report)
-    phase_video_line(report)
-    cont = phase_continuous(report, dev)
-    phase_zoo(report, dev)
-    phase_obs(report, prompts, filter_outs,
-              {"decode_attention": decode_t, "flash_attention": flash_t})
-    phase_fusion(report)
-    phase_streams(report)
-    phase_plugins(report)
-    phase_tflite(report)
-    phase_query(report, prompts, filter_outs)
-    phase_service(report, prompts, filter_outs)
-    phase_train(report, dev)
-    phase_aot(report)
-    phase_mesh(report, prompts, filter_outs, dev)
+             "/ train / aot / mesh / tooling for phase 13 / 14 / 15 / 16 / "
+             "17 / 18 / 19 / 20 / 21 / 22 alone, or --only trace-loss)")
+    phase_s = report["phase_s"] = {}
+
+    def timed(fn, *args):
+        """Run one phase; its wall seconds go to report["phase_s"]."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[fn.__name__] = time.perf_counter() - t0
+            print(f"chip_smoke: {fn.__name__} took "
+                  f"{phase_s[fn.__name__]:.1f} s", flush=True)
+
+    timed(phase_build, report)
+    decode_t = timed(phase_kernels, report, dev)
+    flash_t = timed(phase_flash, report, dev)
+    rank_t = timed(phase_rank_kernels, report, dev)
+    prompts, filter_outs = timed(phase_slice, report)
+    launches = timed(phase_generate, report, prompts,
+                     filter_outs)["launches"]
+    timed(phase_parity, report, dev)
+    timed(phase_conversation, report, dev)
+    timed(phase_mobilenet_model, report, dev)
+    timed(phase_mobilenet_lines, report)
+    timed(phase_video_line, report)
+    cont = timed(phase_continuous, report, dev)
+    timed(phase_zoo, report, dev)
+    timed(phase_obs, report, prompts, filter_outs,
+          {"decode_attention": decode_t, "flash_attention": flash_t})
+    timed(phase_fusion, report)
+    timed(phase_streams, report)
+    timed(phase_plugins, report)
+    timed(phase_tflite, report)
+    timed(phase_query, report, prompts, filter_outs)
+    timed(phase_service, report, prompts, filter_outs)
+    timed(phase_train, report, dev)
+    timed(phase_aot, report)
+    timed(phase_mesh, report, prompts, filter_outs, dev)
+    timed(phase_tooling, report, prompts, filter_outs)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -8539,6 +9001,11 @@ def main() -> None:
             report["train"]["moe_serving"]["launches"][k["name"]]
         k["launches_mesh"] = report["mesh"]["filter"]["mesh:1x1"][
             "launches"].get(k["name"], 0)
+    # every kernel's launches in the fresh process that `obs profile
+    # --launch` ran phase 5's line in (phase 22b, from its artifact)
+    for k in kernels:
+        k["launches_tooling"] = (report["tooling"]["cli"]["child_kernels"]
+                                 or {}).get(k["name"], 0)
     # the two LM kernels at one rank's shapes under a 2x2 mesh (phase 3d)
     for k, row in zip(kernels, ("decode", "flash")):
         k["rank_shape"] = rank_t[str(torch.float32)][row]

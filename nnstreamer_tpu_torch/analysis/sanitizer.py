@@ -333,8 +333,8 @@ class _TsanCondition:
     def wait(self, timeout: Optional[float] = None) -> bool:
         _note_release(self._lockw)
         try:
-            # a pass-through proxy: the predicate loop is the caller's
-            # contract, as with threading.Condition.wait itself
+            # nnlint: disable=NNL204 — a pass-through proxy: the predicate
+            # loop is the caller's contract, as with Condition.wait itself
             return self._inner.wait(timeout)
         finally:
             _note_acquire(self._lockw)

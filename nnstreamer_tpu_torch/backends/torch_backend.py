@@ -476,6 +476,20 @@ class TorchBackend(FilterBackend):
     def _load_model(self, model: str, props: FilterProperties) -> Callable:
         if model.startswith("builtin://"):
             return make_builtin(model, props.custom_dict())
+        if model.endswith(".py") and os.path.exists(model):
+            # a model file (``codegen filter``'s skeleton): it defines a
+            # callable ``model(*tensors)`` and may declare IN_INFO/OUT_INFO
+            ns: Dict[str, Any] = {"__file__": model}
+            with open(model) as fh:
+                code = fh.read()
+            exec(compile(code, model, "exec"), ns)  # noqa: S102 - user model file
+            if "IN_INFO" in ns:
+                self._in_info = ns["IN_INFO"]
+            if "OUT_INFO" in ns:
+                self._out_info = ns["OUT_INFO"]
+            if "model" not in ns or not callable(ns["model"]):
+                raise ValueError(f"{model}: must define a callable 'model'")
+            return ns["model"]
         if ":" in model and not os.path.exists(model):
             mod_name, _, attr = model.partition(":")
             entry = getattr(importlib.import_module(mod_name), attr)
@@ -496,7 +510,8 @@ class TorchBackend(FilterBackend):
             return fn
         raise ValueError(
             f"torch backend cannot load model '{model}' (expected "
-            "'<module>:<attr>', 'builtin://<name>' or a .tflite file)")
+            "'<module>:<attr>', 'builtin://<name>', a .py model file or a "
+            ".tflite file)")
 
     def get_model_info(self):
         return self._in_info, self._out_info

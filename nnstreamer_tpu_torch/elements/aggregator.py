@@ -44,6 +44,9 @@ def _join(xs, dim: int, concat: bool, dev: Optional[torch.device]):
     moved to the card are uploaded; the rest are not copied)."""
     if dev is None:
         return np.concatenate(xs, axis=dim) if concat else np.stack(xs, axis=0)
+    # nnlint: disable=NNL402 — host-born frames joining a device window: this
+    # upload IS the element's work (as_tensor of a tensor already there is a
+    # no-op)
     xs = [torch.as_tensor(x, device=dev) for x in xs]
     return torch.cat(xs, dim=dim) if concat else torch.stack(xs, dim=0)
 
@@ -111,6 +114,9 @@ class TensorAggregator(TransformElement):
         if dev is not None:
             # host frames joining a torch window are uploaded to its
             # device; a tensor already there is not copied
+            # nnlint: disable=NNL402 — host-born frames joining a device
+            # window: this upload IS the element's work (as_tensor of a tensor
+            # already there is a no-op)
             arrays = [torch.as_tensor(t, device=dev) for t in buf.tensors]
         else:
             arrays = [np.asarray(t) for t in buf.tensors]

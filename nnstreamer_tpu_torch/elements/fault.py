@@ -266,6 +266,8 @@ class TensorFault(Element):
             if _is_host_bf16(t):
                 # its bytes, as the reference corrupts an ml_dtypes array's
                 a = t.contiguous().clone()
+                # nnlint: disable=NNL101 — a host tensor (buf.as_numpy()):
+                # .numpy() is a view of its bytes, no device sync
                 flat = a.view(torch.int16).numpy().reshape(-1).view(np.uint8)
             else:
                 a = np.array(_host(t), copy=True)

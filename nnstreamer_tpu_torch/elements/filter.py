@@ -398,9 +398,16 @@ class TensorFilter(TransformElement):
         whole card), then ``release``; both steps land in ``swap_log``."""
         fence, kind = fenced
         if fence is not None:
+            # nnlint: disable=NNL203 — the swap fence: ONE event of the old
+            # weights' last invoke, which must finish before they are
+            # released; the caller's backend lock keeps a new invoke off the
+            # half-released backend
             fence.synchronize()
+        # nnlint: disable=NNL202 — swap_log is a bounded deque: append is
+        # atomic and its readers copy it
         self.swap_log.append((kind, clock_now()))
         release()
+        # nnlint: disable=NNL202 — the same bounded deque as above
         self.swap_log.append(("released", clock_now()))
 
     def _suspend_watch(self) -> None:
@@ -657,6 +664,8 @@ class TensorFilter(TransformElement):
         if sample_device:
             for dev in {o.device for o in outputs
                         if isinstance(o, torch.Tensor) and o.is_cuda}:
+                # nnlint: disable=NNL101 — sampled latency probe: syncs every
+                # Nth frame only (latency_sampling), by contract
                 torch.cuda.current_stream(dev).synchronize()
             self.stats.record_device(clock_now() - t0)
         # 5. output combination: i<N> passthrough of inputs, o<N>/int = outputs

@@ -159,6 +159,8 @@ class TensorGenerate(Element):
         steps = int(self.props["steps"])
         for i, token in enumerate(stream(prompt, steps,
                                          rng=int(self.props["seed"]))):
+            # nnlint: disable=NNL101 — the stream's one designed pull a step:
+            # each (B, 1) token leaves as a host buffer, by contract
             out = Buffer([token.cpu().numpy().reshape(-1, 1)])
             out.copy_metadata_from(buf)
             out.meta["gen_step"] = i

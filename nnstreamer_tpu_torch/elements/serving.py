@@ -223,6 +223,11 @@ class TensorServing(TransformElement):
         with self._sched_lock:
             sched, self.scheduler = self.scheduler, None
             key, self._shared_key = self._shared_key, None
+            # the backend is closed by the scheduler's on_close (possibly
+            # later, when the last shared-key holder releases) — only drop
+            # our negotiation reference here, under the lock that guards
+            # its adoption in _ensure_scheduler_locked
+            self._backend = None
         if sched is not None:
             if key:
                 from ..serving import release_shared_scheduler
@@ -230,10 +235,6 @@ class TensorServing(TransformElement):
                 release_shared_scheduler(key)
             else:
                 sched.close()
-        # the backend is closed by the scheduler's on_close (possibly
-        # later, when the last shared-key holder releases) — only drop
-        # our negotiation reference here
-        self._backend = None
         super().stop()
 
     # -- negotiation ---------------------------------------------------------

@@ -107,6 +107,8 @@ def _raw_bytes(t):
     """A host tensor's raw bytes as a buffer ``write()`` consumes without
     a per-tensor ``.tobytes()`` copy (bfloat16 through a uint8 view)."""
     if isinstance(t, torch.Tensor):
+        # nnlint: disable=NNL101 — the sink's tensor is already on the host:
+        # .numpy() is a view of its bytes
         return t.contiguous().view(torch.uint8).numpy().data
     return np.ascontiguousarray(t).data
 

@@ -55,6 +55,8 @@ class TensorSparseEnc(TransformElement):
                 # numpy has no bfloat16: the same COO packing in torch ops
                 flat = t.reshape(-1)
                 nz = torch.nonzero(flat).reshape(-1)
+                # nnlint: disable=NNL101 — is_host_bf16(t): a host tensor,
+                # .numpy() is a view, no device sync
                 tensors.extend([nz.to(torch.int32).numpy(), flat[nz]])
                 specs.append(TensorSpec(tuple(t.shape), t.dtype))
                 continue

@@ -533,6 +533,23 @@ def _update_active() -> None:
     ACTIVE = _started or _recording or _calibrating > 0
 
 
+#: the port's hand kernels (``ops/``): each wrapper counts its launches,
+#: and an artifact captured from the default profiler records those made
+#: since ``start()`` (a ``kernels`` section, present only when nonzero)
+HAND_KERNELS = ("decode_attention", "flash_attention", "fma_gemm",
+                "depthwise_fma")
+_kernels_at_start: Dict[str, int] = {}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each hand kernel's launch counter, as it stands."""
+    import importlib
+
+    return {name: int(getattr(importlib.import_module(
+        f"..ops.{name}", __package__), name).launches)
+        for name in HAND_KERNELS}
+
+
 def start(elements: bool = True) -> Profiler:
     """Switch continuous profiling on. ``elements=True`` (default) also
     installs the pad-hop tracer for per-element attribution; queue-wait,
@@ -544,6 +561,9 @@ def start(elements: bool = True) -> Profiler:
         if elements and _tracer is None:
             _tracer = _ProfilerTracer(default_profiler)
             trace.install_tracer(_tracer)
+        if not _started:
+            _kernels_at_start.clear()
+            _kernels_at_start.update(kernel_launches())
         _started = True
         _update_active()
     return default_profiler
@@ -707,7 +727,8 @@ class ProfileArtifact:
     def __init__(self, key: dict, entries: Dict[str, Dict[str, dict]],
                  pipeline: str = "", created: Optional[float] = None,
                  memory: Optional[Dict[str, dict]] = None,
-                 quality: Optional[Dict[str, dict]] = None):
+                 quality: Optional[Dict[str, dict]] = None,
+                 kernels: Optional[Dict[str, int]] = None):
         self.key = {"topology": str(key.get("topology", "")),
                     "caps": str(key.get("caps", "")),
                     "model_version": str(key.get("model_version", ""))}
@@ -718,6 +739,8 @@ class ProfileArtifact:
         self.memory: Dict[str, dict] = dict(memory or {})
         # quality: {stage: TensorHealth cell — obs/quality.py to_cell()}
         self.quality: Dict[str, dict] = dict(quality or {})
+        # kernels: {hand kernel: launches while the profiler was on}
+        self.kernels: Dict[str, int] = dict(kernels or {})
         self.pipeline = pipeline
         self.created = time.time() if created is None else created
 
@@ -759,15 +782,21 @@ class ProfileArtifact:
         qual = {name[len(prefix):]: cell
                 for name, cell in obs_quality.accountant()
                 .stages(prefix).items()}
+        kernels = {}
+        if profiler is None and _kernels_at_start:
+            kernels = {k: n - _kernels_at_start.get(k, 0)
+                       for k, n in kernel_launches().items()
+                       if n > _kernels_at_start.get(k, 0)}
         return cls(
             {"topology": topology_hash(pipeline),
              "caps": _negotiated_caps(pipeline) if caps is None else caps,
              "model_version": model_version},
-            entries, pipeline=pipeline.name, memory=mem, quality=qual)
+            entries, pipeline=pipeline.name, memory=mem, quality=qual,
+            kernels=kernels)
 
     # -- persistence ---------------------------------------------------------
     def to_dict(self) -> dict:
-        return {
+        d = {
             "schema": SCHEMA_VERSION,
             "kind": "nns-profile",
             "created": self.created,
@@ -785,6 +814,9 @@ class ProfileArtifact:
             "quality": {name: dict(cell)
                         for name, cell in sorted(self.quality.items())},
         }
+        if self.kernels:
+            d["kernels"] = dict(sorted(self.kernels.items()))
+        return d
 
     def save(self, path: str) -> str:
         with open(path, "w") as fh:
@@ -811,7 +843,9 @@ class ProfileArtifact:
                    memory={str(n): dict(c)
                            for n, c in (d.get("memory") or {}).items()},
                    quality={str(n): dict(c)
-                            for n, c in (d.get("quality") or {}).items()})
+                            for n, c in (d.get("quality") or {}).items()},
+                   kernels={str(k): int(n)
+                            for k, n in (d.get("kernels") or {}).items()})
 
     @classmethod
     def load(cls, path: str) -> "ProfileArtifact":
@@ -871,6 +905,9 @@ class ProfileArtifact:
                 self.quality[name] = dict(cell)
             else:
                 obs_quality.merge_cells(mine, cell)
+        # kernel launches are additive, as the samples they came with
+        for name, n in other.kernels.items():
+            self.kernels[name] = self.kernels.get(name, 0) + n
         self.created = max(self.created, other.created)
         return self
 
@@ -926,6 +963,8 @@ class ProfileArtifact:
                        "nan": cell.get("nan", 0),
                        "inf": cell.get("inf", 0)}
                 for name, cell in sorted(self.quality.items())}
+        if self.kernels:
+            out["kernels"] = dict(sorted(self.kernels.items()))
         return out
 
 

@@ -202,6 +202,8 @@ def _reduce_any(t) -> Optional[Tuple[int, np.ndarray, np.ndarray,
     packed = _torch_reduce(t.detach())
     if _san.XFER and t.device.type != "cpu":
         _san.note_transfer("quality:reduce", "d2h", REDUCE_PULL_BYTES)
+    # nnlint: disable=NNL101 — sampled health probe: pulls the packed
+    # reduction (REDUCE_PULL_BYTES) every SAMPLE_EVERY buffers, by contract
     host = packed.cpu().numpy()
     size = 1
     for d in t.shape:

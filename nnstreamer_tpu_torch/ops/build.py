@@ -86,6 +86,9 @@ def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        # nnlint: disable=NNL203 — one build at a time: the lock keeps two
+        # threads from running nvcc on the same sources; every source of a
+        # build starts at once and the lock is held until all end
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -96,12 +99,20 @@ def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, out[n])  # atomic: a concurrent loader sees all or nothing
+            try:
+                os.replace(tmp, out[n])  # atomic: a loader sees all or nothing
+            except OSError:
+                tmp.unlink(missing_ok=True)
+                raise
             if shared is not None:
                 shared.mkdir(parents=True, exist_ok=True)
                 copy = shared / f"{out[n].name}.{os.getpid()}.tmp"
-                shutil.copy2(out[n], copy)
-                os.replace(copy, shared / out[n].name)
+                try:
+                    shutil.copy2(out[n], copy)
+                    os.replace(copy, shared / out[n].name)
+                except OSError:
+                    copy.unlink(missing_ok=True)
+                    raise
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

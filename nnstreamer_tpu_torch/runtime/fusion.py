@@ -644,6 +644,9 @@ class FusedSegment:
                 for _ in range(WARMUP_RUNS):
                     call(xs)
             cur.wait_stream(side)
+            # nnlint: disable=NNL203 — the warm-up on the side stream must end
+            # before the capture begins; captures on a card are serialized by
+            # this lock by design
             side.synchronize()
             graph = torch.cuda.CUDAGraph()
             before = torch.cuda.memory_reserved(home)
@@ -787,8 +790,8 @@ class FusedSegment:
             if home.type == "cuda":
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(home))
-                # sampled latency probe: one sync every PROBE_EVERY
-                # dispatches, by contract
+                # nnlint: disable=NNL101 — sampled latency probe: one
+                # sync every PROBE_EVERY dispatches, by contract
                 done.synchronize()
             st["probe_device_s"] = clock_now() - t0
         if obs_profile.ACTIVE:

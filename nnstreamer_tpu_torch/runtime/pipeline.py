@@ -53,9 +53,15 @@ class Bus:
 class Pipeline:
     """A runnable graph of elements."""
 
-    def __init__(self, name: str = "pipeline", fuse: Optional[bool] = None,
-                 place=None):
+    def __init__(self, name: str = "pipeline", validate: bool = False,
+                 fuse: Optional[bool] = None, place=None):
         self.name = name
+        # opt-in static validation at play(): the graph linter
+        # (analysis.lint_pipeline) runs before data flows and logs its
+        # findings — info ones (the NNL013 fusion plan) at info, the rest
+        # as warnings; validation never blocks a play() the caller asked
+        # for (warn-only; use the lint CLI to gate hard)
+        self.validate = validate
         # device-segment fusion (runtime/fusion.py): ON by default — each
         # linear run of device elements becomes one dispatch per buffer
         # (a CUDA graph replay on the card). fuse=False (or the
@@ -178,6 +184,8 @@ class Pipeline:
                 return self
             trace.install_from_env()   # NNS_TRACERS (GST_TRACERS analog)
             trace.dump_dot(self)       # NNS_DOT_DIR (GST_DEBUG_DUMP_DOT_DIR)
+            if self.validate:
+                self._run_static_validation()
             self._validate_links()
             self._playing = True
             self._play_epoch += 1
@@ -298,6 +306,22 @@ class Pipeline:
             "per_element": per_element,
             "per_sink": per_sink,
         }
+
+    def _run_static_validation(self) -> None:
+        """Warn-only graph lint at play() (validate=True): every finding
+        becomes a log record, never an exception."""
+        from ..analysis import Severity, lint_pipeline
+
+        try:
+            diags = lint_pipeline(self)
+        except Exception:  # noqa: BLE001 - validation must not block play
+            logger.exception("%s: static validation failed to run", self.name)
+            return
+        for d in diags:
+            # info findings (NNL013 fusion plans) are reports, not hazards
+            log = (logger.info if d.severity is Severity.INFO
+                   else logger.warning)
+            log("%s: %s", self.name, d.format())
 
     def _validate_links(self) -> None:
         for el in self.elements.values():

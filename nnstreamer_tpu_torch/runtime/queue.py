@@ -16,6 +16,7 @@ from collections import deque
 from time import monotonic as _monotonic
 from typing import Optional
 
+from ..analysis import sanitizer as _san
 from ..analysis.sanitizer import named_condition
 from ..core import Buffer, Event, EventType
 from ..core.caps import any_media_caps
@@ -226,6 +227,16 @@ class QueueElement(Element):
                     obs_profile.record_queue_wait(
                         obs_profile.series_name(self),
                         _monotonic() - t0, self._ch._n_bufs)
+                if _san.XFER:
+                    # queue hand-off choke point: byte-accounting only —
+                    # the worker thread may run host elements, so nothing
+                    # is banned here. Device buffers cross by reference
+                    # (zero copy), and the ledger proves it: "queue" rows
+                    # carry bytes moved, not bytes copied.
+                    _san.note_transfer(
+                        f"queue:{self.name}",
+                        "device" if payload.on_device else "host",
+                        payload.nbytes)
                 try:
                     self.srcpad.push(payload)
                 except Exception as e:  # noqa: BLE001

@@ -144,6 +144,8 @@ class ContinuousLMEngine:
         # position, active ones take the new token and step forward
         self._tok_dev = torch.where(self._mask_dev, out, self._tok_dev)
         self._pos_dev += self._mask_dev.to(torch.int32)
+        # nnlint: disable=NNL101 — one (slots,) pull per decode step: the
+        # scheduler needs host ints to append/retire (documented contract)
         tok = out.cpu().numpy()  # the step's one device-to-host copy
         self._pos = self._pos + self._mask.astype(np.int32)
         self._tok[self._mask] = tok[self._mask]
@@ -480,6 +482,8 @@ class PagedLMEngine:
                                       int(self._pos[s]) + 1)
         self._sigs.add(("step", self.slots))
         out = self._step_program(self._block_tables())
+        # nnlint: disable=NNL101 — one (slots,) pull per decode step: the
+        # scheduler needs host ints to append/retire (documented contract)
         tok = out.cpu().numpy()  # the step's one device-to-host copy
         self._pos = self._pos + self._mask.astype(np.int32)
         self._tok[self._mask] = tok[self._mask]

@@ -64,6 +64,9 @@ def _block_ready(outputs) -> None:
     devices = {o.device for o in outputs
                if isinstance(o, torch.Tensor) and o.is_cuda}
     for dev in devices:
+        # nnlint: disable=NNL101 — deliberate: futures may only complete once
+        # device results exist, and this wait is what the device-time metric
+        # measures
         torch.cuda.synchronize(dev)
 
 
@@ -704,7 +707,8 @@ class DecodeScheduler:
         if early:
             self.metrics.record_early_retire()
         req.metrics["decode_steps"] = len(req.tokens)
-        # req.tokens is a host-side python list: a pack, not a device sync
+        # nnlint: disable=NNL101 — req.tokens is a host-side python list: this
+        # asarray is a list→array pack, not a device sync
         req.complete((np.asarray(req.tokens, np.int32),))
         self._record_done(req)
 
@@ -811,8 +815,9 @@ class DecodeScheduler:
                     if step_tokens is not None:
                         bursts = step_tokens()  # 1..K tokens per slot
                     else:
-                        # the decode loop's one designed pull: (slots,)
-                        # tokens must reach the host to route/retire
+                        # nnlint: disable=NNL101 — the decode loop's one
+                        # designed pull: (slots,) tokens must reach the
+                        # host to route/retire
                         toks = np.asarray(self.engine.step())
                     stepped = True
                     break

@@ -109,6 +109,9 @@ class DoubleBufferedStager:
         if slot.done is not None:
             # this slot's previous copy (two frames ago) must have left
             # the pinned buffer before the host rewrites it
+            # nnlint: disable=NNL203 — this slot's copy of two frames ago must
+            # leave the pinned buffer before the host rewrites it: one event,
+            # already done in steady state
             slot.done.synchronize()
         staged: List[Any] = []
         moved = 0

@@ -15,6 +15,16 @@ add each rounded; so one FMA chain, 2 and 4 chains and 512-step blocks
 (``ops/fma_gemm.py``), and the multiply-then-add forms: one chain, K
 blocks of 8-512 added in order, 2-16 chains added pairwise.
 
+Eigen GEBP's remainder paths (``peeled_forms``): with 16-float packets the
+3-packet path takes rows 0-959 of the transposed product, the 2-packet
+path 960-991, the half-packet path 992-999 and the scalar path 1000. In
+each K block (``kc`` steps) the k loop is peeled by 8 and alternates two
+accumulator sets: even steps FMA into C, odd ones into D, and C + D is
+added after the peeled loop; the block's sum is added to the result in
+block order. Tried per sub-range, for kc = 256, 320, 512, 640 and 1280,
+with the two sets split by step parity, by halves of the 8-step group, or
+as four sets (k mod 4) added pairwise.
+
     python tests/fixtures/fc_tail_orders.py     # ~1 min on the CPU, JAX
 """
 import sys
@@ -80,6 +90,47 @@ def mul_add(a, b, chains=1, kblock=0):
     return ch[0]
 
 
+def peeled(a, b, kc, split):
+    """One K block at a time: the block's steps split into accumulator
+    sets by ``split(k)`` (k counted from the block's start), each an FMA
+    chain, the sets added pairwise in set order; the blocks' sums added
+    to the result in block order."""
+    K = a.shape[1]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    out = None
+    for k0 in range(0, K, kc):
+        ks = np.arange(k0, min(K, k0 + kc))
+        sets = {}
+        for k in ks:
+            sets.setdefault(split(k - k0), []).append(k)
+        parts = [fma_gemm_plain(ta[:, idx], tb[idx])
+                 for _, idx in sorted(sets.items())]
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] if i + 1 < len(parts)
+                     else parts[i] for i in range(0, len(parts), 2)]
+        out = parts[0] if out is None else out + parts[0]
+    return out.numpy()
+
+
+SPLITS = {"parity (C even, D odd)": lambda k: k % 2,
+          "halves of 8 (C 0-3, D 4-7)": lambda k: (k % 8) // 4,
+          "four sets (k mod 4)": lambda k: k % 4}
+SUBRANGES = {"2-packet 960-991": (0, 32), "half-packet 992-999": (32, 40),
+             "scalar 1000": (40, 41)}
+
+
+def peeled_forms(a, tail, w):
+    """Rows of (form, mismatches per sub-range) for the peeled orders."""
+    rows = []
+    for kc in (256, 320, 512, 640, 1280):
+        for sname, split in SPLITS.items():
+            got = peeled(a, tail, kc, split)
+            miss = {r: int((got[:, c0:c1] != w[:, c0:c1]).sum())
+                    for r, (c0, c1) in SUBRANGES.items()}
+            rows.append((f"peeled by 8, kc {kc}, {sname}", miss))
+    return rows
+
+
 def main() -> None:
     a, b, want = fc_operands()
     head = fma_gemm_plain(torch.from_numpy(a), torch.from_numpy(
@@ -101,6 +152,10 @@ def main() -> None:
     for name, got in rows:
         print(f"columns 960-1000, {name}: {int((got != w).sum())} of "
               f"{w.size} differ")
+    sizes = {r: 4 * (c1 - c0) for r, (c0, c1) in SUBRANGES.items()}
+    for name, miss in peeled_forms(a, tail, w):
+        print(f"columns 960-1000, {name}: " + ", ".join(
+            f"{r} {n} of {sizes[r]}" for r, n in miss.items()))
 
 
 if __name__ == "__main__":

@@ -172,6 +172,13 @@ SLICE_MODULES = [
     "nnstreamer_tpu_torch.ops.depthwise_fma",
     "nnstreamer_tpu_torch.utils.flops",
     "nnstreamer_tpu_torch.utils.tpu_diag",
+    "nnstreamer_tpu_torch.analysis.source_lint",
+    "nnstreamer_tpu_torch.analysis.concurrency_lint",
+    "nnstreamer_tpu_torch.analysis.lifecycle_lint",
+    "nnstreamer_tpu_torch.analysis.transfer_lint",
+    "nnstreamer_tpu_torch.analysis.protocol_lint",
+    "nnstreamer_tpu_torch.analysis.cli",
+    "nnstreamer_tpu_torch.entry",
 ]
 # the slice that needs no TensorFlow to import: blocked too when checked
 TFLITE_MODULES = [
