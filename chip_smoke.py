@@ -519,14 +519,32 @@ phase fails:
     the report is 1.05 × the raw estimate; (f) a wedged ``SingleShot``
     invoke on the card times out after 50 ms and its late result never
     reaches the next call.
+24. the robustness harnesses on the card (also ``--only robustness``):
+    (a) ``tools/wirefuzz_torch.py``'s offline surfaces (``decode_frame``,
+    ``unpack_tensors``, the shm ring; seed 19, the full catalog) over
+    baseline tensors on cuda:0, so the encoder pulls them from the card:
+    the scoreboard equals the host arrays' surface by surface, every
+    mutant typed or clean; (b) ``tensor_query_serversrc ! tensor_filter
+    framework=torch model=...mobilenet_v2:filter_model !
+    tensor_query_serversink`` (224×224×3, width 1.0, 1001 classes, bf16 on
+    cuda:0) takes every NNSB mutant of a real (1, 224, 224, 3) frame, each
+    typed or clean within the fuzzer's deadline; a clean client's 64
+    labels after the fuzz equal its labels before, and the server's
+    threads and shm slots are reclaimed (the port's leak ledger is empty);
+    (c) ``tools/chaos_torch.py --smoke --proc-model mobilenet_v2`` in a
+    child process under the port's ``NNS_TSAN=1`` and ``NNS_LEAKCHECK=1``,
+    replicas on cuda:0 (proc-replica-kill's serving MobileNet-v2): every
+    scenario has zero client-visible errors and the sanitizer records
+    nothing; each scenario's time to evict, time to readmit and p99 are
+    printed. No hand kernel runs in this phase.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
 plugins``, ``--only tflite``, ``--only query``, ``--only service``,
 ``--only train``, ``--only aot``, ``--only mesh``, ``--only tooling``,
-``--only conformance``) runs phase 13 (14, 15, 16, 17, 18, 19, 20, 21,
-22, 23) alone and prints its
+``--only conformance``, ``--only robustness``) runs phase 13 (14, 15,
+16, 17, 18, 19, 20, 21, 22, 23, 24) alone and prints its
 report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
@@ -9214,6 +9232,327 @@ def phase_conformance_alone(report: dict) -> None:
     phase_conformance(report, prompts, filter_outs)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the robustness harnesses on the card (--only robustness)
+# ---------------------------------------------------------------------------
+
+RB_SEED = 19
+# the live server: MobileNet-v2 at full width, bf16 on the card, fed one
+# float32 (1, 224, 224, 3) frame a request
+RB_MODEL = "nnstreamer_tpu_torch.models.mobilenet_v2:filter_model"
+RB_CAPS = ("other/tensors,format=static,dimensions=3:224:224:1,"
+           "types=float32")
+RB_SERVER_ID = 240
+RB_FRAMES = 64
+RB_WAIT = 120.0
+RB_LEAK_GRACE_S = 5.0
+# the clean client's logits after the fuzz vs before (bf16 logits of one
+# server on one card: equal up to a cuDNN algorithm that is not bitwise
+# reproducible)
+RB_LOGIT_ATOL = 1e-2
+# the chaos smoke's child process (tools/chaos_torch.py --smoke)
+RB_CHAOS_TIMEOUT = 420.0
+
+
+def rb_fuzzer():
+    """tools/wirefuzz_torch.py as a module (its catalog and `drive`)."""
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import wirefuzz_torch
+
+    return wirefuzz_torch
+
+
+def rb_decode_surfaces(report: dict) -> dict:
+    """(a) The fuzzer's offline surfaces (decode_frame, unpack_tensors and
+    the shm ring; seed 19, the full catalog) over baseline tensors on the
+    card, then over host arrays: equal scoreboards, surface by surface,
+    every mutant typed or clean, and the encoder pulled every card
+    baseline from the device."""
+    import random
+
+    from nnstreamer_tpu_torch.analysis import sanitizer as san
+    from nnstreamer_tpu_torch.transport import stats
+
+    wf = rb_fuzzer()
+    probe = wf._baseline_buffers(random.Random(RB_SEED), False, str(ST_DEV))
+    if not all(t.is_cuda for _, b in probe for t in b.tensors):
+        fail("robustness: the card baselines are not on the card")
+    boards, d2h = {}, {}
+    was = san.wirefuzz_enabled()
+    san.enable_wirefuzz()
+    try:
+        for where, device in (("card", str(ST_DEV)), ("host", None)):
+            san.reset_wirefuzz()
+            before = stats.snapshot()["d2h"].get("tensors", 0)
+            t0 = time.perf_counter()
+            rng = random.Random(RB_SEED)
+            wf.run_decode_surface(rng, False, device)
+            wf.run_shm_surface(rng, device)
+            rep = san.wirefuzz_report()
+            boards[where] = {"surfaces": rep["surfaces"],
+                             "violations": rep["violations"],
+                             "s": time.perf_counter() - t0}
+            d2h[where] = stats.snapshot()["d2h"].get("tensors", 0) - before
+    finally:
+        if not was:
+            san.disable_wirefuzz()
+    for where, b in boards.items():
+        if b["violations"]:
+            fail(f"robustness (a): {len(b['violations'])} contract "
+                 f"violation(s) over {where} baselines: "
+                 f"{b['violations'][:3]}")
+    if boards["card"]["surfaces"] != boards["host"]["surfaces"]:
+        fail("robustness (a): the card baselines' scoreboard "
+             f"{boards['card']['surfaces']} != the host's "
+             f"{boards['host']['surfaces']}")
+    if d2h["card"] <= 0 or d2h["host"] != 0:
+        fail(f"robustness (a): device pulls card {d2h['card']}, host "
+             f"{d2h['host']} (want > 0 and 0)")
+    total = sum(n for per in boards["card"]["surfaces"].values()
+                for n in per.values())
+    print(f"robustness ({report['device']}): (a) {total} offline mutants "
+          f"over card baselines in {boards['card']['s']:.3f} s, "
+          f"{d2h['card']} tensors pulled from the card, scoreboard = the "
+          f"host's: {boards['card']['surfaces']}")
+    return {"mutants": total, "surfaces": boards["card"]["surfaces"],
+            "card_s": boards["card"]["s"], "host_s": boards["host"]["s"],
+            "d2h_tensors": d2h["card"]}
+
+
+def rb_labels(port: int, frames: np.ndarray) -> tuple:
+    """One clean client's answers: ``frames`` through ``appsrc !
+    tensor_query_client ! tensor_sink`` to the server on ``port``; each
+    answer's argmax in order, the answers as float32, and the wire
+    format the client negotiated."""
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+
+    pipe = parse_launch(
+        f"appsrc name=in caps={RB_CAPS} ! tensor_query_client name=qc "
+        f"host=127.0.0.1 port={port} ! tensor_sink name=out")
+    logits = []
+
+    def keep(b):
+        t = b.tensors[0]
+        t = t.float() if isinstance(t, torch.Tensor) \
+            else torch.from_numpy(np.asarray(t, np.float32))
+        logits.append(t.reshape(-1).clone())
+    pipe.get("out").connect(keep)
+    pipe.play()
+    try:
+        for f in frames:
+            pipe.get("in").push_buffer(f)
+        qy_wait(lambda: len(logits) >= len(frames),
+                "robustness clean client", RB_WAIT)
+        wire = pipe.get("qc").client.wire_format
+    finally:
+        pipe.stop()
+    out = torch.stack(logits)
+    return out.argmax(-1).tolist(), out, wire
+
+
+def rb_poke(port: int, mutant: bytes, deadline: float):
+    """Handshake, send one mutant DATA frame, await the answer. A dropped
+    link raises ConnectionError and an ERROR frame ValueError (both
+    typed); a DATA answer is decoded (clean)."""
+    import socket
+
+    from nnstreamer_tpu_torch import transport
+    from nnstreamer_tpu_torch.core.serialize import unpack_tensors
+    from nnstreamer_tpu_torch.query.protocol import (MsgType, recv_msg,
+                                                     send_msg)
+
+    s = socket.create_connection(("127.0.0.1", port), timeout=deadline)
+    s.settimeout(deadline)
+    try:
+        send_msg(s, MsgType.CAPABILITY, RB_CAPS.encode())
+        msg = recv_msg(s)
+        if msg is None or msg[0] is not MsgType.CAPABILITY:
+            raise RuntimeError(f"handshake refused: {msg}")
+        try:
+            send_msg(s, MsgType.DATA, mutant)
+        except BrokenPipeError as e:
+            raise ConnectionError(f"link dropped during send: {e}")
+        try:
+            msg = recv_msg(s)
+        except socket.timeout:
+            raise TimeoutError("no answer and no close")
+        if msg is None:
+            raise ConnectionError("server dropped the link (typed)")
+        if msg[0] is MsgType.ERROR:
+            raise ValueError(msg[1].decode(errors="replace"))
+        return (transport.decode_frame(msg[1])
+                if transport.is_binary_frame(msg[1])
+                else unpack_tensors(msg[1]))
+    finally:
+        s.close()
+
+
+def rb_live_mobilenet(report: dict) -> dict:
+    """(b) A port server line serving MobileNet-v2 (full width, bf16 on
+    the card) takes every NNSB mutant of a real (1, 224, 224, 3) frame;
+    each is typed or clean within the deadline; a clean client's 64
+    labels after the fuzz equal its labels before; the server's threads
+    and shm slots are reclaimed (the leak ledger is empty)."""
+    import random
+    import threading
+
+    from nnstreamer_tpu_torch import transport
+    from nnstreamer_tpu_torch.analysis import sanitizer as san
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.runtime.parse import parse_launch
+    from nnstreamer_tpu_torch.transport import stats
+
+    wf = rb_fuzzer()
+    frames = np.random.default_rng(RB_SEED).uniform(
+        -1, 1, (RB_FRAMES, 1, 224, 224, 3)).astype(np.float32)
+    had_leak, had_wf = san.leakcheck_enabled(), san.wirefuzz_enabled()
+    san.enable_leakcheck()
+    san.enable_wirefuzz()
+    out: dict = {}
+    try:
+        server = parse_launch(qy_server_line(RB_MODEL, RB_CAPS,
+                                             RB_SERVER_ID))
+        server.play()
+        try:
+            qy_wait(lambda: server.get("ssrc").bound_port != 0,
+                    "robustness server port", RB_WAIT)
+            port = server.get("ssrc").bound_port
+            d2h0 = stats.snapshot()["d2h"].get("tensors", 0)
+            before, logits0, wire = rb_labels(port, frames)
+            served_d2h = stats.snapshot()["d2h"].get("tensors", 0) - d2h0
+            if served_d2h < RB_FRAMES:
+                fail(f"robustness (b): the server pulled {served_d2h} "
+                     f"answers from the card for {RB_FRAMES} frames")
+            blob = bytes(transport.encode_frame_bytes(Buffer([frames[0]])))
+            mutants = list(wf.nnsb_mutants(blob, random.Random(RB_SEED)))
+            per: dict = {}
+            t0 = time.perf_counter()
+            for name, m in mutants:
+                fate = wf.drive("mobilenet_server", name,
+                                lambda m=m: rb_poke(port, m, wf.DEADLINE_S))
+                per[fate] = per.get(fate, 0) + 1
+            fuzz_s = time.perf_counter() - t0
+            viol = san.wirefuzz_violations()
+            if viol or set(per) - {"typed", "clean"}:
+                fail(f"robustness (b): outcomes {per}, violations "
+                     f"{viol[:3]}")
+            after, logits1, _ = rb_labels(port, frames)
+        finally:
+            server.stop()
+        if after != before:
+            diff = sum(a != b for a, b in zip(after, before))
+            fail(f"robustness (b): {diff} of {RB_FRAMES} labels changed "
+                 "across the fuzz")
+        # random weights give most frames one label, so the logits are
+        # held too: the same server, model and frames on one card
+        logit_err = float((logits1 - logits0).abs().max())
+        if logit_err > RB_LOGIT_ATOL:
+            fail(f"robustness (b): logits moved by {logit_err} across the "
+                 f"fuzz (limit {RB_LOGIT_ATOL})")
+        deadline = time.perf_counter() + RB_LEAK_GRACE_S
+        rest = san.outstanding()
+        while rest and time.perf_counter() < deadline:
+            time.sleep(0.05)
+            rest = san.outstanding()
+        threads = [t.name for t in threading.enumerate()
+                   if t.name.startswith(("qserver", "qclient"))]
+        if rest or threads:
+            fail(f"robustness (b): not reclaimed after stop: ledger "
+                 f"{rest[:5]}, threads {threads}")
+        out = {"mutants": len(mutants), "outcomes": per, "fuzz_s": fuzz_s,
+               "labels": before[:8], "wire": wire,
+               "distinct_labels": len(set(before)),
+               "logit_max_abs_diff": logit_err}
+    finally:
+        if not had_leak:
+            san.disable_leakcheck()
+        if not had_wf:
+            san.disable_wirefuzz()
+    print(f"robustness ({report['device']}): (b) {out['mutants']} NNSB "
+          f"mutants into the MobileNet-v2 server on the card in "
+          f"{out['fuzz_s']:.3f} s: {per}; {RB_FRAMES} labels over "
+          f"{wire} equal before and after (logits max |diff| "
+          f"{logit_err}); ledger empty")
+    return out
+
+
+def rb_chaos(report: dict) -> dict:
+    """(c) tools/chaos_torch.py --smoke with its replicas on the card
+    (proc-replica-kill's serving MobileNet-v2) in a child process under
+    the port's NNS_TSAN=1 and NNS_LEAKCHECK=1: every scenario passes its
+    gate with zero client-visible errors and zero violations."""
+    import os
+    import signal
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="nns-chaos-")) / "chaos.json"
+    env = dict(os.environ, NNS_TSAN="1", NNS_LEAKCHECK="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "chaos_torch.py"), "--smoke",
+         "--proc-model", "mobilenet_v2", "--out", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=RB_CHAOS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)   # the child and its replicas
+        proc.wait(timeout=60)
+        fail(f"robustness (c): the chaos smoke ran past "
+             f"{RB_CHAOS_TIMEOUT:.0f} s")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)   # any replica left behind
+        except ProcessLookupError:
+            pass
+    wall = time.perf_counter() - t0
+    log_dir = ROOT / "chiprun_out"
+    log_dir.mkdir(exist_ok=True)
+    (log_dir / "chaos_smoke.err").write_text(err)
+    if not out.exists():
+        fail(f"robustness (c): no chaos report (exit {proc.returncode}): "
+             f"{err[-2000:]}")
+    rep = json.loads(out.read_text())
+    for name, r in rep["scenarios"].items():
+        print(f"robustness ({report['device']}): (c) {name}: "
+              f"{r.get('requests', 0)} requests, {len(r['errors'])} errors, "
+              f"p99 {r.get('p99_s', 0.0) * 1e3:.3f} ms, evict "
+              f"{r.get('t_evict_s', 'n/a')} s, readmit "
+              f"{r.get('t_readmit_s', 'n/a')} s, {r['seconds']:.3f} s")
+    bad = {n: r["errors"][:3] for n, r in rep["scenarios"].items()
+           if r["errors"] or not r["ok"]}
+    if proc.returncode != 0 or bad or not rep["ok"]:
+        fail(f"robustness (c): chaos smoke exit {proc.returncode}, failed "
+             f"scenarios {bad}, tsan {rep.get('tsan_violations')}, leaks "
+             f"{rep.get('leak_outstanding')}: {err[-1500:]}")
+    if rep.get("tsan_violations") != [] or rep.get("leak_outstanding") != []:
+        fail("robustness (c): the sanitizer was not armed or recorded "
+             f"something: tsan {rep.get('tsan_violations')}, leaks "
+             f"{rep.get('leak_outstanding')}")
+    pk = rep["scenarios"]["proc-replica-kill"]
+    if pk["model"] != "mobilenet_v2" or not pk["devices"] or \
+            not all(d.startswith("cuda") for d in pk["devices"]):
+        fail(f"robustness (c): proc-replica-kill served {pk['model']} on "
+             f"{pk['devices']} (want mobilenet_v2 on the card)")
+    if rep["device"] != "cuda":
+        fail(f"robustness (c): the chaos replicas ran on {rep['device']}")
+    return {"wall_s": wall, "scenarios": rep["scenarios"]}
+
+
+def phase_robustness(report: dict) -> None:
+    """Phase 24: the wire fuzzer and the chaos harness driving the port on
+    the card (module docstring)."""
+    r = report["robustness"] = {}
+    t0 = time.perf_counter()
+    r["decode"] = rb_decode_surfaces(report)
+    r["live"] = rb_live_mobilenet(report)
+    r["chaos"] = rb_chaos(report)
+    r["phase_s"] = time.perf_counter() - t0
+    print(f"robustness ({report['device']}): phase 24 took "
+          f"{r['phase_s']:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -9242,21 +9581,21 @@ def main() -> None:
              "train": phase_train_alone, "aot": phase_aot_alone,
              "mesh": phase_mesh_alone, "tooling": phase_tooling_alone,
              "conformance": phase_conformance_alone,
+             "robustness": phase_robustness,
              "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 or 23 alone (no ok
-        # line),
-        # or the trace-loss count
+        # phase 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23 or 24 alone (no
+        # ok line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
              "--only fusion / streams / plugins / tflite / query / service "
-             "/ train / aot / mesh / tooling / conformance for phase 13 / 14 "
-             "/ 15 / 16 / 17 / 18 / 19 / 20 / 21 / 22 / 23 alone, or --only "
-             "trace-loss)")
+             "/ train / aot / mesh / tooling / conformance / robustness for "
+             "phase 13 / 14 / 15 / 16 / 17 / 18 / 19 / 20 / 21 / 22 / 23 / 24 "
+             "alone, or --only trace-loss)")
     phase_s = report["phase_s"] = {}
 
     def timed(fn, *args):
@@ -9296,6 +9635,7 @@ def main() -> None:
     timed(phase_mesh, report, prompts, filter_outs, dev)
     timed(phase_tooling, report, prompts, filter_outs)
     timed(phase_conformance, report, prompts, filter_outs)
+    timed(phase_robustness, report)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]

@@ -5,7 +5,10 @@ the JAX distributed runtime; here every process is one rank of a
 ``torch.distributed`` world (one card each): ``init_multihost()`` reads the
 reference's environment names — ``NNS_COORD`` ("host:port" of rank 0),
 ``NNS_NUM_PROCS``, ``NNS_PROC_ID`` — and calls ``init_process_group`` on
-``tcp://NNS_COORD``. The backend is NCCL where a card is present (the
+``tcp://NNS_COORD``. A coordinator that is already an init-method URL
+(``file:///path/store``, ``tcp://host:port``) is passed as it is: a file
+store needs no port, so worlds started side by side on one host cannot
+race for one. The backend is NCCL where a card is present (the
 rank's card is ``cuda:<rank % cards>``) and gloo on a machine without one;
 a failed NCCL bring-up is an error, never a gloo run. Nothing in a machine
 tells a process of a cluster, so with none of the three set the call is a
@@ -62,7 +65,9 @@ def init_multihost(coordinator: Optional[str] = None,
         dev = torch.device("cuda", process_id % torch.cuda.device_count())
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+    init_method = (coordinator if "://" in coordinator
+                   else f"tcp://{coordinator}")
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=num_processes, rank=process_id, **kw)
     logger.info("multihost: initialized process %d of %d via %s (%s)",
                 process_id, num_processes, coordinator, backend)

@@ -17,7 +17,8 @@ import queue as _queue
 import threading
 from typing import Optional
 
-from ..core import Buffer, Caps, Event, EventType, clock_now, parse_caps_string
+from ..core import (Buffer, Caps, Event, EventType, TensorFormat, clock_now,
+                    parse_caps_string, tensors_info_from_caps)
 from ..registry.elements import register_element
 from ..runtime.element import Element, ElementError, Prop, SinkElement, SourceElement, prop_bool
 from ..runtime.pad import Pad, PadDirection, PadTemplate
@@ -321,6 +322,20 @@ class TensorQueryClient(Element):
         self._got_input_eos = False
 
 
+def _static_info(caps: Caps):
+    """The fixed static layout ``caps`` declares, or None (flexible,
+    sparse, unfixed or non-tensor caps): what the server holds every
+    inbound frame to."""
+    try:
+        info = tensors_info_from_caps(caps)
+    except (ValueError, TypeError):
+        return None
+    if info.format is not TensorFormat.STATIC or not info.specs \
+            or not info.is_fixated:
+        return None
+    return info
+
+
 @register_element
 class TensorQueryServerSrc(SourceElement):
     ELEMENT_NAME = "tensor_query_serversrc"
@@ -366,6 +381,7 @@ class TensorQueryServerSrc(SourceElement):
             # remote caps negotiation: reject clients whose stream cannot
             # intersect this server's declared input caps
             self.server.accept_caps = accepted.can_intersect
+            self.server.frame_info = _static_info(accepted)
         if self.props["connect_type"] == "HYBRID":
             _hybrid_advertise(self, self.server.port)
         super().start()

@@ -16,8 +16,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-from ..core import Buffer, Caps, parse_caps_string
-from ..core.serialize import pack_tensors, unpack_tensors
+from ..core import Buffer, Caps, DataType, TensorsInfo, parse_caps_string
+from ..core.serialize import SPARSE_META_KEY, pack_tensors, unpack_tensors
 from ..obs import context as obs_context
 from ..obs import profile as obs_profile
 from ..utils.log import logger
@@ -88,6 +88,9 @@ class QueryServer:
         self.host, self.port = self._sock.getsockname()
         self.caps = caps
         self.accept_caps = accept_caps
+        # the static layout every inbound frame must have (set by a
+        # serversrc whose caps are static and fixed; None = any frame)
+        self.frame_info: Optional[TensorsInfo] = None
         self.inbox: _queue.Queue = _queue.Queue()
         self._clients: Dict[int, socket.socket] = {}
         self._client_caps: Dict[int, Caps] = {}
@@ -350,6 +353,7 @@ class QueryServer:
                             self.port, limit, client_id)
                         continue
                     buf = self._decode_data(client_id, payload)
+                    self._check_frame(buf)
                     buf.meta["client_id"] = client_id
                     track = self._inflight.get(client_id)
                     if track is not None:
@@ -437,6 +441,33 @@ class QueryServer:
             return transport.decode_frame(payload, copy=False)
         wire_stats.note_frame(transport.FORMAT_JSON, "rx", len(payload))
         return unpack_tensors(payload)
+
+    def _check_frame(self, buf: Buffer) -> None:
+        """Hold a decoded frame to ``frame_info``: a frame that decodes
+        clean but carries another tensor count, dtype or element count,
+        or sparse tensors, raises FrameError (a ValueError: the link drops,
+        typed) before any element downstream of the serversrc sees it."""
+        info = self.frame_info
+        if info is None:
+            return
+        if SPARSE_META_KEY in buf.meta:
+            raise transport.FrameError(
+                "sparse frame for a server of static caps "
+                f"{info.to_fields()}")
+        if len(buf.tensors) != info.num_tensors:
+            raise transport.FrameError(
+                f"frame carries {len(buf.tensors)} tensors, the server's "
+                f"caps {info.num_tensors}")
+        for i, (t, spec) in enumerate(zip(buf.tensors, info.specs)):
+            n = 1
+            for d in t.shape:
+                n *= int(d)
+            if DataType.from_any(t.dtype) is not spec.dtype \
+                    or n != spec.num_elements:
+                raise transport.FrameError(
+                    f"tensor {i}: {DataType.from_any(t.dtype).value}"
+                    f"{tuple(t.shape)} off the server's caps "
+                    f"{spec.describe()}")
 
     # -- answer routing -----------------------------------------------------
     def _pop_mark_locked(self, client_id: int,

@@ -57,10 +57,12 @@ The pieces
     version and routes ``fraction`` of keys to it; promote rolls the
     rest, cancel flips it back.
 
-Chaos: ``tools/chaos.py`` + :data:`~..elements.fault.net_chaos` exercise
-every failover path here (replica kill, connection kill, delay,
-partition, rolling swap under traffic) with a zero-request-errors gate;
-CI runs it under ``NNS_TSAN=1``.
+Chaos: ``tools/chaos_torch.py`` + :data:`~..elements.fault.net_chaos`
+exercise every failover path here (replica kill, connection kill, delay,
+partition, rolling swap, load ramp, process-replica and shm-peer kills,
+wire corruption, all under traffic) with a zero-request-errors gate;
+``tests/test_torch_chaos_harness.py`` runs its smoke set under the port's
+``NNS_TSAN=1`` and ``NNS_LEAKCHECK=1``.
 
 Lock contracts (docs/concurrency.md): ``ReplicaPool._lock`` guards
 membership/ring/stats and is never held across network I/O, sleeps, or

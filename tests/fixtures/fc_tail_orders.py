@@ -38,6 +38,16 @@ accumulation rounded once (a library's reference path); and numpy's
 pairwise sum of the float32 products (8 accumulators unrolled, blocks of
 128 halved recursively).
 
+The operands first (``operands_check``): the same ``jnp.matmul`` jitted
+alone on the captured operands, with ``b`` a parameter and with ``b`` a
+constant (the full forward folds the dequantized weights into a constant
+f32[1280, 1001] and feeds it and the MEAN's fusion to one plain ``dot``;
+``jax.jit(fn).lower(x).compile().as_text()`` shows it), must give the
+forward's bits in all 1001 columns. It does, and also with
+``XLA_FLAGS=--xla_cpu_multi_thread_eigen=false``: the operands are the
+forward's, and the tail's order is inside XLA:CPU's dot itself, on one
+thread too.
+
     python tests/fixtures/fc_tail_orders.py     # ~1 min on the CPU, JAX
 """
 import sys
@@ -220,8 +230,24 @@ def library_forms(a, tail):
     return rows
 
 
+def operands_check(a, b, want):
+    """Rows of (form, head mismatches, tail mismatches) for the FC's dot
+    jitted alone on the captured operands."""
+    bc = jnp.asarray(b)
+    rows = [("jitted dot alone, b a parameter", jax.jit(
+                lambda x, y: jnp.matmul(x, y, precision="highest"))(a, b)),
+            ("jitted dot alone, b a constant", jax.jit(
+                lambda x: jnp.matmul(x, bc, precision="highest"))(a))]
+    return [(name, int((np.asarray(v)[:, :960] != want[:, :960]).sum()),
+             int((np.asarray(v)[:, 960:] != want[:, 960:]).sum()))
+            for name, v in rows]
+
+
 def main() -> None:
     a, b, want = fc_operands()
+    for name, head, tail in operands_check(a, b, want):
+        print(f"{name}: columns 0-959 {head} of {4 * 960} differ, "
+              f"columns 960-1000 {tail} of {4 * 41} differ")
     head = fma_gemm_plain(torch.from_numpy(a), torch.from_numpy(
         b[:, :960].copy()), kblock=512).numpy()
     print(f"columns 0-959, FMA chains over 512-step blocks: "

@@ -1,6 +1,7 @@
 """The port stands alone: it imports with JAX blocked, loads nothing of
-nnstreamer_tpu, and no file of it (nor chip_smoke.py) imports JAX, its
-companions or nnstreamer_tpu."""
+nnstreamer_tpu, and no file of it (nor chip_smoke.py, the port's two
+robustness tools or its sanitizer plugin) imports JAX, its companions or
+nnstreamer_tpu."""
 import ast
 import subprocess
 import sys
@@ -383,6 +384,61 @@ print("ok")
     assert r.stdout.rstrip().endswith("ok") and "usage:" in r.stdout
 
 
+@pytest.mark.parametrize("argv", [
+    ["tools/wirefuzz_torch.py", "--help"],
+    ["tools/wirefuzz_torch.py", "--smoke", "--device", "cpu"],
+    ["tools/chaos_torch.py", "--help"],
+], ids=["wirefuzz-help", "wirefuzz-smoke", "chaos-help"])
+def test_robustness_tools_run_with_jax_blocked(argv):
+    """The port's wire fuzzer and chaos harness run as scripts in a child
+    with jax and nnstreamer_tpu unimportable (the fuzzer's smoke catalog
+    end to end; the chaos harness's CLI, whose scenarios the chaos
+    harness test runs)."""
+    code = f"""
+import runpy, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+sys.argv = {argv!r}
+try:
+    runpy.run_path({argv[0]!r}, run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.rstrip().endswith("ok")
+    assert ("usage:" in r.stdout if "--help" in argv
+            else "-> PASS" in r.stdout)
+
+
+def test_sanitize_plugin_imports_with_jax_blocked():
+    """``-p torch_sanitize`` arms the port's sanitizer with no JAX and no
+    nnstreamer_tpu to import."""
+    code = f"""
+import os, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+os.environ["NNS_TSAN"] = "1"
+sys.path.insert(0, "tests")
+import torch_sanitize
+from nnstreamer_tpu_torch.analysis import sanitizer
+assert torch_sanitize.TSAN and sanitizer.is_enabled()
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "ok"
+
+
 def test_zoo_line_constructs_with_jax_blocked():
     """The SSD line's decoder and filter entry construct, and the decoder
     decodes a CPU batch through its reduce, with no JAX to import."""
@@ -542,7 +598,9 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "wirefuzz_torch.py",
+        ROOT / "tools" / "chaos_torch.py", ROOT / "tests" / "torch_sanitize.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

@@ -396,11 +396,18 @@ class TestSpeculativeParity:
         a = _paged(cfg, params, slots=1, pages=8)
         b = _paged(cfg, params, slots=1, pages=8)
         prompt = np.arange(3, 12, dtype=np.int32)
-        first = a.admit(0, prompt, 6)
-        assert b.admit(0, prompt, 6) == first
-        logits = a.verify(np.array([[first, 5, 6, 7]], np.int32))
-        assert logits.shape == (1, 4, cfg.vocab)
-        assert int(np.argmax(logits[0, 0])) == int(b.step()[0])
+        try:
+            first = a.admit(0, prompt, 6)
+            assert b.admit(0, prompt, 6) == first
+            logits = a.verify(np.array([[first, 5, 6, 7]], np.int32))
+            assert logits.shape == (1, 4, cfg.vocab)
+            assert int(np.argmax(logits[0, 0])) == int(b.step()[0])
+        finally:
+            # both slots' pages go back (the leak ledger under
+            # NNS_LEAKCHECK holds every test to it)
+            for eng in (a, b):
+                eng.release(0)
+                eng.close()
 
 
 class TestPageLifecycle:

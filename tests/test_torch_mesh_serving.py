@@ -18,7 +18,6 @@ the same weights (``models/convert.py``). Tokens are compared exactly.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -195,12 +194,6 @@ WORKER = textwrap.dedent(r'''
 ''')
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn_world(tmp_path, worker, job, n, data, timeout_s=150):
     """Run ``worker``'s ``job`` in an ``n``-process gloo world (each rank
     blocks JAX and nnstreamer_tpu); return each rank's JSON and rank 0's
@@ -210,7 +203,7 @@ def spawn_world(tmp_path, worker, job, n, data, timeout_s=150):
     data_path = tmp_path / "data.npz"
     np.savez(data_path, **data)
     env = dict(os.environ, NNS_REPO=ROOT,
-               NNS_COORD=f"127.0.0.1:{_free_port()}",
+               NNS_COORD=f"file://{tmp_path / 'store'}",
                NNS_NUM_PROCS=str(n), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
     procs = []

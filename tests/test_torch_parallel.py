@@ -25,7 +25,6 @@ absolute and 1e-3 relative (the ranks sum partial products in other
 orders than XLA); pipeline outputs within 1e-5 absolute."""
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -177,12 +176,6 @@ WORKER = textwrap.dedent(r'''
 ''')
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(tmp_path, job, n, data, timeout_s=150):
     """Run the worker's ``job`` in an ``n``-process gloo world; return
     each rank's JSON and rank 0's arrays."""
@@ -190,7 +183,7 @@ def _spawn(tmp_path, job, n, data, timeout_s=150):
     prog.write_text(WORKER)
     data_path = tmp_path / "data.npz"
     np.savez(data_path, **data)
-    env = dict(os.environ, NNS_REPO=ROOT, NNS_COORD=f"127.0.0.1:{_free_port()}",
+    env = dict(os.environ, NNS_REPO=ROOT, NNS_COORD=f"file://{tmp_path / 'store'}",
                NNS_NUM_PROCS=str(n), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
     procs = []

@@ -78,6 +78,7 @@ WORKER = textwrap.dedent(r'''
     out["losses"], out["gnorms"] = losses, gnorms
     with open(os.path.join(out_dir, f"out{rank}.json"), "w") as fh:
         json.dump(out, fh)
+    dist.barrier()   # no rank tears its group down under a peer's last op
     dist.destroy_process_group()
 ''')
 
