@@ -168,7 +168,9 @@ phase fails:
     mode=arithmetic option=add:1 ! tensor_sink``, fused (one CUDA graph
     replay a buffer) and with ``fuse=False``, 2000 buffers a run: host µs
     a buffer and an element, the marginal element, dispatches and
-    captures; the 8-element chain's sink bytes equal in both modes. (b)
+    captures, the host µs inside a fused dispatch and the Python threads
+    alive in the process; the 8-element chain's sink bytes equal in both
+    modes. (b)
     ``tensor_src device=true pattern=random types=uint8
     dimensions=3:224:224:64 ! tensor_transform mode=arithmetic
     option=typecast:float32,add:-127.5,div:127.5 ! tensor_filter
@@ -442,10 +444,10 @@ phase fails:
     through the op dispatcher. (d) two process replicas of (a)'s stage
     with an empty cache: each replica's first batch (its warmup request
     before READY) — the two export (cold), the one respawned after a
-    SIGKILL loads (warm) — and SIGKILL → readmit; a flexible-caps replica
-    that warms up
-    from the artifact's recorded inputs (no ``warmup_skipped`` flight
-    event); every answer the live stage's. (e) (a)'s model saved by
+    SIGKILL loads (warm) — and SIGKILL → readmit; a flexible-caps replica,
+    started beside the SIGKILL → readmit, that warms up from the
+    artifact's recorded inputs (no ``warmup_skipped`` flight event); every
+    answer the live stage's. (e) (a)'s model saved by
     ``backends.pt2_backend.export_callable`` and served by
     ``tensor_filter framework=torch-export``, fused with the transform
     and unfused: logits bit-equal to (a)'s live line. A stage expected
@@ -531,20 +533,49 @@ phase fails:
     typed or clean within the fuzzer's deadline; a clean client's 64
     labels after the fuzz equal its labels before, and the server's
     threads and shm slots are reclaimed (the port's leak ledger is empty);
-    (c) ``tools/chaos_torch.py --smoke --proc-model mobilenet_v2`` in a
-    child process under the port's ``NNS_TSAN=1`` and ``NNS_LEAKCHECK=1``,
+    (c) ``tools/chaos_torch.py --smoke --scenario ... --proc-model
+    mobilenet_v2`` in child processes under the port's ``NNS_TSAN=1`` and
+    ``NNS_LEAKCHECK=1``,
     replicas on cuda:0 (proc-replica-kill's serving MobileNet-v2): every
     scenario has zero client-visible errors and the sanitizer records
     nothing; each scenario's time to evict, time to readmit and p99 are
-    printed. No hand kernel runs in this phase.
+    printed. No hand kernel runs in this phase. (c) runs as two children
+    (the two scenarios that kill and respawn a process replica, beside
+    the four in-process ones), started first; (a)-(b) run beside them.
+25. the repo's drivers on the card (also ``--only drivers``, after phase
+    4's requests for the reference tokens): each twin of ``examples/`` and
+    ``tools/`` as a child process on cuda:0. First
+    ``tools/microbench_overhead_torch.py --smoke`` alone (its gates time
+    the host: the 8-element fused device chain's marginal cost at least
+    2x lower than unfused in one of two attempts, every disabled plane
+    within 2% in the least of its 4 pairs; the median pair, each chain's
+    noise floor and the fused dispatch's host µs printed), then the rest
+    at once: ``examples/generate_lm_torch.py`` (``base``, meshless) and
+    ``examples/serve_lm_pipeline_torch.py`` (``base``, ``custom=mesh:1x1``
+    on a world-1 NCCL group, and ``tensor_generate mesh=1x1``) on phase
+    4's requests give phase 4's tokens with 2268 ``decode_attention`` and
+    36 ``flash_attention`` launches (756 and 12 for the one streamed
+    request); ``device_resident_classify_torch.py`` (BATCH=64, 3 batches,
+    bf16) pulls 4 bytes a frame from the card and decodes none on the
+    host; ``classify_tflite_on_xla_torch.py`` runs the int8 fixture in
+    fake-quant at batch 64 (37 ``fma_gemm`` and 17 ``depthwise_fma``
+    launches a batch); the three query twins resume (x2 → x5 after a
+    restart, 70.0 after a move to a new port) and keep shard order;
+    ``train_parallel_torch.py`` runs its world-1 form; and
+    ``tools/device_parity_torch.py`` (0 mismatches, card vs CPU, float32
+    with TF32 off and the int8 fixture), ``tools/entry_check_torch.py``
+    (exported == eager, step_ms_p50 by CUDA events) and
+    ``tools/gen_element_docs_torch.py --check``. Each child's seconds are
+    printed; a child that fails fails the phase.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only fusion`` (``--only streams``, ``--only
 plugins``, ``--only tflite``, ``--only query``, ``--only service``,
 ``--only train``, ``--only aot``, ``--only mesh``, ``--only tooling``,
-``--only conformance``, ``--only robustness``) runs phase 13 (14, 15,
-16, 17, 18, 19, 20, 21, 22, 23, 24) alone and prints its
+``--only conformance``, ``--only robustness``, ``--only drivers``) runs
+phase 13 (14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25) alone and prints
+its
 report as the last
 line (no kernel line, no ``ok`` line). ``--only trace-loss`` is no phase
 of the full run: it builds the kernels, serves phase 4's requests, then
@@ -558,6 +589,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -3346,7 +3378,12 @@ def fu_chain_overhead() -> dict:
             "us_per_element_per_buffer_8": us[8] / 8,
             "marginal_us_per_element": (us[8] - us[1]) / 7,
             "dispatches": [s["dispatches"] for s in segs],
-            "retraces": [s["retraces"] for s in segs]}
+            "retraces": [s["retraces"] for s in segs],
+            # host µs inside the one dispatch (inputs, replay, clones,
+            # fence), and the Python threads alive in this process then
+            "dispatch_host_us": [1e6 * s["total_s"] / max(1, s["dispatches"])
+                                 for s in segs],
+            "threads": threading.active_count()}
     line = fu_chain_line(8, FU_CHAIN_PARITY, FU_CHAIN_PARITY)
     _, fused = fu_run(line, True)
     _, plain = fu_run(line, False)
@@ -3773,7 +3810,10 @@ def phase_fusion(report: dict) -> None:
               f"({c['us_per_element_per_buffer_8']:.2f} us an element), "
               f"1 element {c['us_per_buffer_1']:.2f} us, marginal "
               f"{c['marginal_us_per_element']:.2f} us an element; "
-              f"dispatches {c['dispatches']}, captures {c['retraces']}")
+              f"dispatches {c['dispatches']}, captures {c['retraces']}, "
+              "host us in a dispatch "
+              f"{[round(x, 2) for x in c['dispatch_host_us']]}; "
+              f"{c['threads']} threads in this process")
     print(f"fusion chain: sink bytes equal fused and unfused over "
           f"{FU_CHAIN_PARITY} buffers")
     mb = r["mobilenet"] = fu_mobilenet()
@@ -7984,10 +8024,11 @@ def ao_pool_answers(frames: list) -> list:
     return outs
 
 
-def ao_pool(caps: str, replicas: int, warmup: bool):
+def ao_pool(caps: str, replicas: int, warmup: bool,
+            name: str = "aot-procs"):
     from nnstreamer_tpu_torch.service import ProcReplicaSet
 
-    return ProcReplicaSet("aot-procs", AO_STAGE, caps, replicas=replicas,
+    return ProcReplicaSet(name, AO_STAGE, caps, replicas=replicas,
                           quarantine_base_s=0.2, health_poll_s=0.05,
                           spawn_timeout_s=SV_WAIT, warmup=warmup)
 
@@ -7996,8 +8037,8 @@ def ao_replicas(report: dict, work: Path) -> dict:
     """(d) two process replicas of (a)'s stage with an empty cache: each
     replica's first batch (its warmup request before READY,
     ``warmup_s``) — the first two export (cold), the respawn loads (warm)
-    — and SIGKILL → readmit of one of them; then a flexible-caps replica
-    that warms up from the artifact."""
+    — and SIGKILL → readmit of one of them; a flexible-caps replica that
+    warms up from the artifact starts beside the SIGKILL → readmit."""
     import os
     import threading
 
@@ -8009,6 +8050,16 @@ def ao_replicas(report: dict, work: Path) -> dict:
     want = ao_pool_answers(frames)
     cache = work / "cache_pool"
     r: dict = {"first_batch_s": {}, "kill_to_readmit_s": {}, "aot": {}}
+    flex: dict = {}
+
+    def start_flexible():
+        # the cold replicas' artifact is in the cache by now
+        try:
+            flex["ps"] = ao_pool("other/tensors,format=flexible", 1,
+                                 True, name="aot-flex").start()
+        except Exception as e:  # noqa: BLE001 — failed below, in this thread
+            flex["error"] = e
+    flex_th = threading.Thread(target=start_flexible)
     try:
         for state, root in (("cache", cache),):
             os.environ.pop("NNS_AOT_CACHE", None)
@@ -8037,6 +8088,7 @@ def ao_replicas(report: dict, work: Path) -> dict:
                         th = threading.Thread(target=readmit,
                                               args=(kill["rid"],))
                         th.start()
+                        flex_th.start()
                     out = ps.request([frames[k % len(frames)]], key=f"k{k}",
                                      timeout=SV_WAIT)
                     if qy_bytes(out.tensors[0]) != want[k % len(frames)]:
@@ -8062,8 +8114,11 @@ def ao_replicas(report: dict, work: Path) -> dict:
             fail(f"aot (d): the respawned replica's AOT counters "
                  f"{respawned}; one hit and no export expected")
         # a flexible-caps replica: with the artifact it warms up
-        os.environ["NNS_AOT_CACHE"] = str(cache)
-        ps = ao_pool("other/tensors,format=flexible", 1, True).start()
+        flex_th.join(SV_WAIT)
+        if "ps" not in flex:
+            fail(f"aot (d): the flexible-caps replica did not start: "
+                 f"{flex.get('error', 'timed out')}")
+        ps = flex.pop("ps")
         try:
             (ep,) = ps.control_endpoints().values()
             events = ControlClient(ep).flight(last=512,
@@ -8085,6 +8140,10 @@ def ao_replicas(report: dict, work: Path) -> dict:
         finally:
             ps.stop()
     finally:
+        if flex_th.is_alive():
+            flex_th.join(SV_WAIT)
+        if "ps" in flex:
+            flex["ps"].stop()
         os.environ.pop("NNS_AOT_CACHE", None)
     fb, kr = r["first_batch_s"], r["kill_to_readmit_s"]
 
@@ -8157,7 +8216,8 @@ def phase_aot(report: dict) -> None:
         return out
     try:
         # the cold sides of (a)-(c) in this process, then their warm
-        # sides in one fresh interpreter
+        # sides in one fresh interpreter, alone on the host (its first
+        # batches are the AOT first-batch series)
         a = part("ao_line_cold", ao_line_cold, report, work, cache)
         b = part("ao_tflite_cold", ao_tflite_cold, report, work, cache)
         c = part("ao_ops_cold", ao_ops_cold, report, work)
@@ -9477,29 +9537,47 @@ def rb_live_mobilenet(report: dict) -> dict:
     return out
 
 
-def rb_chaos(report: dict) -> dict:
-    """(c) tools/chaos_torch.py --smoke with its replicas on the card
-    (proc-replica-kill's serving MobileNet-v2) in a child process under
-    the port's NNS_TSAN=1 and NNS_LEAKCHECK=1: every scenario passes its
-    gate with zero client-visible errors and zero violations."""
+# (c)'s two children: the scenarios that kill and respawn a process
+# replica (most of (c)'s time, spent waiting for the respawn), beside
+# the in-process ones
+RB_CHAOS_SPLIT = (("proc-replica-kill", "shm-peer-kill"),
+                  ("replica-kill", "conn-kill", "load-ramp",
+                   "wire-corruption"))
+
+
+def rb_chaos_start() -> list:
+    """(c)'s children, started before (a) and (b), which run beside
+    them."""
     import os
-    import signal
     import tempfile
 
-    out = Path(tempfile.mkdtemp(prefix="nns-chaos-")) / "chaos.json"
     env = dict(os.environ, NNS_TSAN="1", NNS_LEAKCHECK="1")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "tools" / "chaos_torch.py"), "--smoke",
-         "--proc-model", "mobilenet_v2", "--out", str(out)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, start_new_session=True)
+    started = []
+    for scenarios in RB_CHAOS_SPLIT:
+        out = Path(tempfile.mkdtemp(prefix="nns-chaos-")) / "chaos.json"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "tools" / "chaos_torch.py"),
+             "--smoke", "--scenario", *scenarios, "--proc-model",
+             "mobilenet_v2", "--out", str(out)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        started.append((proc, out, t0))
+    return started
+
+
+def rb_chaos_wait(i: int, child: tuple) -> dict:
+    """One of (c)'s children to its end: its report, or the phase fails."""
+    import os
+    import signal
+
+    proc, out, t0 = child
     try:
         _, err = proc.communicate(timeout=RB_CHAOS_TIMEOUT)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)   # the child and its replicas
         proc.wait(timeout=60)
-        fail(f"robustness (c): the chaos smoke ran past "
+        fail(f"robustness (c): a chaos smoke ran past "
              f"{RB_CHAOS_TIMEOUT:.0f} s")
     finally:
         try:
@@ -9509,17 +9587,11 @@ def rb_chaos(report: dict) -> dict:
     wall = time.perf_counter() - t0
     log_dir = ROOT / "chiprun_out"
     log_dir.mkdir(exist_ok=True)
-    (log_dir / "chaos_smoke.err").write_text(err)
+    (log_dir / f"chaos_smoke{i}.err").write_text(err)
     if not out.exists():
         fail(f"robustness (c): no chaos report (exit {proc.returncode}): "
              f"{err[-2000:]}")
     rep = json.loads(out.read_text())
-    for name, r in rep["scenarios"].items():
-        print(f"robustness ({report['device']}): (c) {name}: "
-              f"{r.get('requests', 0)} requests, {len(r['errors'])} errors, "
-              f"p99 {r.get('p99_s', 0.0) * 1e3:.3f} ms, evict "
-              f"{r.get('t_evict_s', 'n/a')} s, readmit "
-              f"{r.get('t_readmit_s', 'n/a')} s, {r['seconds']:.3f} s")
     bad = {n: r["errors"][:3] for n, r in rep["scenarios"].items()
            if r["errors"] or not r["ok"]}
     if proc.returncode != 0 or bad or not rep["ok"]:
@@ -9530,27 +9602,328 @@ def rb_chaos(report: dict) -> dict:
         fail("robustness (c): the sanitizer was not armed or recorded "
              f"something: tsan {rep.get('tsan_violations')}, leaks "
              f"{rep.get('leak_outstanding')}")
-    pk = rep["scenarios"]["proc-replica-kill"]
+    if rep["device"] != "cuda":
+        fail(f"robustness (c): the chaos replicas ran on {rep['device']}")
+    rep["wall_s"] = wall
+    return rep
+
+
+def rb_chaos(report: dict, started: list) -> dict:
+    """(c) tools/chaos_torch.py --smoke with its replicas on the card
+    (proc-replica-kill's serving MobileNet-v2), its scenarios in two
+    children (RB_CHAOS_SPLIT), each under the port's NNS_TSAN=1 and
+    NNS_LEAKCHECK=1: every scenario passes its gate with zero
+    client-visible errors and zero violations."""
+    reps = [rb_chaos_wait(i, child) for i, child in enumerate(started)]
+    scenarios = {n: r for rep in reps for n, r in rep["scenarios"].items()}
+    for name, r in scenarios.items():
+        print(f"robustness ({report['device']}): (c) {name}: "
+              f"{r.get('requests', 0)} requests, {len(r['errors'])} errors, "
+              f"p99 {r.get('p99_s', 0.0) * 1e3:.3f} ms, evict "
+              f"{r.get('t_evict_s', 'n/a')} s, readmit "
+              f"{r.get('t_readmit_s', 'n/a')} s, {r['seconds']:.3f} s")
+    if sorted(scenarios) != sorted(n for g in RB_CHAOS_SPLIT for n in g):
+        fail(f"robustness (c): scenarios run {sorted(scenarios)}")
+    pk = scenarios["proc-replica-kill"]
     if pk["model"] != "mobilenet_v2" or not pk["devices"] or \
             not all(d.startswith("cuda") for d in pk["devices"]):
         fail(f"robustness (c): proc-replica-kill served {pk['model']} on "
              f"{pk['devices']} (want mobilenet_v2 on the card)")
-    if rep["device"] != "cuda":
-        fail(f"robustness (c): the chaos replicas ran on {rep['device']}")
-    return {"wall_s": wall, "scenarios": rep["scenarios"]}
+    return {"wall_s": [rep["wall_s"] for rep in reps],
+            "scenarios": scenarios}
 
 
 def phase_robustness(report: dict) -> None:
     """Phase 24: the wire fuzzer and the chaos harness driving the port on
     the card (module docstring)."""
+    import contextlib
+    import os
+    import signal
+
     r = report["robustness"] = {}
     t0 = time.perf_counter()
-    r["decode"] = rb_decode_surfaces(report)
-    r["live"] = rb_live_mobilenet(report)
-    r["chaos"] = rb_chaos(report)
+    # (c)'s children run beside (a) and (b)
+    chaos = rb_chaos_start()
+    try:
+        r["decode"] = rb_decode_surfaces(report)
+        r["live"] = rb_live_mobilenet(report)
+    except BaseException:
+        for proc, _, _ in chaos:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+        raise
+    r["chaos"] = rb_chaos(report, chaos)
     r["phase_s"] = time.perf_counter() - t0
     print(f"robustness ({report['device']}): phase 24 took "
           f"{r['phase_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the repo's drivers on the card (--only drivers)
+# ---------------------------------------------------------------------------
+
+# every child's time limit; the twins' MobileNet-v2 batch and buffers; the
+# .tflite twin's buffers of MB_BATCH frames
+DR_TIMEOUT = 300.0
+DR_BUFFERS = 3
+DR_TF_BUFFERS = 2
+# the launches of a batch-64 fake-quant forward (phase 16)
+DR_FQ_LAUNCHES = {"fma_gemm": 37, "depthwise_fma": 17}
+
+
+def dr_start(script: str, argv: list, env: Optional[dict] = None) -> dict:
+    """``python3 <script> argv`` started from the checkout's root, in a
+    session of its own (so nothing it spawns outlives the phase)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / script), *map(str, argv)], cwd=ROOT,
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return {"script": script, "proc": proc, "t0": t0}
+
+
+def dr_finish(h: dict) -> dict:
+    """Wait for a child; its logs go to chiprun_out/drivers/; a child that
+    fails or runs past DR_TIMEOUT fails the phase."""
+    import contextlib
+    import os
+    import signal
+
+    proc = h["proc"]
+    try:
+        out, err = proc.communicate(timeout=DR_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        fail(f"drivers: {h['script']} ran past {DR_TIMEOUT:.0f} s")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)   # anything it left behind
+    seconds = time.perf_counter() - h["t0"]
+    log_dir = ROOT / "chiprun_out" / "drivers"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    stem = Path(h["script"]).stem
+    (log_dir / f"{stem}.out").write_text(out)
+    (log_dir / f"{stem}.err").write_text(err)
+    if proc.returncode != 0:
+        fail(f"drivers: {h['script']} exited {proc.returncode}: "
+             f"{(out + err)[-2500:]}")
+    return {"stdout": out, "seconds": seconds}
+
+
+def dr_json(out: str) -> dict:
+    """A child's last JSON line."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if not lines:
+        fail(f"drivers: no JSON line in {out[-1500:]}")
+    return json.loads(lines[-1])
+
+
+def dr_lm(report: dict, res: dict, work: Path, filter_outs) -> dict:
+    """The two LM twins at `base`: tokens equal phase 4's filter line for
+    the same requests, launches as those requests imply."""
+    want = np.stack(filter_outs)
+    R = len(want)
+    gen = json.loads((work / "gen" / "out0.json").read_text())
+    gen_tokens = np.load(work / "gen" / "arrays.npz")["tokens"]
+    srv = json.loads((work / "serve" / "out0.json").read_text())
+    arrays = np.load(work / "serve" / "arrays.npz")
+    # phase 4's launches for its REQUESTS requests, and one request's
+    whole = tl_want_kernels()
+    stream = {k: v // REQUESTS for k, v in whole.items()}
+    if not np.array_equal(gen_tokens, want):
+        fail("drivers: generate_lm_torch.py's tokens differ from phase 4's")
+    if gen["launches"] != whole or "cuda" not in gen["device"]:
+        fail(f"drivers: generate_lm_torch.py on {gen['device']}: launches "
+             f"{gen['launches']}, expected {whole}")
+    if not np.array_equal(arrays["filter"], want) or not np.array_equal(
+            arrays["stream"], want[0][:, PROMPT:]):
+        fail("drivers: serve_lm_pipeline_torch.py's tokens differ from "
+             "phase 4's")
+    if srv["filter_launches"] != whole or srv["stream_launches"] != stream \
+            or srv["mesh"] != {"dp": 1} or "cuda" not in srv["device"]:
+        fail(f"drivers: serve_lm_pipeline_torch.py: mesh {srv['mesh']} on "
+             f"{srv['device']}, launches {srv['filter_launches']} / "
+             f"{srv['stream_launches']}, expected {whole} / {stream}")
+    print(f"drivers ({report['device']}): generate_lm_torch.py (base, "
+          f"meshless) and serve_lm_pipeline_torch.py (base, custom=mesh:1x1 "
+          f"on a world-1 NCCL group, and tensor_generate mesh=1x1): "
+          f"phase 4's {R} requests -> its tokens; launches {gen['launches']}"
+          f", {srv['filter_launches']} and {srv['stream_launches']} "
+          "(the streamed request)")
+    return {"generate": gen["launches"], "serve_filter":
+            srv["filter_launches"], "serve_stream": srv["stream_launches"]}
+
+
+def dr_vision(report: dict, res: dict) -> dict:
+    dr = dr_json(res["examples/device_resident_classify_torch.py"]["stdout"])
+    n = DR_BUFFERS * MB_BATCH
+    if dr["frames"] != n or len(dr["labels"]) != n \
+            or dr["pulled_bytes_per_frame"] != 4 or dr["host_decodes"] \
+            or dr["input_devices"] != ["cuda:0"]:
+        fail(f"drivers: device_resident_classify_torch.py: {dr['frames']} "
+             f"frames, {dr['pulled_bytes_per_frame']} B pulled a frame from "
+             f"{dr['input_devices']}, {dr['host_decodes']} host decodes")
+    tf = dr_json(res["examples/classify_tflite_on_xla_torch.py"]["stdout"])
+    want = {k: v * DR_TF_BUFFERS for k, v in DR_FQ_LAUNCHES.items()}
+    if tf["mode"] != "fake-quant" or tf["launches"] != want \
+            or len(tf["labels"]) != DR_TF_BUFFERS * MB_BATCH:
+        fail(f"drivers: classify_tflite_on_xla_torch.py ({tf['mode']}): "
+             f"{len(tf['labels'])} labels, launches {tf['launches']}, "
+             f"expected {want}")
+    print(f"drivers ({report['device']}): device_resident_classify_torch.py "
+          f"{n} frames labeled, {dr['pulled_bytes_per_frame']:g} B pulled "
+          f"a frame (one int32); classify_tflite_on_xla_torch.py "
+          f"({tf['mode']}, the int8 fixture, batch {MB_BATCH}): "
+          f"{len(tf['labels'])} labels, launches {tf['launches']}")
+    return {"device_resident": {k: dr[k] for k in (
+        "frames", "pulled_bytes_per_frame", "host_decodes")},
+        "tflite_launches": tf["launches"]}
+
+
+def dr_query(report: dict, res: dict, work: Path) -> dict:
+    off = dr_json(res["examples/offload_with_reconnect_torch.py"]["stdout"])
+    hyb = dr_json(res["examples/hybrid_discovery_torch.py"]["stdout"])
+    shd = dr_json(res["examples/sharded_stream_torch.py"]["stdout"])
+    if off["before"] != [2.0] * 3 or off["after"] != [5.0] * 3 \
+            or off["resumed"] < 5 or off["accelerator"] != "gpu":
+        fail(f"drivers: offload_with_reconnect_torch.py: {off}")
+    if (hyb["before"], hyb["after"]) != (10.0, 70.0) \
+            or hyb["ports"][0] == hyb["ports"][1] or hyb["resumed"] < 1:
+        fail(f"drivers: hybrid_discovery_torch.py: {hyb}")
+    if shd["values"] != [10.0 * i for i in range(12)] \
+            or shd["per_worker_invokes"] != [6, 6]:
+        fail(f"drivers: sharded_stream_torch.py: {shd}")
+    train = json.loads((work / "train" / "out0.json").read_text())
+    losses = train["losses-ring"] + train["pp_losses"]
+    if train["world"] != 1 or "cuda" not in train["device"] \
+            or not all(np.isfinite(losses)) \
+            or not train["losses-ring"][-1] < train["losses-ring"][0] \
+            or not train["pp_losses"][-1] < train["pp_losses"][0]:
+        fail(f"drivers: train_parallel_torch.py: {train}")
+    print(f"drivers ({report['device']}): offload_with_reconnect_torch.py "
+          f"{off['pushed']} pushed, {off['answered']} answered, "
+          f"{off['dropped_connecting']} unanswered before the kill and "
+          f"{off['dropped_outage']} after it, {off['resumed']} by the "
+          f"restarted worker (x2 -> x5); hybrid_discovery_torch.py "
+          f"{hyb['dropped']} dropped, port {hyb['ports'][0]} -> "
+          f"{hyb['ports'][1]}, {hyb['after']} after the move; "
+          f"sharded_stream_torch.py 12 frames in order over two workers; "
+          f"train_parallel_torch.py world 1 on {train['device']}: ring+MoE "
+          f"loss {train['losses-ring'][0]:.4f} -> "
+          f"{train['losses-ring'][-1]:.4f}, {train['pp']} "
+          f"{train['pp_losses'][0]:.4f} -> {train['pp_losses'][-1]:.4f}")
+    return {"offload": off, "hybrid": hyb, "sharded": shd, "train": train}
+
+
+def dr_tools(report: dict, res: dict, mb: dict) -> dict:
+    par = dr_json(res["tools/device_parity_torch.py"]["stdout"])
+    if par["mismatches"] or par["parity"] != "exact" \
+            or par["int8"]["mismatches"] or par["device"] != "cuda:0":
+        fail(f"drivers: device_parity_torch.py: {par}")
+    ent = dr_json(res["tools/entry_check_torch.py"]["stdout"])
+    if ent["platform"] != "cuda" or not ent["bit_equal"]:
+        fail(f"drivers: entry_check_torch.py: {ent}")
+    rep = json.loads(mb["json"].read_text())
+    if not all(rep["gates"].values()):
+        fail(f"drivers: microbench_overhead_torch.py --smoke gates "
+             f"{rep['gates']}")
+    docs = res["tools/gen_element_docs_torch.py"]["stdout"]
+    fracs = {k: rep[k]["placed_overhead_frac" if k == "placement_overhead"
+                       else "disabled_overhead_frac"]
+             for k in rep["gates"] if k != "fused_speedup"}
+    medians = {k: ("placed" if k == "placement_overhead" else "disabled")
+               + "_overhead_frac_median" for k in fracs}
+    print(f"drivers ({report['device']}): device_parity_torch.py "
+          f"{par['frames']} float32 frames (TF32 off) and "
+          f"{par['int8']['frames']} int8 fixture frames, card vs CPU: "
+          f"{par['mismatches']} + {par['int8']['mismatches']} mismatches; "
+          f"entry_check_torch.py first call {ent['compile_s']:.2f} s, "
+          f"step_ms_p50 {ent['step_ms_p50']:.4f} (CUDA events); "
+          f"microbench_overhead_torch.py --smoke: fused marginal speedup "
+          f"{rep['device_chain']['speedup_marginal']:.2f}x (gate 2x; "
+          "fused 8-element dispatch "
+          f"{rep['device_chain']['fused']['dispatch_host_us_8']:.2f} us "
+          "on the host), disabled-state overheads, least pair (median) "
+          + ", ".join(f"{k.replace('_overhead', '')} {v * 100:+.2f}% "
+                      f"({rep[k][medians[k]] * 100:+.2f}%)"
+                      for k, v in fracs.items())
+          + " (gate 2% on the least pair); noise floors "
+          + ", ".join(f"{c} {f['floor'] * 100:.2f}%"
+                      for c, f in rep["noise_floor"].items())
+          + f"; {docs.strip()}")
+    return {"parity": par, "entry": ent, "microbench": rep}
+
+
+def phase_drivers(report: dict, prompts, filter_outs) -> None:
+    """Phase 25: the repo's drivers of the port on the card (module
+    docstring)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    r = report["drivers"] = {}
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="nns-drivers-"))
+    try:
+        req = work / "prompts.npy"
+        np.save(req, np.stack(prompts))
+        for d in ("gen", "serve", "train"):
+            (work / d).mkdir()
+        # the microbenchmark's gates time the host: alone first
+        mb = {"json": work / "microbench.json"}
+        mb.update(dr_finish(dr_start(
+            "tools/microbench_overhead_torch.py",
+            ["--smoke", "--json", mb["json"]])))
+        children = [
+            ("examples/generate_lm_torch.py",
+             ["--config", "base", "--prompts", req, "--steps", STEPS,
+              "--out", work / "gen"], None),
+            ("examples/serve_lm_pipeline_torch.py",
+             ["--config", "base", "--prompts", req, "--stream-steps", STEPS,
+              "--out", work / "serve"], None),
+            ("examples/device_resident_classify_torch.py", [],
+             {"BATCH": str(MB_BATCH), "BUFFERS": str(DR_BUFFERS)}),
+            ("examples/classify_tflite_on_xla_torch.py",
+             ["--batch", MB_BATCH, "--buffers", DR_TF_BUFFERS], None),
+            ("examples/train_parallel_torch.py", ["--out", work / "train"],
+             None),
+            ("tools/device_parity_torch.py", [], None),
+            ("tools/entry_check_torch.py", [], None),
+            ("examples/offload_with_reconnect_torch.py", [], None),
+            ("examples/hybrid_discovery_torch.py", [], None),
+            ("examples/sharded_stream_torch.py", [], None),
+            ("tools/gen_element_docs_torch.py", ["--check"], None),
+        ]
+        started = [dr_start(s, a, e) for s, a, e in children]
+        # one waiting thread a child, so each child's seconds are its own
+        with ThreadPoolExecutor(len(started)) as pool:
+            res = dict(zip([h["script"] for h in started],
+                           pool.map(dr_finish, started)))
+        r["child_s"] = {"tools/microbench_overhead_torch.py": mb["seconds"],
+                        **{k: v["seconds"] for k, v in res.items()}}
+        for name, sec in r["child_s"].items():
+            print(f"drivers ({report['device']}): {name} took {sec:.1f} s")
+        r["lm"] = dr_lm(report, res, work, filter_outs)
+        r["vision"] = dr_vision(report, res)
+        r["query"] = dr_query(report, res, work)
+        r["tools"] = dr_tools(report, res, mb)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r["launches"] = {**r["lm"]["generate"], **r["vision"]["tflite_launches"]}
+    r["phase_s"] = time.perf_counter() - t0
+    print(f"drivers ({report['device']}): phase 25 took {r['phase_s']:.1f} s")
+
+
+def phase_drivers_alone(report: dict) -> None:
+    """--only drivers: the kernels built, phase 4 for the reference tokens,
+    then phase 25."""
+    phase_build(report)
+    prompts, filter_outs = phase_slice(report)
+    phase_drivers(report, prompts, filter_outs)
 
 
 def main() -> None:
@@ -9582,20 +9955,21 @@ def main() -> None:
              "mesh": phase_mesh_alone, "tooling": phase_tooling_alone,
              "conformance": phase_conformance_alone,
              "robustness": phase_robustness,
+             "drivers": phase_drivers_alone,
              "trace-loss": phase_trace_loss}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
-        # phase 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23 or 24 alone (no
-        # ok line), or the trace-loss count
+        # phase 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24 or 25 alone
+        # (no ok line), or the trace-loss count
         alone[sys.argv[2]](report)
         print(json.dumps(report[sys.argv[2]], default=str))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (run with none, or with "
              "--only fusion / streams / plugins / tflite / query / service "
-             "/ train / aot / mesh / tooling / conformance / robustness for "
-             "phase 13 / 14 / 15 / 16 / 17 / 18 / 19 / 20 / 21 / 22 / 23 / 24 "
-             "alone, or --only trace-loss)")
+             "/ train / aot / mesh / tooling / conformance / robustness / "
+             "drivers for phase 13 / 14 / 15 / 16 / 17 / 18 / 19 / 20 / 21 "
+             "/ 22 / 23 / 24 / 25 alone, or --only trace-loss)")
     phase_s = report["phase_s"] = {}
 
     def timed(fn, *args):
@@ -9636,6 +10010,7 @@ def main() -> None:
     timed(phase_tooling, report, prompts, filter_outs)
     timed(phase_conformance, report, prompts, filter_outs)
     timed(phase_robustness, report)
+    timed(phase_drivers, report, prompts, filter_outs)
 
     def line(name, source, replaces, timings):
         t = timings[str(torch.float32)]
@@ -9707,6 +10082,11 @@ def main() -> None:
         k["launches_conformance"] = [
             run.get(k["name"], 0)
             for run in report["conformance"]["determinism"]["launches"]]
+    # every kernel's launches in the example twins' children (phase 25):
+    # generate_lm_torch.py's and the .tflite twin's
+    for k in kernels:
+        k["launches_drivers"] = report["drivers"]["launches"].get(
+            k["name"], 0)
     # the two LM kernels at one rank's shapes under a 2x2 mesh (phase 3d)
     for k, row in zip(kernels, ("decode", "flash")):
         k["rank_shape"] = rank_t[str(torch.float32)][row]

@@ -48,6 +48,7 @@ steady-state chain (§3.2) runs: validate → input-combination → invoke (time
 """
 from __future__ import annotations
 
+import os
 import threading
 from collections import deque
 from typing import Callable, Dict, List, Optional
@@ -250,6 +251,27 @@ class TensorFilter(TransformElement):
         # (runtime/placement.py): consumed at backend open; an explicit
         # user custom=device:N always wins
         self._placement_device_index: Optional[int] = None
+        self._validate_model_ref()
+
+    # model-file extensions whose absence is a construction error, as in
+    # nnstreamer_tpu: the reference corpus's negative launch lines
+    # (runTest.sh expectFail cases for tflite/tflite2/pytorch and .py
+    # scripts) name missing model files and must fail before play
+    _MODEL_FILE_EXTS = (".tflite", ".pt", ".pth", ".pb", ".circle", ".so",
+                        ".rtm", ".onnx", ".caffemodel", ".py", ".mlir",
+                        ".stablehlo")
+
+    def _validate_model_ref(self) -> None:
+        model = self.props.get("model")
+        if not model:
+            return  # model may arrive later (set_property / config-file)
+        if "://" in model:
+            return  # builtin:// fixtures, registry:// URIs resolve at open
+        if not model.lower().endswith(self._MODEL_FILE_EXTS):
+            return  # module:attr, custom-easy names, .pt2 programs, ...
+        if not os.path.exists(model):
+            raise ElementError(
+                f"{self.describe()}: model file '{model}' does not exist")
 
     def set_placement_device(self, index: Optional[int]) -> None:
         """Planner-assigned card for this filter's stage. Applies the

@@ -28,7 +28,16 @@ The capture, on the card:
     stager (``transport/staging.py``): frame N+1's copy runs on a side
     stream while frame N's replay computes, where a pageable copy would
     first wait for that replay and block the host (``chip_smoke.py``
-    phase 13d measures both);
+    phase 13d measures both). The stager hands a frame under
+    ``STAGE_MIN_BYTES`` back on the host, and the replay copies it
+    straight into the graph's static input (from pageable memory, which
+    CUDA stages on the host at once): there is no copy to overlap, and
+    the stager's own calls (a side stream, an event, a pinned slot) cost
+    more than the copy (``tools/microbench_overhead_torch.py
+    --stage-sweep`` measures both paths over frame sizes);
+  * the fence of the last replay is one CUDA event a segment and card,
+    recorded again at every replay on that card and handed out (then
+    made anew) by ``invalidate``;
   * ``capture_error_mode="thread_local"``: sources, queues and decoders
     keep launching on the same card from their threads while one thread
     captures; the default ``"global"`` mode would make their calls
@@ -142,6 +151,15 @@ _DONATION_SAFE_CHAIN = ("tensor_src", "capsfilter", "queue",
 
 #: captured graphs kept per segment, one per input signature
 MAX_GRAPHS = 8
+
+#: host frames of at least this many bytes ride the pinned stager; the
+#: stager hands a smaller one back for the replay to copy. On an H100
+#: (``tools/microbench_overhead_torch.py --stage-sweep``, a 2-element
+#: chain) the replay's copy was the cheaper path up to 4 MiB frames and
+#: the stager from 16 MiB; with a MobileNet-v2 replay behind it
+#: (``chip_smoke.py`` phase 13d) the stager also won at 9.6 MB batches
+#: and lost at 150 KB frames
+STAGE_MIN_BYTES = 8 << 20
 
 #: eager runs on a side stream before a capture (lazy cuDNN/cuBLAS
 #: handles, workspaces and a builtin's weights are made there, not in
@@ -358,8 +376,10 @@ class FusedSegment:
         # (always taken BEFORE _lock, never while holding it)
         self._run_lock = named_rlock(f"FusedSegment._run_lock:{self.name}")
         # CUDA event recorded behind the latest replay (None on the CPU
-        # and before the first replay)
+        # and before the first replay), on the card of _fence_home; made
+        # anew when the segment replays on another card
         self._fence: Optional[torch.cuda.Event] = None  # guarded-by: _run_lock
+        self._fence_home: Optional[torch.device] = None  # guarded-by: _run_lock
         self._gen = 0            # guarded-by: _lock
         self._call: Optional[Callable] = None   # guarded-by: _lock (reads racy-ok)
         self._defused = False    # guarded-by: _lock (reads racy-ok)
@@ -478,7 +498,8 @@ class FusedSegment:
             with self._lock:
                 s = self._stager
                 if s is None:
-                    s = self._stager = DoubleBufferedStager(home)
+                    s = self._stager = DoubleBufferedStager(
+                        home, min_bytes=STAGE_MIN_BYTES)
                 elif s.device != home:
                     s.retarget(home)
         return s.stage(tensors)
@@ -603,9 +624,10 @@ class FusedSegment:
 
     def _inputs(self, tensors, home: torch.device) -> list:
         """The buffer's tensors as the stages take them: on ``home``. On
-        a card, host inputs ride the pinned stager (its copy overlaps
-        the previous replay; a pageable copy would block the host until
-        the card caught up)."""
+        a card, host inputs go through the pinned stager (its copy
+        overlaps the previous replay; a pageable copy would block the
+        host until the card caught up), which hands a frame under
+        ``STAGE_MIN_BYTES`` back on the host for the replay to copy."""
         if home.type == "cuda" and any(
                 not (isinstance(t, torch.Tensor) and t.is_cuda)
                 for t in tensors):
@@ -699,7 +721,15 @@ class FusedSegment:
             s.copy_(a, non_blocking=True)
         g.graph.replay()
         # the next replay rewrites the pool: hand downstream its own copy
-        return tuple(o.clone() for o in g.static_out), g
+        outs = tuple(o.clone() for o in g.static_out)
+        fence = self._fence
+        if fence is None or self._fence_home != home:
+            # an event records on its own card only: a segment the
+            # planner moved (set_device) fences on its new card
+            fence = self._fence = torch.cuda.Event()
+            self._fence_home = home
+        fence.record()
+        return outs, g
 
     def _run(self, call: Callable, args: list, home: torch.device):
         if home.type != "cuda":
@@ -749,7 +779,7 @@ class FusedSegment:
             home = self._resolve_home(buf.tensors)
             args = self._inputs(buf.tensors, home)
             if self._aot_pending:
-                call = self._aot_resolve(call, args)
+                call = self._aot_resolve(call, [a.to(home) for a in args])
             t0 = clock_now()
             try:
                 outs, g = self._run(call, args, home)
@@ -763,10 +793,6 @@ class FusedSegment:
                         self._profile_key, e,
                         pipeline=pipe.name if pipe is not None else None)
                 raise
-            if g is not None:
-                fence = torch.cuda.Event()
-                fence.record(torch.cuda.current_stream(home))
-                self._fence = fence
             del call
         # total_s gets ONLY the host-side dispatch time, even on probed
         # frames (device completion goes to probe_device_s)

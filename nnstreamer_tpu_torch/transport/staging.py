@@ -18,8 +18,13 @@ stay valid for as long as the caller holds them.
 
 Used by the fused dispatch of every segment on a card that receives
 host inputs (``runtime/fusion.py``); measured against a plain blocking
-copy in ``chip_smoke.py`` phase 13d. On a CPU target (the tests)
-``stage`` is a plain conversion. Device tensors pass through untouched.
+copy in ``chip_smoke.py`` phase 13d. A stager made with ``min_bytes``
+hands a frame whose host tensors hold fewer bytes back on the host
+(``direct`` counts them): its consumer copies it where it needs it
+(the fused replay into its graph's static input), since for a small
+frame the side stream, the event and the pinned slot cost more than the
+copy they would overlap. On a CPU target (the tests) ``stage`` is a plain
+conversion. Device tensors pass through untouched.
 """
 from __future__ import annotations
 
@@ -57,17 +62,20 @@ class DoubleBufferedStager:
     device inputs untouched. Thread-safe: the owning dispatch site may be
     driven from several pipeline threads."""
 
-    def __init__(self, device: Optional[Any] = None, depth: int = 2):
+    def __init__(self, device: Optional[Any] = None, depth: int = 2,
+                 min_bytes: int = 0):
         if depth < 2:
             raise ValueError("staging needs at least two slots to overlap")
         self._device = torch.device(device) if device is not None else None
         self._depth = depth
+        self.min_bytes = min_bytes
         self._lock = threading.Lock()
         self._slots: List[_Slot] = [_Slot() for _ in range(depth)]
         self._turn = 0
         self._side: Optional[torch.cuda.Stream] = None
         self.puts = 0        # guarded-by: _lock
         self.put_bytes = 0   # guarded-by: _lock
+        self.direct = 0      # guarded-by: _lock
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -95,8 +103,36 @@ class DoubleBufferedStager:
                 self.put_bytes += sum(t.numel() * t.element_size()
                                       for t in staged)
             return staged
+        if self.min_bytes and self.host_bytes(tensors) < self.min_bytes:
+            return self._direct(tensors)
         with self._lock:
             return self._stage_cuda(tensors)
+
+    @staticmethod
+    def host_bytes(tensors: Sequence[Any]) -> int:
+        """Bytes of the frame's tensors that are not on a card."""
+        return sum(as_torch(t).nbytes for t in tensors
+                   if not (isinstance(t, torch.Tensor) and t.is_cuda))
+
+    def _direct(self, tensors) -> List[Any]:
+        """A frame under ``min_bytes``: host tensors stay on the host for
+        the consumer to copy (in the ledger as a staged copy is), device
+        tensors reach the stager's card."""
+        dev = self._device
+        out: List[Any] = []
+        moved = 0
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                out.append(t if t.device == dev
+                           else t.to(dev, non_blocking=True))
+                continue
+            t = as_torch(t)
+            moved += t.nbytes
+            out.append(t)
+        with self._lock:
+            self.direct += 1
+        _note_h2d(moved)
+        return out
 
     def _stage_cuda(self, tensors) -> List[Any]:  # holds _lock
         dev = self._device

@@ -571,6 +571,56 @@ class TestInvalidation:
         member._handle_sink_event_guarded(member.sinkpad, Event.caps(caps))
         assert seg._call is None and seg._gen == gen + 1
 
+    def test_a_moved_segment_fences_on_its_new_card(self, monkeypatch):
+        """A segment that replayed on card 0 and is moved to card 1
+        (``set_device``, as a placement re-plan applies it) records its
+        next fence with an event of card 1. Simulated on the CPU: a CUDA
+        event is bound to the card of its first record and refuses
+        another card's stream, as ``CUDAEvent::record`` does; the graph
+        is a stand-in whose replay does nothing."""
+        from nnstreamer_tpu_torch.runtime import fusion
+
+        current = {"card": 0}
+
+        class CardEvent:
+            def __init__(self):
+                self.card = None
+
+            def record(self, stream=None):
+                if self.card is None:
+                    self.card = current["card"]
+                elif self.card != current["card"]:
+                    raise RuntimeError(
+                        f"Event device {self.card} does not match "
+                        f"recording stream's device {current['card']}")
+
+        class NoGraph:
+            def replay(self):
+                pass
+
+        monkeypatch.setattr(torch.cuda, "Event", CardEvent)
+        pipe = port(SRC + f"! {ADD}! {MUL}! tensor_sink name=out")
+        pipe.run(timeout=30)
+        (seg,) = pipe.fused_segments
+        x = torch.zeros(4)
+
+        def replay_on(card):
+            home = torch.device("cuda", card)
+            seg.set_device(home)
+            sig = (home, (tuple(x.shape), x.dtype))
+            seg._graphs[sig] = fusion._Graph(NoGraph(), [torch.empty(4)],
+                                             (torch.ones(4),), 0)
+            current["card"] = card
+            for _ in range(2):
+                (out,), _ = seg._replay(None, [x], home)
+                assert torch.equal(out, torch.ones(4))
+            return seg._fence
+
+        first = replay_on(0)
+        second = replay_on(1)
+        assert first.card == 0 and second.card == 1
+        assert seg.invalidate() is second and seg._fence is None
+
     def test_replay_replans_from_scratch(self):
         """A replay (the supervised-restart path: play() after stop())
         installs fresh segments, and the reference does the same."""

@@ -13,7 +13,10 @@ runs where they are not installed:
   same card from its own threads: both runs complete, bytes equal;
 * the stager: host frames reach the card intact, their copy finishes on
   the side stream while the caller's stream is still busy (overlap), and
-  ``retarget`` drops the slots;
+  ``retarget`` drops the slots; a fused segment stages a host frame of
+  ``STAGE_MIN_BYTES`` or more and copies a smaller one as it is;
+* a segment the planner moves to another card after it replayed fences
+  its next replays on the new card (two cards);
 * a capture that fails (a model that declares itself safe to capture
   but syncs with the host) ends in a bus ERROR, with no eager fallback,
   and leaves the card's random number generator usable;
@@ -193,6 +196,67 @@ def test_stager_overlaps_and_retargets(cuda_card):
     torch.cuda.synchronize()
     s.retarget(cuda_card)
     assert all(sl.done is None for sl in s._slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,staged", [("16", False), ("3:224:224:1", False),
+                                         ("3:224:224:64", True)])
+def test_host_frames_ride_the_stager_from_its_size(cuda_card, dims, staged):
+    """A host frame under ``STAGE_MIN_BYTES`` (16 B, 150528 B) is handed
+    back by the stager and copied by the replay, one of 9633792 B (a
+    MobileNet-v2 batch of 64) rides the pinned slots; each gives the
+    unfused bytes and records the fence of its last replay."""
+    from nnstreamer_tpu_torch.runtime import fusion
+
+    line = (f"tensor_src num-buffers=6 dimensions={dims} types=uint8 "
+            "pattern=random ! tensor_transform mode=arithmetic "
+            "option=add:1 ! tensor_transform mode=arithmetic option=mul:3 "
+            "! tensor_sink name=out max-stored=64")
+    fused_pipe, fused = _run(line, True)
+    _, plain = _run(line, False)
+    (seg,) = fused_pipe.fused_segments
+    assert (int(np.prod([int(d) for d in dims.split(":")]))
+            >= fusion.STAGE_MIN_BYTES) is staged
+    stager = seg._stager
+    assert stager.snapshot()["puts"] == (6 if staged else 0)
+    assert stager.direct == (0 if staged else 6)
+    assert seg.stats["dispatches"] == 6 and seg._fence is not None
+    assert _host(fused) == _host(plain)
+    assert seg.invalidate() is not None and seg._fence is None
+
+
+@pytest.mark.cuda
+def test_a_moved_segment_fences_on_its_new_card():
+    """Replays on card 0, the planner's ``set_device`` moves the segment
+    to card 1, and it replays there: the fence is an event of card 1 (an
+    event of card 0 cannot record on card 1's stream)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    pipe = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,dimensions=16:4,"
+        "types=float32 ! queue ! tensor_transform mode=arithmetic "
+        "option=add:1 ! tensor_transform mode=arithmetic option=mul:3 ! "
+        "tensor_sink name=out max-stored=64")
+    pipe.play()
+    try:
+        (seg,) = pipe.fused_segments
+        src = pipe.get("in")
+        for card in (0, 1):
+            seg.set_device(torch.device("cuda", card))
+            for k in range(3):
+                src.push_buffer(Buffer([torch.full(
+                    (4, 16), float(k), device=f"cuda:{card}")]))
+            deadline = time.time() + 60
+            while seg.stats["dispatches"] < 3 * (card + 1):
+                assert time.time() < deadline, seg.stats
+                time.sleep(0.01)
+            assert seg._fence_home == torch.device("cuda", card)
+        src.end_of_stream()
+        msg = pipe.wait(timeout=60)
+        assert msg.type is MessageType.EOS, msg
+        assert seg.invalidate() is not None
+    finally:
+        pipe.stop()
 
 
 def _syncing_model(declared: bool):

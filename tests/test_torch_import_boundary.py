@@ -1,6 +1,7 @@
 """The port stands alone: it imports with JAX blocked, loads nothing of
-nnstreamer_tpu, and no file of it (nor chip_smoke.py, the port's two
-robustness tools or its sanitizer plugin) imports JAX, its companions or
+nnstreamer_tpu, and no file of it (nor chip_smoke.py, the port's tools
+``tools/*_torch.py``, its example twins ``examples/*_torch.py`` and their
+helper, or its sanitizer plugin) imports JAX, its companions or
 nnstreamer_tpu."""
 import ast
 import subprocess
@@ -12,6 +13,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "nnstreamer_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "nnstreamer_tpu")
+# the repo's drivers of the port: example twins, their helper, tools
+DRIVERS = (sorted((ROOT / "examples").glob("*_torch.py"))
+           + [ROOT / "examples" / "_torch_world.py"]
+           + sorted((ROOT / "tools").glob("*_torch.py")))
 SLICE_MODULES = [
     "nnstreamer_tpu_torch",
     "nnstreamer_tpu_torch.core",
@@ -416,6 +421,42 @@ print("ok")
             else "-> PASS" in r.stdout)
 
 
+@pytest.mark.parametrize("argv", [
+    [str(p.relative_to(ROOT)), "--help"] for p in DRIVERS
+    if p.name != "_torch_world.py" and p.name not in (
+        "wirefuzz_torch.py", "chaos_torch.py")] + [
+    ["examples/sharded_stream_torch.py", "--device", "cpu"],
+    ["examples/generate_lm_torch.py", "--device", "cpu", "--config", "tiny",
+     "--steps", "4"],
+    ["tools/gen_element_docs_torch.py", "--check"],
+], ids=lambda a: "-".join(Path(a[0]).stem.split("_")[:2] + [a[1].strip("-")]))
+def test_driver_twins_run_with_jax_blocked(argv):
+    """Each example twin and tool twin runs as a script in a child with
+    jax and nnstreamer_tpu unimportable: its CLI, and three of them end to
+    end on the CPU (a sharded query stream, the LM's greedy decode, the
+    element docs against the registry)."""
+    code = f"""
+import runpy, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+sys.argv = {argv!r}
+try:
+    runpy.run_path({argv[0]!r}, run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})]
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.rstrip().endswith("ok")
+    if "--help" in argv:
+        assert "usage:" in r.stdout
+
+
 def test_sanitize_plugin_imports_with_jax_blocked():
     """``-p torch_sanitize`` arms the port's sanitizer with no JAX and no
     nnstreamer_tpu to import."""
@@ -599,8 +640,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "wirefuzz_torch.py",
-        ROOT / "tools" / "chaos_torch.py", ROOT / "tests" / "torch_sanitize.py"],
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sanitize.py"]
+    + DRIVERS,
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

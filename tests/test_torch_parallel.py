@@ -7,10 +7,11 @@ of 2, 4 or 8 processes on 127.0.0.1 (a port of its own, a time limit, and
 every process killed on the way out), feeds it the JAX package's weights
 and inputs through an .npz file and reads back each rank's results.
 
-* the 8-rank world runs ``examples/train_parallel.py``: five dp2×tp2×sp2
-  steps of the ring + MoE LM (and of the gspmd and ulysses forms), and
-  five SGD steps through the pp4×dp2 GPipe pipeline, against the same
-  steps of the reference; ring attention at sp=8 against dense;
+* the 8-rank world runs ``examples/train_parallel_torch.py``'s own steps
+  (its ``run()`` on the world): five dp2×tp2×sp2 steps of the ring + MoE
+  LM (and of the gspmd and ulysses forms), and five SGD steps through the
+  pp4×dp2 GPipe pipeline, against the same steps of the reference
+  (``examples/train_parallel.py``); ring attention at sp=8 against dense;
 * the 4-rank world: ring, Ulysses and gathered attention over sp=4
   (outputs and input gradients) against dense attention, the 4-stage
   pipeline's outputs (M = 1, 6, 9) and gradients against the reference's,
@@ -117,28 +118,19 @@ WORKER = textwrap.dedent(r'''
         return outs, losses, grads
 
     if job == "world8":
-        mesh = make_mesh(None, {"tp": 2, "dp": 2, "sp": 2})
-        out["axes"] = list(mesh.mesh_dim_names)
-        toks = data["tokens"]
-        for impl, heads in (("ring", 2), ("gspmd", 4), ("ulysses", 4)):
-            cfg = T.TransformerConfig(vocab=64, dim=32, heads=heads, layers=2,
-                                      max_seq=17, attn_impl=impl, moe_experts=4)
-            step, shard, sharding = T.make_train_step(cfg, mesh, lr=3e-2)
-            params = shard(params_from_jax(tree_from("params"), device="cpu"))
-            t = sharding(toks)
-            losses = []
-            for _ in range(5):
-                params, loss = step(params, t)
-                losses.append(float(loss))
-            out[f"losses-{impl}"] = losses
-            for name, leaf in flat(T.gather_params(cfg, mesh, params)):
-                arrays[f"params-{impl}-{name}"] = leaf.numpy()
-        mesh_pp = make_mesh(None, {"pp": 4, "dp": 2})
-        stages = [{"w": w} for w in data["pp_w"]]
-        _, losses, grads = pipeline_run(mesh_pp, stages, [data["pp_xs"]],
-                                        steps=5, lr=0.3)
-        out["pp_losses"] = losses
-        arrays["pp_grad_w"] = grads["w"]
+        # the steps are examples/train_parallel_torch.py's own: its run()
+        # on this world, the LM steps for all three attention forms
+        import argparse, runpy
+        script = runpy.run_path(os.path.join(
+            os.environ["NNS_REPO"], "examples", "train_parallel_torch.py"),
+            run_name="train_parallel_torch")
+        got, got_arrays = script["run"](
+            argparse.Namespace(params=data_path), torch.device("cpu"),
+            impls=("ring", "gspmd", "ulysses"))
+        out.update(got)
+        arrays.update(got_arrays)
+        out["axes"] = list(make_mesh(None, {"tp": 2, "dp": 2, "sp": 2})
+                           .mesh_dim_names)
         mesh8 = make_mesh(None, {"dp": 1, "tp": 1, "sp": 8})
         attention_checks(mesh8, data["q8"], data["k8"], data["v8"],
                          data["cot8"], ("ring",), (True,), "sp8")
@@ -255,9 +247,11 @@ def _reference_lm_steps(impl, heads, tree, toks):
 
 
 def test_world8_train_parallel_example_matches_reference(tmp_path):
-    """``examples/train_parallel.py`` in the port: the dp2×tp2×sp2 ring +
-    MoE step (and the gspmd and Ulysses forms) and the pp4×dp2 GPipe step,
-    five steps each, against the reference on its 8 virtual devices."""
+    """``examples/train_parallel.py`` in the port, run by its twin
+    ``examples/train_parallel_torch.py`` on an 8-rank world: the
+    dp2×tp2×sp2 ring + MoE step (and the gspmd and Ulysses forms) and the
+    pp4×dp2 GPipe step, five steps each, against the reference on its 8
+    virtual devices."""
     from nnstreamer_tpu.models.transformer import TransformerConfig, init_params
     from nnstreamer_tpu.parallel import make_mesh
     from nnstreamer_tpu.parallel.pipeline import make_pipeline, stack_stage_params

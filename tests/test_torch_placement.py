@@ -53,8 +53,9 @@ N_DEV = 8
 CPU_DEVICES = [torch.device("cpu", i) for i in range(N_DEV)]
 
 
-def line(n=80):
-    return MULTI.replace("{n}", str(n))
+def line(n=80, depth=16):
+    return MULTI.replace("{n}", str(n)).replace(
+        "max-size-buffers=16", f"max-size-buffers={depth}")
 
 
 def port(launch, place=None):
@@ -96,9 +97,9 @@ def run_placed(launch, place="auto"):
     return pipe
 
 
-def make_artifact(store_dir, n=120):
+def make_artifact(store_dir, n=120, depth=16):
     """One calibrated run that persists an artifact into the store."""
-    pipe = run_placed(line(n))
+    pipe = run_placed(line(n, depth))
     assert os.listdir(store_dir), "calibration did not persist"
     return pipe
 
@@ -219,7 +220,10 @@ class TestPlannerAlgebra:
 
 class TestApply:
     def test_auto_assigns_segment_devices_and_queue_depths(self, store):
-        pipe = make_artifact(store)
+        # queues one deeper than the planner's clamp: every planned depth
+        # (clamped to min..max_queue_depth) differs from theirs, so each
+        # planned queue is retuned whatever the measured timings are
+        pipe = make_artifact(store, depth=placement.MAX_QUEUE_DEPTH + 1)
         segs = pipe.fused_segments
         assert segs and all(s.device is not None for s in segs)
         plan = pipe.placement_plan
@@ -509,3 +513,20 @@ def test_stager_on_a_cpu_target_counts_and_retargets():
     assert s.device == torch.device("cpu", 1)
     with pytest.raises(ValueError):
         DoubleBufferedStager(depth=1)
+
+
+def test_stager_hands_a_frame_under_min_bytes_back_on_the_host():
+    """The size rule of a stager made with ``min_bytes`` (the fused
+    segment's ``STAGE_MIN_BYTES``): the frame's host bytes decide; under
+    the cut host tensors come back on the host, uncopied, and count as
+    ``direct``, not as ``puts``. On a CPU target ``stage`` converts."""
+    s = DoubleBufferedStager(torch.device("cpu"), min_bytes=64)
+    small = [np.arange(4, dtype=np.float32)]
+    large = [np.arange(16, dtype=np.float32), torch.zeros(2)]
+    assert s.host_bytes(small) == 16 and s.host_bytes(large) == 72
+    (out,) = s._direct(small)
+    assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+    assert out.numpy().tobytes() == small[0].tobytes()
+    assert s.direct == 1 and s.snapshot()["puts"] == 0
+    s.stage(large)
+    assert s.direct == 1 and s.snapshot()["puts"] == 1

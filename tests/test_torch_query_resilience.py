@@ -8,8 +8,10 @@ nnstreamer_tpu (``ref``) and in the port (``port``; its filters get
 ``accelerator=cpu``) and holds the reference's relations on each side.
 The hybrid re-discovery case fails in some runs of the reference
 (ROADMAP.md, the unsteady list), so there the port is held to the
-relation and compared with what the reference's own run gave, not
-with the reference test's assertion."""
+relation and compared with what the reference's own run gave, where
+that run completed, not with the reference test's assertion. Its
+resumed answers are counted by value: an answer to a frame pushed
+before the move can arrive after it."""
 import time
 
 import numpy as np
@@ -145,7 +147,10 @@ class TestReconnect:
 
 def _hybrid_run(side):
     """The hybrid re-discovery scenario on ``side``: (responses before
-    the move, responses after, last value, bus message types)."""
+    the move, responses of the moved server, last value, bus message
+    types, the values answered after the move). A response of the moved server is one carrying 5.0: frames of
+    1.0 pushed before the move can still be answered after it (in flight
+    when the old server stopped), and are not counted as resumed."""
     hybrid = mod(side, "query.hybrid")
     broker = mod(side, "query.mqtt").MiniBroker()
     server, port = start_echo_server(side, server_id=56)
@@ -165,13 +170,29 @@ def _hybrid_run(side):
         assert new_port != port
         hybrid.advertise(broker.host, broker.port, "rw-topic",
                          "127.0.0.1", new_port)
-        _push_until(src, out, want=n_before + 3, value=5.0, timeout=15.0)
+        resumed = _push_until_value(src, out, 5.0, want=3, timeout=15.0)
         last = float(_last(out).reshape(-1)[0]) if out else None
-        return n_before, len(out) - n_before, last, _drain_types(client)
+        after = [float(host(b.tensors[0]).reshape(-1)[0])
+                 for b in out[n_before:]]
+        return n_before, resumed, last, _drain_types(client), after
     finally:
         client.stop()
         server.stop()
         broker.stop()
+
+
+def _push_until_value(src, out, value, want, timeout):
+    """Push frames of ``value`` until ``want`` responses carry it; return
+    how many do."""
+    def count():
+        return sum(1 for b in list(out)
+                   if float(host(b.tensors[0]).reshape(-1)[0]) == value)
+
+    deadline = time.monotonic() + timeout
+    while count() < want and time.monotonic() < deadline:
+        src.push_buffer(np.full(4, value, np.float32))
+        time.sleep(0.02)
+    return count()
 
 
 class TestReconnectWindowEdges:
@@ -183,16 +204,24 @@ class TestReconnectWindowEdges:
         """HYBRID client: the server dies and comes back on a DIFFERENT
         port, re-advertised through the broker. The reconnect path
         re-discovers on every attempt, so the stream resumes on the new
-        address without a pipeline restart. The port must resume; where
-        the reference's run resumed too, both answer the same values."""
-        ref = _hybrid_run("ref")
+        address without a pipeline restart. The port must resume: three
+        answers of the moved server, the last answer its own. The
+        reference's run is compared only where it completed (it is
+        unsteady: ROADMAP.md §C); then both resumed with the same
+        value."""
         port = _hybrid_run("port")
         assert port[0] >= 2 and port[1] >= 3, \
             f"port stream did not resume on new port: {port}"
         assert port[2] == 5.0
         assert "ERROR" not in port[3], port
-        if ref[1] >= 3:
-            assert port[2] == ref[2]
+        try:
+            ref = _hybrid_run("ref")
+        except Exception:   # noqa: BLE001 — the reference's own run failed
+            ref = None
+        if ref is not None and ref[1] >= 3:
+            # both answered the moved server's frames, and nothing but
+            # echoes of the frames each sent
+            assert set(port[4]) <= {1.0, 5.0} and set(ref[4]) <= {1.0, 5.0}
 
     @pytest.mark.parametrize("side", SIDES)
     def test_reconnect_success_at_window_edge(self, side):

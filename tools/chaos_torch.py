@@ -841,8 +841,10 @@ def _leak_verdict(grace_s: float = 5.0):
 def main(argv=None) -> int:
     global DEVICE, PROC_MODEL
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=sorted(SCENARIOS), default=None,
-                    help="run one scenario (default: all)")
+    ap.add_argument("--scenario", choices=sorted(SCENARIOS), nargs="+",
+                    default=None,
+                    help="run these scenarios (default: all; with --smoke, "
+                         "the smoke set)")
     ap.add_argument("--smoke", action="store_true",
                     help="CI: " + " + ".join(SMOKE) + ", short duration")
     ap.add_argument("--duration", type=float, default=None,
@@ -867,12 +869,12 @@ def main(argv=None) -> int:
         sanitizer.enable(hold_warn_s=5.0)
     if os.environ.get("NNS_LEAKCHECK") == "1":
         sanitizer.enable_leakcheck()
-    if args.smoke:
+    if args.scenario:
+        scenarios = list(args.scenario)
+        duration = args.duration or (2.0 if args.smoke else 4.0)
+    elif args.smoke:
         scenarios = list(SMOKE)
         duration = args.duration or 2.0
-    elif args.scenario:
-        scenarios = [args.scenario]
-        duration = args.duration or 4.0
     else:
         scenarios = sorted(SCENARIOS)
         duration = args.duration or 4.0
